@@ -361,6 +361,9 @@ def main() -> int:
         launches, wall, rate = workflow_phase(vol_np, work, card)
     for name, rec in records.items():
         rec["launches"] = launches[name]
+        log(f"kernel {name}: {rec['launches']} launches in the workflow, {rec['ms']:.3f} ms "
+            f"per launch, plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), max abs err {rec['max_abs_err']}")
     log(f"{card}: WatershedWorkflow {vol_np.shape} {rate:.6g} voxels/s ({wall:.3f} s)")
     log(json.dumps({"kernels": [records["flood_slices"], records["dtws_slices"]]}))
     log(json.dumps({"ok": True, "device": {

@@ -33,14 +33,6 @@ DEFAULT_GLOBAL_CONFIG: Dict[str, Any] = {
     "device": "cuda",
 }
 
-DEFAULT_TASK_CONFIG: Dict[str, Any] = {
-    "threads_per_job": 1,
-    "read_threads": 4,
-    "time_limit": 60,
-    "mem_limit": 2,
-}
-
-
 def _config_path(config_dir: str, name: str) -> str:
     return os.path.join(config_dir, f"{name}.config")
 
@@ -78,8 +70,6 @@ def global_config(config_dir: Optional[str]) -> Dict[str, Any]:
 def task_config(
     config_dir: Optional[str], task_name: str, defaults: Optional[Dict[str, Any]] = None
 ) -> Dict[str, Any]:
-    conf = dict(DEFAULT_TASK_CONFIG)
-    if defaults:
-        conf.update(defaults)
+    conf = dict(defaults or {})
     conf.update(read_config(config_dir, task_name))
     return conf

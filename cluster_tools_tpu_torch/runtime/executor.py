@@ -86,11 +86,6 @@ class CudaExecutor(BaseExecutor):
     name = "cuda"
 
     def run_blocks(self, task, blocking, block_ids, config) -> RunResult:
-        staged = tuple(
-            getattr(task, n, None) for n in ("read_batch", "compute_batch", "write_batch")
-        )
-        if not all(staged):
-            return LocalExecutor(self.config).run_blocks(task, blocking, block_ids, config)
         size = resolve_batch_size(config)
         ids = list(block_ids)
         chunks = [ids[i: i + size] for i in range(0, len(ids), size)]
@@ -99,7 +94,7 @@ class CudaExecutor(BaseExecutor):
         failed: List[int] = []
         errors: Dict[int, str] = {}
         stage_s = {"read": 0.0, "compute": 0.0, "write": 0.0}
-        read_fn, compute_fn, write_fn = staged
+        read_fn, compute_fn, write_fn = task.read_batch, task.compute_batch, task.write_batch
 
         lock = threading.Lock()
 

@@ -92,7 +92,7 @@ class Task:
 
     @classmethod
     def default_task_config(cls) -> Dict[str, Any]:
-        return dict(cfg.DEFAULT_TASK_CONFIG)
+        return {}
 
     def get_task_config(self) -> Dict[str, Any]:
         return cfg.task_config(self.config_dir, self.task_name, self.default_task_config())

@@ -6,7 +6,7 @@ either package is read by the other:
 
   * ``.zarr`` → zarr v2 (``.zarray``, ``i.j.k`` chunk files, raw/zlib/gzip);
   * ``.n5``   → n5 (``attributes.json``, reversed dimension order, big-endian
-    mode-0 chunks, raw/gzip; mode-1 varlength chunks);
+    mode-0 chunks, raw/gzip);
   * region read/write (read-modify-write on partially covered chunks),
     ``read_chunk`` / ``write_chunk``;
   * ``RaggedDataset``: one ``.npy`` array per grid position (the per-block
@@ -29,7 +29,7 @@ import struct
 import threading
 import zlib
 from itertools import product
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
@@ -75,50 +75,9 @@ def _unsupported_codec(what: str, path: str):
     )
 
 
-class Attributes:
-    """JSON-file-backed attribute mapping (``.zattrs`` / n5 ``attributes.json``)."""
-
-    _N5_RESERVED = ("dimensions", "blockSize", "dataType", "compression", "n5")
-
-    def __init__(self, path: str, reserved: Sequence[str] = ()):
-        self._path = path
-        self._reserved = tuple(reserved)
-
-    def _load(self) -> Dict[str, Any]:
-        try:
-            return _read_json(self._path)
-        except FileNotFoundError:
-            return {}
-
-    def __getitem__(self, key: str) -> Any:
-        return self._load()[key]
-
-    def __setitem__(self, key: str, value: Any) -> None:
-        self.update({key: value})
-
-    def __contains__(self, key: str) -> bool:
-        return key in self._load() and key not in self._reserved
-
-    def get(self, key: str, default: Any = None) -> Any:
-        return self._load().get(key, default)
-
-    def update(self, other: Dict[str, Any]) -> None:
-        for k in other:
-            if k in self._reserved:
-                raise KeyError(f"attribute key {k!r} is reserved")
-        obj = self._load()
-        obj.update(other)
-        _write_json(self._path, obj)
-
-    def keys(self):
-        return [k for k in self._load() if k not in self._reserved]
-
-
 class _ZarrFormat:
     array_meta = ".zarray"
     group_meta = ".zgroup"
-    attrs_file = ".zattrs"
-    attrs_reserved: Tuple[str, ...] = ()
 
     @staticmethod
     def chunk_key(grid_pos, separator: str = ".") -> str:
@@ -194,8 +153,6 @@ class _ZarrFormat:
 class _N5Format:
     array_meta = "attributes.json"
     group_meta = "attributes.json"
-    attrs_file = "attributes.json"
-    attrs_reserved = Attributes._N5_RESERVED
 
     _DTYPES = {
         "uint8": "|u1", "uint16": ">u2", "uint32": ">u4", "uint64": ">u8",
@@ -236,27 +193,22 @@ class _N5Format:
         }
 
     @staticmethod
-    def pack_chunk(data: np.ndarray, dims, compression, n_varlen=None) -> bytes:
-        be = data.astype(_N5Format._DTYPES[data.dtype.name], copy=False)
-        mode = 0 if n_varlen is None else 1
-        header = struct.pack(">HH", mode, len(dims)) + struct.pack(
-            f">{len(dims)}I", *reversed(tuple(dims))
+    def encode_chunk(data: np.ndarray, chunks, compression) -> bytes:
+        # mode-0 header: mode, ndim, then the dims in n5 (reversed) order, BE
+        header = struct.pack(">HH", 0, data.ndim) + struct.pack(
+            f">{data.ndim}I", *reversed(data.shape)
         )
-        if n_varlen is not None:
-            header += struct.pack(">I", n_varlen)
+        be = data.astype(_N5Format._DTYPES[data.dtype.name], copy=False)
         raw = np.ascontiguousarray(be).tobytes()
         return header + (_gzip_compress(raw) if compression else raw)
 
     @staticmethod
-    def encode_chunk(data: np.ndarray, chunks, compression) -> bytes:
-        return _N5Format.pack_chunk(data, data.shape, compression)
-
-    @staticmethod
     def decode_chunk(payload: bytes, chunk_shape, dtype: np.dtype, compression):
         mode, ndim = struct.unpack(">HH", payload[:4])
+        if mode != 0:
+            raise ValueError(f"n5 chunk mode {mode} (varlength) is not supported")
         dims = struct.unpack(f">{ndim}I", payload[4: 4 + 4 * ndim])
-        offset = 4 + 4 * ndim + (4 if mode == 1 else 0)
-        raw = payload[offset:]
+        raw = payload[4 + 4 * ndim:]
         if compression:
             raw = gzip.decompress(raw)
         arr = np.frombuffer(raw, dtype=_N5Format._DTYPES[dtype.name]).astype(dtype)
@@ -303,15 +255,10 @@ class Dataset:
         self.compression = spec["compression"]
         self.fill_value = spec["fill_value"]
         self._separator = spec["separator"]
-        self.attrs = Attributes(os.path.join(path, fmt.attrs_file), fmt.attrs_reserved)
 
     @property
     def ndim(self) -> int:
         return len(self.shape)
-
-    @property
-    def chunk_grid(self) -> Tuple[int, ...]:
-        return tuple(_ceil_div(s, c) for s, c in zip(self.shape, self.chunks))
 
     def _chunk_path(self, grid_pos) -> str:
         return os.path.join(self.path, self._fmt.chunk_key(grid_pos, self._separator))
@@ -428,9 +375,6 @@ class Dataset:
             chunk[dst] = value[src]
             self.write_chunk(grid_pos, chunk)
 
-    def __repr__(self) -> str:
-        return f"Dataset({self.path!r}, shape={self.shape}, chunks={self.chunks}, dtype={self.dtype})"
-
 
 class RaggedDataset:
     """One 1d array of any length per grid position, stored as ``.npy``."""
@@ -485,10 +429,6 @@ class Group:
         if not readonly:
             os.makedirs(self.path, exist_ok=True)
             fmt.init_group(self.path)
-        self.attrs = Attributes(
-            os.path.join(self.path, fmt.attrs_file),
-            tuple(k for k in fmt.attrs_reserved if k != "dataType"),
-        )
 
     def __contains__(self, key: str) -> bool:
         return os.path.isdir(os.path.join(self.path, key))
@@ -509,11 +449,6 @@ class Group:
             raise PermissionError(f"container opened read-only: {self.path}")
         rel = os.path.join(self._rel, key) if self._rel else key
         return Group(self._root, self._fmt, rel, readonly=self._readonly)
-
-    def keys(self):
-        if not os.path.isdir(self.path):
-            return []
-        return sorted(k for k in os.listdir(self.path) if os.path.isdir(os.path.join(self.path, k)))
 
     def create_dataset(
         self,
@@ -584,7 +519,7 @@ class Group:
 
 
 class File(Group):
-    """Root of a zarr/n5 container; a context manager like h5py.File."""
+    """Root of a zarr/n5 container."""
 
     def __init__(self, path: str, mode: str = "a"):
         fmt = _format_for(path)
@@ -592,12 +527,6 @@ class File(Group):
             raise FileNotFoundError(path)
         super().__init__(path, fmt, readonly=(mode == "r"))
         self.mode = mode
-
-    def __enter__(self) -> "File":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        pass
 
 
 def file_reader(path: str, mode: str = "a") -> File:

@@ -36,7 +36,6 @@ def test_port_imports_no_jax(entry):
         body = """
             import importlib.util
             spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-            importlib.util.module_from_spec(spec)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         """
     code = "import sys\nbefore = set(sys.modules)\n" + textwrap.dedent(body) + textwrap.dedent("""

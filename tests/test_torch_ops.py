@@ -131,7 +131,7 @@ def test_dt_seeds_per_slice_matches_jax(sigma):
 
     raw = ndimage.gaussian_filter(np.random.default_rng(4).random((3, 16, 64)), 1.5)
     fg = raw < np.quantile(raw, 0.6)
-    dt = np.asarray(jax_edt(jnp.asarray(fg)))
+    dt = np.array(jax_edt(jnp.asarray(fg)))
     want, nw = jax_dt_seeds(jnp.asarray(dt), sigma=sigma, per_slice=True)
     got, n = dt_seeds(torch.from_numpy(dt)[None], sigma=sigma)
     assert int(n[0]) == int(nw)

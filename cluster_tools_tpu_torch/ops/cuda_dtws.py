@@ -13,12 +13,13 @@ Numbering is per block: seed roots are block-flat indices (z*H + row)*W + col
 with z the slice within its block, ranked per block; the size filter's
 segment bound is ``prod(block)//2 + 2`` per block.
 
-Float arithmetic is pinned (each product and sum rounded on its own, taps
-summed left to right, ``1 - alpha`` rounded from float64), so the kernel and
-the plain version agree bit for bit.  The JAX package on the CPU contracts
-multiply-adds into FMAs and sums its gaussian taps in the convolution
-library's order, so its height map differs from the port's in the last bits
-(a few 1e-7); labels agree.
+Float arithmetic is pinned (taps summed left to right with one fused
+multiply-add each, the height-map blend one fused multiply-add, every other
+operation rounded on its own, ``1 - alpha`` rounded from float64), so the
+kernel and the plain version agree bit for bit.  The JAX XLA path sums its
+gaussian taps in its convolution library's order, so its height map differs
+from the port's in the last bits (a few 1e-7); labels agree (see ROADMAP
+Queue C for the near-ties of padded blocks).
 
 ``dtws_slices`` takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises.

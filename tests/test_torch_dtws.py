@@ -9,7 +9,9 @@ tap sums are contracted by the CPU compiler in its own way — a few 1e-7.
 The port's ``dt_watershed`` on the CPU (kernel 2's plain version, seed
 ranking, size filter with kernel 1's plain version) is held against the JAX
 ``dt_watershed`` (XLA) on the configurations of the JAX package's own kernel
-test: labels and seed counts exactly."""
+test: labels and seed counts exactly.  The CUDA kernel itself is held
+against the plain version on the card by ``tests/test_torch_cuda_kernels.py``
+and ``chip_smoke.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,17 +21,8 @@ from scipy import ndimage
 
 from cluster_tools_tpu.ops.pallas_dtws import dtws_slices as jax_dtws_pallas
 from cluster_tools_tpu.ops.watershed import dt_watershed as jax_dt_watershed
-from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices, dtws_slices_plain
-from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
+from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
 from cluster_tools_tpu_torch.ops.watershed import dt_watershed
-
-
-@pytest.fixture
-def cuda_device():
-    """The card, for tests of the CUDA kernels; they skip without one."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
 
 
 def _volume(seed, shape=(3, 16, 128), sigma=1.0):
@@ -111,32 +104,3 @@ def test_dt_watershed_unported_modes_raise():
         dt_watershed(x, apply_dt_2d=False)
     with pytest.raises(NotImplementedError):
         dt_watershed(x, non_maximum_suppression=True)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 3, 16, 128), (1, 4, 37, 53)])
-def test_dtws_kernel_equals_plain_on_card(shape, cuda_device):
-    rng = np.random.default_rng(11)
-    raw = ndimage.gaussian_filter(rng.random(shape), (0, 0.5, 2.0, 2.0)).astype(np.float32)
-    raw = (raw - raw.min()) / (raw.max() - raw.min())
-    x = torch.from_numpy(raw).to(cuda_device)
-    m = torch.from_numpy(rng.random(shape) < 0.95).to(cuda_device)
-    v = torch.ones_like(m)
-    v[..., -3:, :] = False
-    before = dtws_slices.launches
-    got = dtws_slices(x, m, v, threshold=0.5)
-    assert dtws_slices.launches == before + 1
-    want = dtws_slices_plain(x, m, v, threshold=0.5)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
-
-
-@pytest.mark.cuda
-def test_dt_watershed_on_card_launches_both_kernels(cuda_device):
-    raw = torch.from_numpy(_volume(0)).to(cuda_device)
-    d0, f0 = dtws_slices.launches, flood_slices.launches
-    got, n = dt_watershed(raw, threshold=0.6, size_filter=5)
-    assert dtws_slices.launches == d0 + 1 and flood_slices.launches == f0 + 1
-    want, nw = dt_watershed(raw.cpu(), threshold=0.6, size_filter=5)
-    assert int(n) == int(nw)
-    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

@@ -5,8 +5,7 @@ against the JAX package's XLA fixpoint (``_seeded_watershed_scan`` with
 ``per_slice=True``) and its Pallas kernel in interpret mode, with exact label
 equality: all three compute the unique lexicographic (pass height, hops,
 label) fixpoint.  The CUDA kernel itself is held against the plain version
-on the card (``cuda``-marked test, skipped without one; ``chip_smoke.py``
-does the same at the production shape)."""
+on the card by ``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,15 +16,7 @@ from scipy import ndimage
 from cluster_tools_tpu.ops.dt import distance_transform_2d_stack
 from cluster_tools_tpu.ops.pallas_flood import flood_slices as jax_flood_pallas
 from cluster_tools_tpu.ops.watershed import _seeded_watershed_scan, dt_seeds
-from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices, flood_slices_plain
-
-
-@pytest.fixture
-def cuda_device():
-    """The card, for tests of the CUDA kernels; they skip without one."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
+from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
 
 
 def _volume(shape, seed):
@@ -112,24 +103,3 @@ def test_flood_rejects_mismatched_shapes():
     with pytest.raises(ValueError):
         flood_slices(torch.zeros(2, 4, 4), torch.zeros(2, 4, 5, dtype=torch.int32),
                      torch.ones(2, 4, 4, dtype=torch.bool))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "empty", "serpentine"])
-def test_flood_kernel_equals_plain_on_card(case, cuda_device):
-    if case == "random":
-        hmap = _volume((4, 40, 70), 1)
-        mask = hmap < 0.6
-        rng = np.random.default_rng(1)
-        seeds = np.zeros(hmap.shape, np.int32)
-        idx = rng.choice(hmap.size, 60, replace=False)
-        seeds.flat[idx] = np.arange(1, 61)
-    elif case == "empty":
-        hmap, seeds, mask = _empty_slices()
-    else:
-        hmap, seeds, mask = _serpentine(32, 64)
-    args = [torch.from_numpy(a).to(cuda_device) for a in (hmap, seeds, mask)]
-    before = flood_slices.launches
-    got = flood_slices(*args)
-    assert flood_slices.launches == before + 1
-    torch.testing.assert_close(got, flood_slices_plain(*args), rtol=0, atol=0)

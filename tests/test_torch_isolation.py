@@ -21,10 +21,13 @@ from cluster_tools_tpu_torch.utils import file_reader
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("entry", ["package", "chip_smoke"])
+@pytest.mark.parametrize(
+    "entry", ["package", "chip_smoke.py", "tests/test_torch_cuda_kernels.py"]
+)
 def test_port_imports_no_jax(entry):
-    """Import every submodule of the port (or the chip smoke script) in a
-    fresh interpreter and list what came along."""
+    """Import every submodule of the port (or the chip smoke script, or the
+    card tests that run where JAX is absent) in a fresh interpreter and list
+    what came along."""
     if entry == "package":
         body = """
             import importlib, pkgutil
@@ -33,9 +36,9 @@ def test_port_imports_no_jax(entry):
                 importlib.import_module(m.name)
         """
     else:
-        body = """
+        body = f"""
             import importlib.util
-            spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+            spec = importlib.util.spec_from_file_location("entry", {entry!r})
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         """
     code = "import sys\nbefore = set(sys.modules)\n" + textwrap.dedent(body) + textwrap.dedent("""

@@ -51,13 +51,14 @@ def _config(tmp_path, halo, name="configs", **gconf):
     return config_dir
 
 
-def _run(package, tmp_path, path, config_dir, key):
+def _run(package, tmp_path, path, config_dir, key, mask_key=None):
     wf_cls, run = (
         (JaxWatershedWorkflow, jax_build) if package == "jax" else (WatershedWorkflow, build)
     )
     wf = wf_cls(
         str(tmp_path / f"tmp_{key}"), config_dir,
         input_path=path, input_key="bnd", output_path=path, output_key=key,
+        mask_path=path if mask_key else None, mask_key=mask_key,
     )
     assert run([wf])
     return wf
@@ -99,6 +100,20 @@ def test_workflow_byte_identical_to_jax(tmp_path, seed):
     _run("torch", tmp_path, path, config_dir, "ws_torch")
     got = _assert_identical(tmp_path, path, shape)
     assert (got[raw >= 0.5] == 0).all()  # labels only on the foreground
+
+
+def test_workflow_with_mask_byte_identical_to_jax(tmp_path):
+    shape = (24, 48, 48)
+    path, raw = _volume(tmp_path, shape, 11)
+    mask = ndimage.gaussian_filter(np.random.default_rng(12).random(shape), 3) > 0.49
+    jax_reader(path).create_dataset(
+        "mask", data=mask.astype("uint8"), chunks=(12, 24, 24), compression="gzip"
+    )
+    config_dir = _config(tmp_path, [0, 0, 0])
+    _run("jax", tmp_path, path, config_dir, "ws_jax", mask_key="mask")
+    _run("torch", tmp_path, path, config_dir, "ws_torch", mask_key="mask")
+    got = _assert_identical(tmp_path, path, shape)
+    assert (got[~mask] == 0).all() and (got[mask & (raw < 0.5)] > 0).any()
 
 
 @pytest.fixture

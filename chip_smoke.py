@@ -5,23 +5,35 @@
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
 
-  1. device and build: the card's name and power limit (nvidia-smi), the two
+  1. device and build: the card's name and power limit (nvidia-smi), the
      CUDA kernels built from ``cluster_tools_tpu_torch/csrc`` with nvcc, one
      compiler per source, all started together;
-  2. kernels against their plain PyTorch versions on the card, on a batch of
-     (32, 256, 256) blocks of the synthetic volume (the workflow's batch), a
-     ragged edge block (29, 226, 226) and a serpentine corridor: labels and
-     seed roots exactly, the height map exactly (the kernels round every
-     float operation as the plain versions do); kernel and plain times;
-  3. the workflow: a seeded synthetic boundary volume at CREMI sample A's
-     shape (125, 1250, 1250), made the way ``bench.make_volume`` makes it,
-     written to n5 with raw chunks; ``build([WatershedWorkflow(...)])`` on
-     the ``cuda`` target with the default watershed config and blocks
+  2. kernels against their plain PyTorch versions on the card.  Kernels 1-2
+     (watershed) on a batch of (32, 256, 256) blocks of the synthetic volume
+     (the workflow's batch), a ragged edge block (29, 226, 226) and a
+     serpentine corridor: labels and seed roots exactly, the height map
+     exactly (the kernels round every float operation as the plain versions
+     do).  Kernels 4-5 (CC) on the same blocks thresholded (``vol < 0.5``),
+     the ragged block, a serpentine corridor and, for kernel 5, the
+     (32, 640, 640) blocks of the second components run: labels exactly.
+     Kernel and plain times at the workflows' batch shapes;
+  3. the watershed workflow: a seeded synthetic boundary volume at CREMI
+     sample A's shape (125, 1250, 1250), made the way ``bench.make_volume``
+     makes it, written to n5 with raw chunks; ``build([WatershedWorkflow(...)])``
+     on the ``cuda`` target with the default watershed config and blocks
      (32, 256, 256).  Both kernels' launch counts must rise in this run; the
      output is checked (shape, labels only on the foreground, ids unique per
      block through the offsets) and two blocks re-run through the plain
      versions on the card must equal it byte for byte;
-  4. one JSON line listing both kernels, then the result line.
+  4. the thresholded-components workflow on the same volume
+     (``threshold_mode="less"``: the cell interior), ``cuda`` target, twice:
+     blocks (32, 256, 256), whose slices take kernel 4, and blocks
+     (32, 640, 640), whose slices exceed the whole-slice limit and take
+     kernel 5.  The kernel's launch count must rise in its run; the output
+     must have scipy's 6-connected partition of ``vol < 0.5`` with ids
+     1..n, and every block's local labels (before the merge) must equal
+     scipy's labels of that block;
+  5. one JSON line listing the four kernels, then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -45,6 +57,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 CREMI_A = (125, 1250, 1250)
 BLOCK = (32, 256, 256)
+BLOCK_WIDE = (32, 640, 640)  # 640 x 640 slices exceed the whole-slice limit
 THRESHOLD = 0.5
 
 
@@ -250,7 +263,180 @@ def kernel_phase(vol, dev, batch: int):
     }
 
 
-def workflow_phase(vol_np, work: str, card: str):
+def cc_kernel_phase(vol, dev, batch: int):
+    """Phase 2, kernels 4-5: each against its plain version on the card.
+    Returns the per-kernel records of the kernels line."""
+    from cluster_tools_tpu_torch.ops.cc import serpentine_mask
+    from cluster_tools_tpu_torch.ops.cuda_cc import (
+        WHOLE_SLICE_MAX, cc_slices, cc_slices_plain, cc_tiles, cc_tiles_plain, default_tile,
+    )
+
+    def blocks_of(block, corners):
+        zb, yb, xb = block
+        return torch.cat([
+            vol[z:z + zb, y:y + yb, x:x + xb] < THRESHOLD for z, y, x in corners
+        ]).contiguous()
+
+    zb, yb, xb = BLOCK
+    corners = [
+        (z, y, x)
+        for z in range(0, vol.shape[0] - zb + 1, zb)
+        for y in range(0, vol.shape[1] - yb + 1, yb)
+        for x in range(0, vol.shape[2] - xb + 1, xb)
+    ][:batch]
+    main = blocks_of(BLOCK, corners)
+    wz, wy, wx = BLOCK_WIDE
+    z_last, y_last, x_last = (max(s - b, 0) for s, b in zip(vol.shape, BLOCK_WIDE))
+    wide_corners = [
+        (z, y, x)
+        for z in sorted({min(k * wz, z_last) for k in range(3)} | {z_last})
+        for y, x in ((0, 0), (y_last, x_last))
+    ][:batch]
+    wide = blocks_of(BLOCK_WIDE, wide_corners)
+    ragged = (vol[-29:, -226:, -226:] < THRESHOLD).contiguous()
+    cases = {
+        "main": (main, zb),
+        "ragged": (ragged, ragged.shape[0]),
+        "serpentine": (torch.from_numpy(serpentine_mask((2, yb, xb))).to(dev), 2),
+        "wide": (wide, wz),
+    }
+    for name, (m, depth) in cases.items():
+        runs = [("cc_tiles", cc_tiles, cc_tiles_plain, (default_tile(*m.shape[1:]),))]
+        if m.shape[1] * m.shape[2] <= WHOLE_SLICE_MAX:
+            runs.insert(0, ("cc_slices", cc_slices, cc_slices_plain, ()))
+        for kname, kernel, plain, extra in runs:
+            got = kernel(m, *extra, depth=depth)
+            want = plain(m, *extra, depth)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{kname} {name}: labels differ from the plain version "
+                                     f"({int((got != want).sum())} voxels)")
+            log(f"{kname} {name} {tuple(m.shape)}: equal to plain")
+
+    records = {}
+    for kname, kernel, plain, m, depth, extra, replaces in (
+        ("cc_slices", cc_slices, cc_slices_plain, main, zb, (), "cluster_tools_tpu/ops/pallas_cc.py:89"),
+        ("cc_tiles", cc_tiles, cc_tiles_plain, wide, wz, (default_tile(wy, wx),),
+         "cluster_tools_tpu/ops/pallas_cc.py:143"),
+    ):
+        n_rounds = m.shape[0] if kname == "cc_slices" else (
+            m.shape[0] * -(-wy // extra[0][0]) * -(-wx // extra[0][1]))
+        rounds = torch.zeros(n_rounds, dtype=torch.int32, device=dev)
+        ms = cuda_ms(lambda: kernel(m, *extra, depth=depth, rounds=rounds), 3)
+        plain_ms = cuda_ms(lambda: plain(m, *extra, depth), 1)
+        bound = 5 * m.numel() / HBM_BYTES_PER_S * 1e3  # bool mask in, int32 labels out
+        r = rounds.float()
+        log(f"{kname} {tuple(m.shape)}{' tile ' + str(extra[0]) if extra else ''}: "
+            f"{ms:.3f} ms/launch, plain {plain_ms:.1f} ms, bound {bound:.4f} ms (bytes); "
+            f"rounds per {'slice' if kname == 'cc_slices' else 'tile'} max {int(r.max())} "
+            f"mean {r.mean().item():.2f}")
+        records[kname] = dict(
+            name=kname, route="cuda", source="cluster_tools_tpu_torch/csrc/cc.cuh",
+            replaces=replaces, max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes", library_ms=None,
+        )
+    return records
+
+
+def check_partition(out: np.ndarray, ref: np.ndarray, n_ref: int) -> int:
+    """``out`` must label ``ref``'s components (scipy labels 1..n_ref) with
+    consecutive ids 1..n and the same partition, in O(voxels): map each
+    output id to the scipy id of one of its voxels, then the map must explain
+    every voxel and be a bijection onto 1..n_ref."""
+    ids = out.reshape(-1).view(np.int64)
+    r = ref.reshape(-1).astype(np.int64)
+    if not np.array_equal(ids == 0, r == 0):
+        raise AssertionError("labelled voxels differ from the foreground")
+    n = int(ids.max())
+    to_ref = np.zeros(n + 1, dtype=np.int64)
+    to_ref[ids] = r
+    if not np.array_equal(to_ref[ids], r):
+        raise AssertionError("an output id covers two scipy components")
+    if (np.bincount(ids, minlength=n + 1)[1:] == 0).any():
+        raise AssertionError("output ids are not consecutive")
+    used = np.bincount(to_ref[1:], minlength=n_ref + 1)
+    if used[0] or (used[1:] != 1).any():
+        raise AssertionError("a scipy component is split or missing")
+    return n
+
+
+def components_phase(path: str, work: str, block, card: str, fg, ref, n_ref: int, kernel):
+    """Phase 4: ``ThresholdedComponentsWorkflow`` end to end on the card;
+    ``kernel`` (the wrapper of the CC kernel this block shape routes to)
+    must be launched, the output must have scipy's partition of ``fg``, and
+    each block's local labels must equal scipy's labels of the block."""
+    from scipy import ndimage
+
+    from cluster_tools_tpu_torch import ThresholdedComponentsWorkflow, build
+    from cluster_tools_tpu_torch.ops.cuda_cc import cc_slices, cc_tiles
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    tag = "x".join(str(b) for b in block)
+    config_dir = os.path.join(work, f"configs_cc_{tag}")
+    cfg.write_global_config(config_dir, {
+        "block_shape": list(block), "target": "cuda", "device": "cuda",
+        "max_jobs": min(8, os.cpu_count() or 1),
+    })
+    cfg.write_config(config_dir, "block_components", {
+        "threshold": THRESHOLD, "threshold_mode": "less", "sigma": 0.0, "connectivity": 1,
+    })
+    wf = ThresholdedComponentsWorkflow(
+        os.path.join(work, f"tmp_cc_{tag}"), config_dir, input_path=path, input_key="raw",
+        output_path=path, output_key=f"cc_{tag}",
+    )
+    cc_slices.launches = 0
+    cc_tiles.launches = 0
+    t0 = time.perf_counter()
+    if not build([wf]):
+        raise AssertionError("components workflow build failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"cc_slices": cc_slices.launches, "cc_tiles": cc_tiles.launches}
+    if launches[kernel] == 0:
+        raise AssertionError(f"the components run at blocks {block} never launched {kernel}")
+    vox = int(np.prod(ref.shape))
+    log(f"components {tag}: {ref.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on {card}; "
+        f"launches {launches}")
+    # per task, upstream first: seconds, and the cuda target's stage sums
+    chain, node = [], wf.requires()[0]
+    while node is not None:
+        chain.append(node)
+        node = node.requires()[0] if node.requires() else None
+    for node in reversed(chain):
+        status = node.output().read()
+        seconds = status.get("runtime_s", sum(status.get("block_runtimes", [])))
+        stages = {t["label"]: round(t["seconds"], 3) for t in status.get("timings", [])
+                  if t["label"].startswith("stage_") or t["label"] == "blocks_total"}
+        log(f"components {tag} task {node.identifier}: {seconds:.3f} s {stages}")
+    t0 = time.perf_counter()
+    out = file_reader(path, "r")[f"cc_{tag}"][:]
+    if out.shape != ref.shape or out.dtype != np.uint64:
+        raise AssertionError(f"output {out.shape} {out.dtype}")
+    n = check_partition(out, ref, n_ref)
+    del out
+    log(f"components {tag}: {n} components, partition equal to scipy's, ids 1..{n} "
+        f"(checked in {time.perf_counter() - t0:.1f} s)")
+    # block-local labels (before the merge): scipy numbers components in
+    # raster order of their first voxel, the port in minimal-flat-index
+    # order, so every block must equal scipy's labeling of the block exactly
+    t0 = time.perf_counter()
+    local = file_reader(path, "r")[f"cc_{tag}_blocks"]
+    blocking = Blocking(ref.shape, block)
+    n_local = 0
+    for bid in range(blocking.n_blocks):
+        bb = blocking.block(bid).slicing
+        want, k = ndimage.label(fg[bb])
+        if not np.array_equal(local[bb], want):
+            raise AssertionError(f"components {tag}: block {bid} differs from scipy's labels")
+        n_local += k
+    log(f"components {tag}: all {blocking.n_blocks} blocks' local labels equal scipy's "
+        f"({n_local} block-local components, checked in {time.perf_counter() - t0:.1f} s)")
+    return launches, wall, vox / wall
+
+
+def workflow_phase(vol_np, path: str, work: str, card: str):
     """Phase 3: the workflow end to end on the card, then its checks."""
     from cluster_tools_tpu_torch import WatershedWorkflow, build
     from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
@@ -260,10 +446,6 @@ def workflow_phase(vol_np, work: str, card: str):
     from cluster_tools_tpu_torch.utils import file_reader
     from cluster_tools_tpu_torch.utils.blocking import Blocking
 
-    path = os.path.join(work, "cremi_a.n5")
-    t0 = time.perf_counter()
-    file_reader(path).create_dataset("raw", data=vol_np, chunks=BLOCK, compression="raw")
-    log(f"setup: wrote {vol_np.shape} raw n5 in {time.perf_counter() - t0:.1f} s")
     config_dir = os.path.join(work, "configs")
     cfg.write_global_config(
         config_dir, {"block_shape": list(BLOCK), "target": "cuda", "device": "cuda"}
@@ -354,18 +536,42 @@ def main() -> int:
     log(f"setup: synthetic volume {shape} in {time.perf_counter() - t0:.1f} s, "
         f"boundary fraction {float((vol >= THRESHOLD).float().mean()):.4f}")
     records = kernel_phase(vol, dev, args.batch)
+    records.update(cc_kernel_phase(vol, dev, args.batch))
     vol_np = vol.cpu().numpy()
     del vol
     torch.cuda.empty_cache()
+    from scipy import ndimage
+
+    from cluster_tools_tpu_torch.utils import file_reader
+
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
-        launches, wall, rate = workflow_phase(vol_np, work, card)
+        path = os.path.join(work, "cremi_a.n5")
+        t0 = time.perf_counter()
+        file_reader(path).create_dataset("raw", data=vol_np, chunks=BLOCK, compression="raw")
+        log(f"setup: wrote {vol_np.shape} raw n5 in {time.perf_counter() - t0:.1f} s")
+        launches, wall, rate = workflow_phase(vol_np, path, work, card)
+        t0 = time.perf_counter()
+        fg = vol_np < THRESHOLD
+        ref, n_ref = ndimage.label(fg)
+        log(f"setup: scipy labelled vol < {THRESHOLD}: {n_ref} components in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rates = {}
+        for block, kernel in ((BLOCK, "cc_slices"), (BLOCK_WIDE, "cc_tiles")):
+            cc_launches, cc_wall, cc_rate = components_phase(
+                path, work, block, card, fg, ref, n_ref, kernel)
+            launches[kernel] = cc_launches[kernel]
+            rates[block] = (cc_wall, cc_rate)
     for name, rec in records.items():
         rec["launches"] = launches[name]
-        log(f"kernel {name}: {rec['launches']} launches in the workflow, {rec['ms']:.3f} ms "
+        log(f"kernel {name}: {rec['launches']} launches in its workflow run, {rec['ms']:.3f} ms "
             f"per launch, plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), max abs err {rec['max_abs_err']}")
     log(f"{card}: WatershedWorkflow {vol_np.shape} {rate:.6g} voxels/s ({wall:.3f} s)")
-    log(json.dumps({"kernels": [records["flood_slices"], records["dtws_slices"]]}))
+    for block, (cc_wall, cc_rate) in rates.items():
+        log(f"{card}: ThresholdedComponentsWorkflow {vol_np.shape} blocks {block} "
+            f"{cc_rate:.6g} voxels/s ({cc_wall:.3f} s)")
+    log(json.dumps({"kernels": [records[k] for k in (
+        "flood_slices", "dtws_slices", "cc_slices", "cc_tiles")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

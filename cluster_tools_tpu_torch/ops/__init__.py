@@ -1,2 +1,2 @@
-"""Block operators in PyTorch; the two hand-written CUDA kernels live in
-``cuda_flood`` and ``cuda_dtws`` (sources under ``../csrc``)."""
+"""Block operators in PyTorch; the hand-written CUDA kernels live in
+``cuda_flood``, ``cuda_dtws`` and ``cuda_cc`` (sources under ``../csrc``)."""

@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 _OPS = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_OPS), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_OPS)), "build", "kernels")
-SOURCES = ("flood", "dtws")
+SOURCES = ("flood", "dtws", "cc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",

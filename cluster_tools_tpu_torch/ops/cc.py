@@ -1,22 +1,29 @@
-"""Connected components in plain PyTorch.
+"""Connected components in plain PyTorch, and the merges behind kernels 4-5.
 
-Port of the parts of ``cluster_tools_tpu/ops/cc.py`` the per-block watershed
-uses: per-slice 8-connected labeling of the seed maxima (connectivity 3 with
+Port of the parts of ``cluster_tools_tpu/ops/cc.py`` the ported workflows
+use: per-slice 8-connected labeling of the seed maxima (connectivity 3 with
 ``per_slice``), the partition CC of the halo re-close
-(``connected_components_labels``) and the consecutive ranking of flat-index
-roots.  Every component is identified by the minimal flat index of its
-voxels inside its block, then numbered 1..n in that order — the JAX
-package's numbering, whatever the propagation schedule.
+(``connected_components_labels``), the consecutive ranking of flat-index
+roots, and the volume CC of thresholded components.  Every component is
+identified by the minimal flat index of its voxels inside its block, then
+numbered 1..n in that order — the JAX package's numbering, whatever the
+propagation schedule.
 
 Inputs carry a leading batch axis of independent blocks: (B, Z, H, W).
-The algorithm is min-label propagation over the neighborhood plus pointer
-jumping (``lab[p] <- lab[lab[p]]``), iterated to its fixpoint.
+The plain algorithm is min-label propagation over the neighborhood plus
+pointer jumping (``lab[p] <- lab[lab[p]]``), iterated to its fixpoint.
+``connected_components`` routes a connectivity-1 volume CC with no
+``partition`` and not ``per_slice`` as the JAX package does in its Pallas
+mode: per-slice labels from kernel 4 (``cuda_cc.cc_slices``) fused along z
+by ``merge_slice_labels`` when a slice fits ``WHOLE_SLICE_MAX``, else
+per-tile labels from kernel 5 (``cuda_cc.cc_tiles``) fused over every tile
+face by ``merge_tiled_labels``.
 """
 
 from __future__ import annotations
 
 from itertools import product
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +118,83 @@ def consecutive_from_flat_roots(flat: torch.Tensor, size: int):
     return labels.to(torch.int32), n
 
 
+def _tile_grid(shape, tile) -> Tuple[int, ...]:
+    return tuple(-(-int(s) // int(t)) for s, t in zip(shape, tile))
+
+
+def _block_offsets(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(B, 1, 1, 1) first batch-flat index of each block, and the block size."""
+    b = mask.shape[0]
+    size = int(np.prod(mask.shape[1:]))
+    block0 = torch.arange(b, device=mask.device, dtype=torch.int64) * size
+    return block0.view((b,) + (1,) * (mask.dim() - 1)), size
+
+
+def _rank_batch(mask: torch.Tensor, glob: torch.Tensor, block0: torch.Tensor, size: int):
+    """Batch-flat roots (−1 background) → consecutive labels per block."""
+    b = mask.shape[0]
+    flat = torch.where(mask, glob - block0, -1)
+    labels, n = consecutive_from_flat_roots(flat.reshape(b, size), size)
+    return labels.view(mask.shape), n
+
+
+def _tile_face_pairs(L: torch.Tensor, tile: Sequence[int]):
+    """Connectivity-1 equivalences across the tile faces of a (B, Z, H, W)
+    label batch ``L`` (−1 background; ``tile`` over (Z, H, W)): the values
+    on both sides of every face adjacency where both are foreground, as
+    ``(a, b)``, or None when no axis has more than one tile.  Faces never
+    cross from one block to the next."""
+    grid = _tile_grid(L.shape[1:], tile)
+    a_parts, b_parts = [], []
+    for ax, (g, t) in enumerate(zip(grid, tile)):
+        if g == 1:
+            continue
+        idx = torch.arange(int(t) - 1, L.shape[ax + 1] - 1, int(t), device=L.device)
+        lo = torch.index_select(L, ax + 1, idx)
+        hi = torch.index_select(L, ax + 1, idx + 1)
+        ok = (lo >= 0) & (hi >= 0)
+        a_parts.append(lo[ok])
+        b_parts.append(hi[ok])
+    if not a_parts:
+        return None
+    return torch.cat(a_parts), torch.cat(b_parts)
+
+
+def merge_tiled_labels(mask: torch.Tensor, glabels: torch.Tensor, tile: Sequence[int]):
+    """Consecutive volume CC of a (B, Z, H, W) batch from tile-local minimal
+    block-flat labels (−1 background, ``tile`` over (Z, H, W)): resolve the
+    tile-face equivalences with the compact value union-find, then rank per
+    block.  Returns ``(int32 labels, n per block)``; the labels do not
+    depend on the tile."""
+    from .unionfind import apply_value_roots, merge_value_table
+
+    mask = mask.bool()
+    block0, size = _block_offsets(mask)
+    L = torch.where(glabels >= 0, glabels.to(torch.int64) + block0, -1)
+    pairs = _tile_face_pairs(L, tile)
+    if pairs is not None:
+        vals, root_vals = merge_value_table(*pairs)
+        L = apply_value_roots(L, vals, root_vals)
+    return _rank_batch(mask, L, block0, size)
+
+
+def merge_slice_labels(mask: torch.Tensor, sliced: torch.Tensor):
+    """Consecutive volume CC of a (B, Z, H, W) batch from per-slice minimal
+    block-flat labels (−1 background): one pointer-jumping union-find over
+    the z-face equivalences inside each block, then ranking per block.
+    Valid for connectivity 1 only."""
+    from .unionfind import merge_labels_device
+
+    mask = mask.bool()
+    block0, size = _block_offsets(mask)
+    glob = torch.where(sliced >= 0, sliced.to(torch.int64) + block0, -1)
+    up, dn = glob[:, :-1].reshape(-1), glob[:, 1:].reshape(-1)
+    both = (up >= 0) & (dn >= 0)
+    parent = torch.arange(mask.numel(), device=mask.device, dtype=torch.int64)
+    roots = merge_labels_device(parent, torch.stack([up[both], dn[both]], dim=1))
+    return _rank_batch(mask, roots[glob.clamp(min=0)], block0, size)
+
+
 def connected_components(
     mask: torch.Tensor,
     connectivity: int = 1,
@@ -119,7 +203,21 @@ def connected_components(
 ):
     """Consecutive labeling of a (B, Z, H, W) batch: background 0,
     components 1..n per block in minimal-flat-index order.  Returns
-    ``(int32 labels, n per block)``."""
+    ``(int32 labels, n per block)``.  A connectivity-1 volume CC with no
+    ``partition`` goes through kernel 4 or 5 and its merge (see the module
+    docstring); every other call is plain propagation."""
+    if partition is None and connectivity == 1 and not per_slice and mask.dim() == 4:
+        from .cuda_cc import WHOLE_SLICE_MAX, cc_slices, cc_tiles, default_tile
+
+        mask = mask.bool()
+        b, z, h, w = mask.shape
+        stack = mask.reshape(b * z, h, w)
+        if h * w <= WHOLE_SLICE_MAX:
+            return merge_slice_labels(mask, cc_slices(stack, depth=z).view(mask.shape))
+        tile = default_tile(h, w)
+        return merge_tiled_labels(
+            mask, cc_tiles(stack, tile, depth=z).view(mask.shape), (1,) + tile
+        )
     raw = connected_components_raw(mask, connectivity, partition, per_slice)
     b = mask.shape[0]
     size = int(np.prod(mask.shape[1:]))

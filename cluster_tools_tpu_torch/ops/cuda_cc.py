@@ -1,0 +1,167 @@
+"""Kernels 4 and 5: per-slice and per-tile connected components, written in
+CUDA for Hopper.
+
+Replace ``cluster_tools_tpu/ops/pallas_cc.py::cc_slices`` and ``::cc_tiles``.
+Both kernels (``csrc/cc.cuh``) label an (N, H, W) mask stack: every
+foreground voxel gets the minimal block-flat index of its 4-connected
+component within its slice (``cc_slices``) or within its (th, tw) tile of the
+slice (``cc_tiles``), background −1.  Slice s is depth z = s % ``depth`` of
+its block, so a (B·Z, H, W) batch gets the ids the JAX kernels give one
+(Z, H, W) volume; ``depth`` defaults to N (the stack is one block).  The
+merges of ``ops/cc.py`` (``merge_slice_labels``, ``merge_tiled_labels``)
+turn the output into volume components.
+
+``cc_slices_plain`` and ``cc_tiles_plain`` compute the same functions with
+PyTorch ops (min-label propagation plus pointer jumping, restricted to the
+slice or the tile).  The fixpoint is unique, so labels are equal exactly.
+The wrappers take the plain versions only for tensors on the CPU; for a CUDA
+tensor they launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+# the JAX package's whole-slice limit (pallas_cc.py:248: ~8 full-slice int32
+# buffers in a 12 MB VMEM budget); larger slices take the tiled kernel
+WHOLE_SLICE_MAX = 12 * 1024 * 1024 // (4 * 8)
+# kernel 5's tile: 64 x 129 int32 (row stride tw + 1) = 33 KB of shared
+# memory, six thread blocks per SM
+TILE = (64, 128)
+SMEM_MAX = 232448  # bytes of shared memory one H100 thread block may use
+
+
+def default_tile(h: int, w: int) -> Tuple[int, int]:
+    """Kernel 5's tile for (h, w) slices: ``TILE`` cut to the slice."""
+    return min(h, TILE[0]), min(w, TILE[1])
+
+
+def _check_stack(what: str, mask: torch.Tensor, depth: Optional[int]) -> int:
+    if mask.dim() != 3:
+        raise ValueError(f"{what} takes an (N, H, W) mask, got {tuple(mask.shape)}")
+    n, h, w = mask.shape
+    depth = n if depth is None else int(depth)
+    if n and (depth <= 0 or n % depth):
+        raise ValueError(f"{what}: {n} slices are not whole blocks of depth {depth}")
+    if depth * h * w >= 2**31:
+        raise ValueError(f"{what}: block-flat ids of ({depth}, {h}, {w}) exceed int32")
+    return max(depth, 1)
+
+
+def _block_base(n: int, depth: int, hw: int, device) -> torch.Tensor:
+    z = torch.arange(n, device=device, dtype=torch.int64) % depth
+    return (z * hw).view(n, 1, 1, 1)
+
+
+def _plain(mask: torch.Tensor, depth: int, partition=None) -> torch.Tensor:
+    from .cc import connected_components_raw
+
+    n, h, w = mask.shape
+    m = mask.bool().view(n, 1, h, w)
+    raw = connected_components_raw(m, 1, partition=partition, per_slice=True)
+    out = torch.where(raw >= 0, raw + _block_base(n, depth, h * w, mask.device), -1)
+    return out.view(n, h, w).to(torch.int32)
+
+
+def cc_slices_plain(mask: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
+    """Per-slice 4-connected CC of an (N, H, W) mask: int32 minimal
+    block-flat index of each voxel's in-slice component, −1 on background."""
+    return _plain(mask, _check_stack("cc_slices", mask, depth))
+
+
+def cc_tiles_plain(
+    mask: torch.Tensor, tile: Tuple[int, int], depth: Optional[int] = None
+) -> torch.Tensor:
+    """Per-tile 4-connected CC: as ``cc_slices_plain`` with connections
+    restricted to each (th, tw) tile of the slice (edge tiles cut)."""
+    depth = _check_stack("cc_tiles", mask, depth)
+    n, h, w = mask.shape
+    th, tw = int(tile[0]), int(tile[1])
+    gw = -(-w // tw)
+    rows = torch.arange(h, device=mask.device) // th
+    cols = torch.arange(w, device=mask.device) // tw
+    part = (rows[:, None] * gw + cols[None, :] + 1).expand(n, 1, h, w).contiguous()
+    return _plain(mask, depth, partition=part)
+
+
+def _launch_args(what: str, mask: torch.Tensor, rounds, n_rounds: int):
+    if mask.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {mask.device}")
+    if rounds is not None and (rounds.shape != (n_rounds,) or rounds.dtype != torch.int32
+                               or rounds.device != mask.device):
+        raise ValueError(f"{what}: rounds must be an int32 ({n_rounds},) tensor on the device")
+    mk = mask.to(torch.bool).contiguous()
+    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    return mk, out, _build.ptr(rounds) if rounds is not None else None
+
+
+def cc_slices(
+    mask: torch.Tensor,
+    depth: Optional[int] = None,
+    rounds: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-slice CC of an (N, H, W) mask: kernel 4 for CUDA tensors,
+    ``cc_slices_plain`` for CPU tensors.  ``rounds`` (int32 (N,) on the card)
+    receives each slice's fixpoint rounds."""
+    depth = _check_stack("cc_slices", mask, depth)
+    if mask.device.type == "cpu":
+        return cc_slices_plain(mask, depth)
+    n, h, w = mask.shape
+    mk, out, rounds_ptr = _launch_args("cc_slices", mask, rounds, n)
+    if out.numel() == 0:
+        return out
+    fn = _build.library("cc").ctt_cc_slices
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(mask.device):
+        rc = fn(_build.ptr(mk), _build.ptr(out), n, depth, h, w, rounds_ptr,
+                _build.stream_handle(mask.device))
+    _build.check(rc, "ctt_cc_slices")
+    cc_slices.launches += 1
+    return out
+
+
+cc_slices.launches = 0
+
+
+def cc_tiles(
+    mask: torch.Tensor,
+    tile: Tuple[int, int],
+    depth: Optional[int] = None,
+    rounds: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-tile CC of an (N, H, W) mask: kernel 5 for CUDA tensors,
+    ``cc_tiles_plain`` for CPU tensors.  ``rounds`` (int32, one entry per
+    (slice, tile)) receives each tile's fixpoint rounds."""
+    depth = _check_stack("cc_tiles", mask, depth)
+    th, tw = int(tile[0]), int(tile[1])
+    if th <= 0 or tw <= 0:
+        raise ValueError(f"cc_tiles: bad tile {tile}")
+    if mask.device.type == "cpu":
+        return cc_tiles_plain(mask, (th, tw), depth)
+    if th * (tw + 1) * 4 > SMEM_MAX:
+        raise ValueError(f"cc_tiles: tile {tile} exceeds a thread block's shared memory")
+    n, h, w = mask.shape
+    n_tiles = n * -(-h // th) * -(-w // tw)
+    mk, out, rounds_ptr = _launch_args("cc_tiles", mask, rounds, n_tiles)
+    if out.numel() == 0:
+        return out
+    if n_tiles >= 2**31:
+        raise ValueError(f"cc_tiles: {n_tiles} tiles exceed one launch")
+    fn = _build.library("cc").ctt_cc_tiles
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(mask.device):
+        rc = fn(_build.ptr(mk), _build.ptr(out), n, depth, h, w, th, tw, rounds_ptr,
+                _build.stream_handle(mask.device))
+    _build.check(rc, "ctt_cc_tiles")
+    cc_tiles.launches += 1
+    return out
+
+
+cc_tiles.launches = 0

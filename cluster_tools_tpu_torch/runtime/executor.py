@@ -12,6 +12,7 @@ Port of ``cluster_tools_tpu/runtime/executor.py``:
     the calling thread runs every ``compute_batch`` in order, a write pool
     drains batch i-1 — each stage holds at most ``pipeline_depth`` batches.
     A batch that fails degrades to per-block ``process_block`` calls.
+    Tasks without the split protocol run as on ``local``.
 
 The profiler hook and the device-buffer cache of the JAX package wait
 (ROADMAP Queue A 9).
@@ -86,6 +87,9 @@ class CudaExecutor(BaseExecutor):
     name = "cuda"
 
     def run_blocks(self, task, blocking, block_ids, config) -> RunResult:
+        if not all(hasattr(task, f) for f in ("read_batch", "compute_batch", "write_batch")):
+            # host-only block tasks (faces, write) loop over process_block
+            return LocalExecutor(self.config).run_blocks(task, blocking, block_ids, config)
         size = resolve_batch_size(config)
         ids = list(block_ids)
         chunks = [ids[i: i + size] for i in range(0, len(ids), size)]

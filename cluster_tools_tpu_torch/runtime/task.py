@@ -1,5 +1,5 @@
 """Task protocol: resumable block tasks with positive per-block completion
-records.
+records, and single-shot ``SimpleTask`` reductions.
 
 Port of ``cluster_tools_tpu/runtime/task.py`` for one process: success is a
 JSON status file per task (``done`` block list, per-attempt runtimes), a
@@ -114,6 +114,27 @@ class Task:
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.identifier})"
+
+
+class SimpleTask(Task):
+    """A single-shot (non-blockwise) task: subclasses implement
+    ``run_impl``; success is a status file with the runtime and timings."""
+
+    def run(self) -> None:
+        t0 = time.perf_counter()
+        self.log(f"start {self.identifier}")
+        self.run_impl()
+        status = {
+            "task": self.identifier,
+            "complete": True,
+            "runtime_s": time.perf_counter() - t0,
+            "timings": list(self._timings),
+        }
+        self.output().write(status)
+        self.log(f"done {self.identifier} in {status['runtime_s']:.2f}s")
+
+    def run_impl(self) -> None:  # pragma: no cover - abstract
+        raise NotImplementedError
 
 
 class BlockTask(Task):

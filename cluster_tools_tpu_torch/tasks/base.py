@@ -1,16 +1,21 @@
-"""Shared plumbing for volume-to-volume block tasks (port of
-``cluster_tools_tpu/tasks/base.py::VolumeTask``)."""
+"""Shared plumbing for volume-to-volume block tasks and single-shot
+reductions (port of ``cluster_tools_tpu/tasks/base.py``: ``VolumeTask``,
+``VolumeSimpleTask`` and the ragged-chunk helpers)."""
 
 from __future__ import annotations
 
 import os
 from typing import Any, Dict, Optional, Sequence
 
-from ..runtime.task import BlockTask
+from ..runtime import config as cfg
+from ..runtime.task import BlockTask, SimpleTask
 from ..utils import store
 from ..utils.blocking import Blocking
 
 SCRATCH_STORE_NAME = "data.zarr"
+# the JAX package's DEFAULT_TASK_CONFIG defaults of the two thread knobs
+DEFAULT_THREADS_PER_JOB = 1
+DEFAULT_READ_THREADS = 4
 
 
 def scratch_store_path(tmp_folder: str) -> str:
@@ -75,3 +80,57 @@ class VolumeTask(BlockTask):
 
     def tmp_ragged(self, key: str, grid_size: int, dtype):
         return self.tmp_store().create_ragged_dataset(key, (grid_size,), dtype)
+
+
+def read_ragged_chunks(ds, n_blocks: int, n_threads: int = 1) -> list:
+    """All per-block ragged chunks, read over a thread pool when
+    ``n_threads > 1``; a list indexed by block id, ``None`` where a chunk is
+    absent."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if n_threads <= 1:
+        return [ds.read_chunk((bid,)) for bid in range(n_blocks)]
+    with ThreadPoolExecutor(n_threads) as pool:
+        return list(pool.map(lambda bid: ds.read_chunk((bid,)), range(n_blocks)))
+
+
+def merge_threads(task) -> int:
+    """The ``threads_per_job`` knob of a merge task's config."""
+    return max(int(task.get_task_config().get("threads_per_job", DEFAULT_THREADS_PER_JOB)), 1)
+
+
+def read_threads(config) -> int:
+    """The ``read_threads`` knob (chunk-read fan-out of a block batch)."""
+    return max(int(config.get("read_threads", DEFAULT_READ_THREADS)), 1)
+
+
+def resolve_n_blocks(config_dir, path: str, key: str) -> int:
+    """Block count of a dataset under the global block shape, at run time
+    (the dataset may not exist when the DAG is built); leading channel axes
+    are dropped, as ``VolumeTask.get_shape`` does."""
+    shape = store.file_reader(path, "r")[key].shape[-3:]
+    return Blocking(shape, cfg.global_config(config_dir)["block_shape"]).n_blocks
+
+
+class VolumeSimpleTask(SimpleTask):
+    """Single-shot reduction task with access to the shared scratch store;
+    keyword parameters become attributes."""
+
+    def __init__(
+        self,
+        tmp_folder: str,
+        config_dir: Optional[str] = None,
+        max_jobs: Optional[int] = None,
+        dependencies: Sequence = (),
+        **params,
+    ):
+        super().__init__(tmp_folder, config_dir, max_jobs, dependencies)
+        for k, v in params.items():
+            setattr(self, k, v)
+
+    @property
+    def tmp_store_path(self) -> str:
+        return scratch_store_path(self.tmp_folder)
+
+    def tmp_store(self):
+        return store.file_reader(self.tmp_store_path, "a")

@@ -1,3 +1,4 @@
+from .thresholded_components import ThresholdedComponentsWorkflow
 from .watershed import WatershedWorkflow
 
-__all__ = ["WatershedWorkflow"]
+__all__ = ["ThresholdedComponentsWorkflow", "WatershedWorkflow"]

@@ -8,15 +8,18 @@ it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Contract: labels, seed roots and the height map equal the plain version bit
-for bit (both round every float operation the same way)."""
+for bit (both round every float operation the same way); the CC kernels'
+labels equal their plain versions exactly (the min-label fixpoint is
+unique)."""
 
 import numpy as np
 import pytest
 import torch
 from scipy import ndimage
 
-from cluster_tools_tpu_torch import WatershedWorkflow, build
-from cluster_tools_tpu_torch.ops.cc import serpentine_mask
+from cluster_tools_tpu_torch import ThresholdedComponentsWorkflow, WatershedWorkflow, build
+from cluster_tools_tpu_torch.ops.cc import connected_components, serpentine_mask
+from cluster_tools_tpu_torch.ops.cuda_cc import cc_slices, cc_slices_plain, cc_tiles, cc_tiles_plain
 from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices, dtws_slices_plain
 from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices, flood_slices_plain
 from cluster_tools_tpu_torch.ops.watershed import dt_watershed
@@ -111,6 +114,11 @@ def test_kernel_wrappers_reject_bad_input(cuda_device):
         dtws_slices(torch.zeros(2, 4, 4, device=cuda_device),
                     torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device),
                     torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device))
+    with pytest.raises(ValueError):
+        cc_slices(torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device),
+                  rounds=torch.zeros(3, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        cc_tiles(torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device), (256, 256))
 
 
 @pytest.mark.cuda
@@ -134,3 +142,89 @@ def test_workflow_on_card_equals_cpu(tmp_path, halo, cuda_device):
         )])
     out = file_reader(path, "r")
     np.testing.assert_array_equal(out["ws_cuda"][:], out["ws_cpu"][:])
+
+
+def _cc_case(case):
+    if case == "random":
+        return np.random.default_rng(2).random((6, 37, 53)) < 0.6
+    if case == "sparse":
+        return np.random.default_rng(3).random((4, 70, 300)) < 0.3
+    if case == "serpentine":
+        return serpentine_mask((2, 64, 96))
+    if case == "empty":
+        return np.zeros((2, 16, 16), bool)
+    return np.ones((2, 16, 16), bool)
+
+
+CC_CASES = ["random", "sparse", "serpentine", "empty", "full"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CC_CASES)
+def test_cc_slices_kernel_equals_plain(case, cuda_device):
+    mask = torch.from_numpy(_cc_case(case)).to(cuda_device)
+    for depth in (None, 2):
+        rounds = torch.zeros(mask.shape[0], dtype=torch.int32, device=cuda_device)
+        before = cc_slices.launches
+        got = cc_slices(mask, depth=depth, rounds=rounds)
+        assert cc_slices.launches == before + 1
+        torch.testing.assert_close(got, cc_slices_plain(mask, depth), rtol=0, atol=0)
+        assert int(rounds.min()) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CC_CASES)
+@pytest.mark.parametrize("tile", [(64, 128), (5, 7), (16, 16)])
+def test_cc_tiles_kernel_equals_plain(case, tile, cuda_device):
+    mask = torch.from_numpy(_cc_case(case)).to(cuda_device)
+    before = cc_tiles.launches
+    got = cc_tiles(mask, tile, depth=2)
+    assert cc_tiles.launches == before + 1
+    torch.testing.assert_close(got, cc_tiles_plain(mask, tile, 2), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 64, 96), (1, 2, 640, 640)])
+def test_connected_components_on_card_equals_cpu(shape, cuda_device):
+    """Both routes (kernel 4 + z-merge, kernel 5 + tile-face merge) on the
+    card give the CPU's labels."""
+    mask = torch.from_numpy(np.random.default_rng(5).random(shape) < 0.6)
+    s0, t0 = cc_slices.launches, cc_tiles.launches
+    got, n = connected_components(mask.to(cuda_device))
+    assert (cc_slices.launches - s0, cc_tiles.launches - t0) == (
+        (1, 0) if shape[-1] < 640 else (0, 1)
+    )
+    want, nw = connected_components(mask)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(n.cpu().numpy(), nw.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["less", "greater"])
+def test_components_workflow_on_card_equals_cpu(tmp_path, mode, cuda_device):
+    """The thresholded-components slice on the card (``cuda`` target:
+    kernel 4, device merge of the assignments) writes what the same config
+    writes on the CPU, and scipy's partition."""
+    path = str(tmp_path / "d.n5")
+    raw = _volume((20, 41, 37), 4, (1.0, 2.0, 2.0))
+    file_reader(path).create_dataset("raw", data=raw, chunks=(12, 24, 24), compression="raw")
+    for device in ("cuda", "cpu"):
+        config_dir = str(tmp_path / f"configs_{device}")
+        cfg.write_global_config(config_dir, {
+            "block_shape": [12, 24, 24], "target": "cuda", "device": device,
+            "device_batch_size": 4,
+        })
+        cfg.write_config(config_dir, "block_components", {"threshold": 0.5, "threshold_mode": mode})
+        before = cc_slices.launches
+        assert build([ThresholdedComponentsWorkflow(
+            str(tmp_path / f"tmp_{device}"), config_dir, input_path=path, input_key="raw",
+            output_path=path, output_key=f"cc_{device}",
+        )])
+        assert (cc_slices.launches > before) == (device == "cuda")
+    out = file_reader(path, "r")
+    got = out["cc_cuda"][:]
+    np.testing.assert_array_equal(got, out["cc_cpu"][:])
+    fg = raw < 0.5 if mode == "less" else raw > 0.5
+    want, n = ndimage.label(fg)
+    assert got.max() == n and ((got > 0) == fg).all()
+    assert len(np.unique(np.stack([got[fg], want[fg]], axis=1), axis=0)) == n

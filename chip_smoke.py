@@ -13,9 +13,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      (the workflow's batch), a ragged edge block (29, 226, 226) and a
      serpentine corridor: labels and seed roots exactly, the height map
      exactly (the kernels round every float operation as the plain versions
-     do).  Kernels 4-5 (CC) on the same blocks thresholded (``vol < 0.5``),
-     the ragged block, a serpentine corridor and, for kernel 5, the
-     (32, 640, 640) blocks of the second components run: labels exactly.
+     do).  Kernels 4-5 (CC) on the same blocks thresholded (``vol < 0.5``)
+     and their complement, the ragged block, a serpentine corridor and,
+     for kernel 5, the (32, 640, 640) blocks of the second components run
+     and their complement: labels exactly.
      Kernel and plain times at the workflows' batch shapes;
   3. the watershed workflow: a seeded synthetic boundary volume at CREMI
      sample A's shape (125, 1250, 1250), made the way ``bench.make_volume``
@@ -299,6 +300,9 @@ def cc_kernel_phase(vol, dev, batch: int):
         "ragged": (ragged, ragged.shape[0]),
         "serpentine": (torch.from_numpy(serpentine_mask((2, yb, xb))).to(dev), 2),
         "wide": (wide, wz),
+        # the complement (vol >= 0.5, the membrane): many small components
+        "membrane": (~main, zb),
+        "membrane wide": (~wide, wz),
     }
     for name, (m, depth) in cases.items():
         runs = [("cc_tiles", cc_tiles, cc_tiles_plain, (default_tile(*m.shape[1:]),))]
@@ -311,7 +315,9 @@ def cc_kernel_phase(vol, dev, batch: int):
             if not torch.equal(got, want):
                 raise AssertionError(f"{kname} {name}: labels differ from the plain version "
                                      f"({int((got != want).sum())} voxels)")
-            log(f"{kname} {name} {tuple(m.shape)}: equal to plain")
+            pieces = int(torch.unique(got[got >= 0]).numel())
+            log(f"{kname} {name} {tuple(m.shape)}: equal to plain "
+                f"({pieces} in-{'slice' if kname == 'cc_slices' else 'tile'} components)")
 
     records = {}
     for kname, kernel, plain, m, depth, extra, replaces in (

@@ -34,7 +34,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      must have scipy's 6-connected partition of ``vol < 0.5`` with ids
      1..n, and every block's local labels (before the merge) must equal
      scipy's labels of that block;
-  5. one JSON line listing the four kernels, then the result line.
+  5. kernel 3 (tile-local flood altitudes) against its plain version on a
+     halo'd (36, 272, 272) block at the pinned tile (64, 128) (ragged
+     tiles), a divisible (32, 256, 256) stack and a serpentine, and the 3d
+     sweep flood against its plain version on two halo'd blocks, warm and
+     cold, and on a corridor snaking through (z, x): exactly.  Times,
+     bounds and fixpoint rounds at one halo'd block (the workflow's call);
+  6. ``ThresholdAndWatershedWorkflow`` on the same volume: seeds are the
+     components of ``vol < 0.3`` (``"less"``), the watershed from seeds runs
+     with its defaults (3d flood, sigma 2, halo [2, 8, 8]) on the ``cuda``
+     target with ``CTT_FLOOD_TILE`` pinned to the kernel phase's tile.
+     Kernel 3's and the sweep flood's launch counts must rise; every seed
+     id must be kept, the output must cover the volume, two blocks re-run
+     through the plain versions and a second, unpinned run of the watershed
+     task must equal it byte for byte;
+  7. ``WatershedWorkflow`` in the 3d mode (``apply_dt_2d`` and
+     ``apply_ws_2d`` False, halo [2, 8, 8]: the CC re-close runs), the
+     sweep flood's launch count must rise, two blocks re-run through the
+     plain versions must equal it;
+  8. one JSON line listing the six kernels, then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -60,6 +78,9 @@ CREMI_A = (125, 1250, 1250)
 BLOCK = (32, 256, 256)
 BLOCK_WIDE = (32, 640, 640)  # 640 x 640 slices exceed the whole-slice limit
 THRESHOLD = 0.5
+SEED_THRESHOLD = 0.3  # seeds: 5.3% of the voxels, ~800 components per 40 x 250 x 250
+FLOOD_TILE = "8,64,128"  # CTT_FLOOD_TILE of the seeds run: kernel 3 tiles of 64 x 128
+HALO = (2, 8, 8)  # the watershed-from-seeds default, also given to the 3d watershed
 
 
 def log(msg: str) -> None:
@@ -119,13 +140,17 @@ def plain_kernels():
     launch counts do not move)."""
     from cluster_tools_tpu_torch.ops import cuda_dtws, cuda_flood, watershed
 
-    saved = cuda_dtws.dtws_slices, watershed.flood_slices
+    saved = (cuda_dtws.dtws_slices, watershed.flood_slices, watershed.flood_tiles_warm,
+             watershed.flood_volume)
     cuda_dtws.dtws_slices = cuda_dtws.dtws_slices_plain
     watershed.flood_slices = cuda_flood.flood_slices_plain
+    watershed.flood_tiles_warm = cuda_flood.flood_tiles_warm_plain
+    watershed.flood_volume = cuda_flood.flood_volume_plain
     try:
         yield
     finally:
-        cuda_dtws.dtws_slices, watershed.flood_slices = saved
+        (cuda_dtws.dtws_slices, watershed.flood_slices, watershed.flood_tiles_warm,
+         watershed.flood_volume) = saved
 
 
 def size_filter_inputs(x, mask, valid, labels_flat, roots, hmap):
@@ -512,6 +537,328 @@ def workflow_phase(vol_np, path: str, work: str, card: str):
     return launches, wall, vox / wall
 
 
+def halo_block(vol, corner, dev):
+    """The watershed-from-seeds inputs of the (36, 272, 272) halo'd block at
+    ``corner``: the boundary map smoothed by the task's 3d gaussian (sigma
+    2) and the components of ``vol < SEED_THRESHOLD`` inside it as seeds."""
+    from cluster_tools_tpu_torch.ops.cc import connected_components
+    from cluster_tools_tpu_torch.ops.filters import gaussian
+
+    shape = tuple(b + 2 * h for b, h in zip(BLOCK, HALO))
+    z, y, x = corner
+    blk = vol[z:z + shape[0], y:y + shape[1], x:x + shape[2]]
+    seeds, _ = connected_components((blk < SEED_THRESHOLD)[None])
+    return gaussian(blk, 2.0), seeds[0], torch.ones(shape, dtype=torch.bool, device=dev)
+
+
+def flood3d_kernel_phase(vol, dev):
+    """Phase 5: kernel 3 and the 3d sweep flood against their plain versions
+    on the card.  Returns their records of the kernels line (without the
+    launch counts) and the rounds at the timed block."""
+    from cluster_tools_tpu_torch.ops.cc import serpentine_mask
+    from cluster_tools_tpu_torch.ops.cuda_flood import (
+        flood_tiles_warm, flood_tiles_warm_plain, flood_volume, flood_volume_plain,
+    )
+    from cluster_tools_tpu_torch.ops.watershed import resolve_flood_tile
+
+    os.environ["CTT_FLOOD_TILE"] = FLOOD_TILE
+    shape = tuple(b + 2 * h for b, h in zip(BLOCK, HALO))
+    tile = resolve_flood_tile(shape)[1:]
+    del os.environ["CTT_FLOOD_TILE"]
+    far = tuple(v - b for v, b in zip(vol.shape, shape))  # the far corner's halo'd block
+    blocks = [halo_block(vol, c, dev) for c in ((0, 0, 0), far)]
+    h2, s2, m2 = (torch.stack(t) for t in zip(*blocks))
+    # a serpentine corridor in every tile, each with a seed at its start:
+    # Theta(th * tw) in-tile steps and a bend every other row
+    grid = (BLOCK[1] // tile[0], BLOCK[2] // tile[1])
+    serp = torch.from_numpy(np.tile(serpentine_mask(tile), (2,) + grid)).to(dev)
+    serp_seeds = torch.zeros(serp.shape, dtype=torch.int32, device=dev)
+    serp_seeds[:, ::tile[0], ::tile[1]] = torch.arange(
+        1, 2 * grid[0] * grid[1] + 1, dtype=torch.int32, device=dev).view((2,) + grid)
+    zb, yb, xb = BLOCK
+    div = vol[:zb, :yb, :xb].contiguous()
+    div_seeds = halo_block(vol, (0, 0, 0), dev)[1][:zb, :yb, :xb].contiguous()
+    cases = {
+        f"halo'd block {shape}": blocks[0],
+        f"divisible {tuple(div.shape)}": (div, div_seeds, torch.ones_like(div, dtype=torch.bool)),
+        f"serpentine {tuple(serp.shape)}": (torch.full(serp.shape, 0.5, device=dev), serp_seeds, serp),
+    }
+    for name, (h, s, m) in cases.items():
+        got = flood_tiles_warm(h, s, m, tile)
+        want = flood_tiles_warm_plain(h, s, m, tile)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"flood_tiles_warm {name}: differs from the plain version "
+                                 f"({int((got != want).sum())} voxels)")
+        log(f"flood_tiles_warm {name} tile {tile}: equal to plain "
+            f"({int((got < 1e38).sum())} voxels reached in their tiles)")
+
+    hw = shape[1:]
+    warm2 = flood_tiles_warm(h2.view((-1,) + hw), s2.view((-1,) + hw), m2.view((-1,) + hw),
+                             tile).view(h2.shape)
+    zx = torch.zeros((1, shape[0], 3, shape[2]), dtype=torch.bool, device=dev)
+    zx[0, :, 1, :] = torch.from_numpy(serpentine_mask(zx.shape[1:2] + zx.shape[3:])).to(dev)
+    zx_seeds = torch.zeros(zx.shape, dtype=torch.int32, device=dev)
+    zx_seeds[0, 0, 1, 0] = 1
+    flood_cases = {
+        "two halo'd blocks cold": (h2, s2, m2, None),
+        "two halo'd blocks warm": (h2, s2, m2, warm2),
+        f"serpentine (z, x) {tuple(zx.shape)}": (torch.full(zx.shape, 0.5, device=dev), zx_seeds, zx, None),
+    }
+    for name, (h, s, m, w) in flood_cases.items():
+        stats = {}
+        got = flood_volume(h, s, m, warm=w, stats=stats)
+        want = flood_volume_plain(h, s, m, warm=w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"flood_volume {name}: differs from the plain version "
+                                 f"({int((got != want).sum())} voxels)")
+        if name.startswith("serpentine") and not bool((got[m] == 1).all()):
+            raise AssertionError("flood_volume serpentine: corridor not flooded to its end")
+        log(f"flood_volume {name}: equal to plain, rounds alt/assign "
+            f"{stats['flood_alt_iters']}/{stats['flood_assign_iters']}")
+
+    # times at one halo'd block, the call the workflow makes per block
+    h1, s1, m1 = (t[None] for t in blocks[0])
+    hs, ss, ms = (t.view((-1,) + hw) for t in (h1, s1, m1))
+    n_tiles = hs.shape[0] * -(-hw[0] // tile[0]) * -(-hw[1] // tile[1])
+    t_rounds = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    warm1 = flood_tiles_warm(hs, ss, ms, tile, rounds=t_rounds).view(h1.shape)
+    k3_ms = cuda_ms(lambda: flood_tiles_warm(hs, ss, ms, tile), 5)
+    k3_plain_ms = cuda_ms(lambda: flood_tiles_warm_plain(hs, ss, ms, tile), 1)
+    rounds = {}
+    for label, w in (("cold", None), ("warm", warm1)):
+        stats = {}
+        flood_volume(h1, s1, m1, warm=w, stats=stats)
+        rounds[label] = (stats["flood_alt_iters"], stats["flood_assign_iters"])
+    fv_ms = cuda_ms(lambda: flood_volume(h1, s1, m1, warm=warm1), 3)
+    fv_cold_ms = cuda_ms(lambda: flood_volume(h1, s1, m1), 3)
+    fv_plain_ms = cuda_ms(lambda: flood_volume_plain(h1, s1, m1, warm=warm1), 1)
+    vox = h1.numel()
+    k3_bound = 13 * vox / HBM_BYTES_PER_S * 1e3  # f32 h, i32 seeds, byte mask in; f32 out
+    fv_bound = 17 * vox / HBM_BYTES_PER_S * 1e3  # the same plus f32 warm in; i32 labels out
+    tr = t_rounds.float()
+    log(f"flood_tiles_warm {tuple(hs.shape)} tile {tile}: {k3_ms:.3f} ms/launch, plain "
+        f"{k3_plain_ms:.1f} ms, bound {k3_bound:.4f} ms (bytes); rounds per tile max "
+        f"{int(tr.max())} mean {tr.mean().item():.2f}")
+    log(f"flood_volume {tuple(h1.shape)}: warm {fv_ms:.3f} ms/launch (rounds alt/assign "
+        f"{rounds['warm']}), cold {fv_cold_ms:.3f} ms (rounds {rounds['cold']}), plain "
+        f"{fv_plain_ms:.1f} ms, bound {fv_bound:.4f} ms (bytes)")
+    records = {
+        "flood_tiles_warm": dict(
+            name="flood_tiles_warm", route="cuda",
+            source="cluster_tools_tpu_torch/csrc/flood3d.cuh",
+            replaces="cluster_tools_tpu/ops/pallas_flood.py:242",
+            max_abs_err=0, ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound,
+            bound_by="bytes", library_ms=None,
+        ),
+        "flood_volume": dict(
+            name="flood_volume", route="cuda",
+            source="cluster_tools_tpu_torch/csrc/flood3d.cuh",
+            replaces="cluster_tools_tpu/ops/watershed.py:249",
+            max_abs_err=0, ms=fv_ms, plain_ms=fv_plain_ms, bound_ms=fv_bound,
+            bound_by="bytes", library_ms=None,
+        ),
+    }
+    return records
+
+
+def task_seconds(wf, tag: str) -> None:
+    """Seconds per task of a workflow run, upstream first, with the cuda
+    target's stage sums."""
+    chain, todo = [], list(wf.requires())
+    while todo:
+        node = todo.pop()
+        chain.append(node)
+        todo.extend(node.requires())
+    for node in reversed(chain):
+        if not hasattr(node, "get_shape") and not hasattr(node, "run_impl"):
+            continue
+        status = node.output().read()
+        seconds = status.get("runtime_s", sum(status.get("block_runtimes", [])))
+        stages = {t["label"]: round(t["seconds"], 3) for t in status.get("timings", [])
+                  if t["label"].startswith("stage_") or t["label"] == "blocks_total"}
+        log(f"{tag} task {node.identifier}: {seconds:.3f} s {stages}")
+
+
+def reset_counts(*wrappers) -> None:
+    for w in wrappers:
+        w.launches = 0
+        for name in ("alt_rounds", "assign_rounds"):
+            if hasattr(w, name):
+                setattr(w, name, 0)
+
+
+def seeds_phase(vol_np, path: str, work: str, card: str):
+    """Phase 6: ``ThresholdAndWatershedWorkflow`` end to end on the card with
+    the flood tile pinned, then its checks: seed ids kept, volume covered,
+    two blocks equal to their plain re-run, an unpinned re-run of the
+    watershed task equal byte for byte."""
+    from cluster_tools_tpu_torch import ThresholdAndWatershedWorkflow, build
+    from cluster_tools_tpu_torch.ops.cuda_cc import cc_slices
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_tiles_warm, flood_volume
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedFromSeedsTask
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    config_dir = os.path.join(work, "configs_seeds")
+    cfg.write_global_config(config_dir, {
+        "block_shape": list(BLOCK), "target": "cuda", "device": "cuda",
+        "max_jobs": min(8, os.cpu_count() or 1),
+    })
+    cfg.write_config(config_dir, "block_components", {
+        "threshold": SEED_THRESHOLD, "threshold_mode": "less", "sigma": 0.0, "connectivity": 1,
+    })
+    cfg.write_config(config_dir, "watershed_from_seeds", WatershedFromSeedsTask.default_task_config())
+    wf = ThresholdAndWatershedWorkflow(
+        os.path.join(work, "tmp_seeds"), config_dir, input_path=path, input_key="raw",
+        output_path=path, output_key="seg",
+    )
+    os.environ["CTT_FLOOD_TILE"] = FLOOD_TILE
+    reset_counts(cc_slices, flood_tiles_warm, flood_volume)
+    t0 = time.perf_counter()
+    try:
+        if not build([wf]):
+            raise AssertionError("seeds workflow build failed")
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["CTT_FLOOD_TILE"]
+    wall = time.perf_counter() - t0
+    launches = {"cc_slices": cc_slices.launches, "flood_tiles_warm": flood_tiles_warm.launches,
+                "flood_volume": flood_volume.launches}
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the seeds workflow never launched {name}")
+    warm_rounds = (flood_volume.alt_rounds / flood_volume.launches,
+                   flood_volume.assign_rounds / flood_volume.launches)
+    vox = int(np.prod(vol_np.shape))
+    log(f"seeds workflow: {vol_np.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on {card}; "
+        f"launches {launches}; flood rounds per block alt/assign (warm) "
+        f"{warm_rounds[0]:.2f}/{warm_rounds[1]:.2f}")
+    task_seconds(wf, "seeds workflow")
+
+    f = file_reader(path, "r")
+    seeds, seg = f["seg_seeds"][:], f["seg"][:]
+    if seg.shape != vol_np.shape or seg.dtype != np.uint64:
+        raise AssertionError(f"output {seg.shape} {seg.dtype}")
+    has = seeds > 0
+    if not np.array_equal(seg[has], seeds[has]):
+        raise AssertionError("a seed voxel lost its id")
+    n = int(seeds.max())
+    if int(seg.max()) != n or (np.bincount(seg.reshape(-1).view(np.int64), minlength=n + 1)[1:] == 0).any() \
+            or (np.bincount(seeds.reshape(-1).view(np.int64), minlength=n + 1)[1:] == 0).any():
+        raise AssertionError("the output's ids are not the seed ids")
+    if not (seg > 0).all():
+        raise AssertionError("the unmasked flood left voxels unlabelled")
+    log(f"seeds workflow output: {n} seed ids, all kept, {float(has.mean()):.4f} of the voxels seeds, "
+        f"volume covered")
+
+    task = wf.requires()[0]
+    config = {**task.global_config(), **task.get_task_config()}
+    blocking = Blocking(vol_np.shape, BLOCK)
+    check_ids = [0, blocking.n_blocks - 1]
+    plain = WatershedFromSeedsTask(
+        task.tmp_folder, config_dir, input_path=path, input_key="raw", seeds_path=path,
+        seeds_key="seg_seeds", output_path=path, output_key="seg_plain",
+    )
+    plain.prepare(blocking, config)
+    os.environ["CTT_FLOOD_TILE"] = FLOOD_TILE
+    try:
+        with plain_kernels():
+            for bid in check_ids:
+                plain.process_block(bid, blocking, config)
+    finally:
+        del os.environ["CTT_FLOOD_TILE"]
+    torch.cuda.synchronize()
+    for bid in check_ids:
+        bb = blocking.block(bid).slicing
+        if not np.array_equal(f["seg_plain"][bb], seg[bb]):
+            raise AssertionError(f"seeds block {bid}: plain re-run differs from the workflow")
+    log(f"seeds blocks {check_ids} re-run through the plain versions: byte-identical")
+
+    cold = WatershedFromSeedsTask(
+        os.path.join(work, "tmp_seeds_cold"), config_dir, input_path=path, input_key="raw",
+        seeds_path=path, seeds_key="seg_seeds", output_path=path, output_key="seg_cold",
+    )
+    reset_counts(flood_tiles_warm, flood_volume)
+    t0 = time.perf_counter()
+    if not build([cold]):
+        raise AssertionError("unpinned watershed-from-seeds build failed")
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    if flood_tiles_warm.launches or not flood_volume.launches:
+        raise AssertionError("the unpinned run must take the sweeps alone")
+    cold_rounds = (flood_volume.alt_rounds / flood_volume.launches,
+                   flood_volume.assign_rounds / flood_volume.launches)
+    if not np.array_equal(f["seg_cold"][:], seg):
+        raise AssertionError("the unpinned run differs from the pinned one")
+    log(f"seeds watershed task unpinned: {cold_wall:.2f} s, byte-identical to the pinned run; "
+        f"flood rounds per block alt/assign (cold) {cold_rounds[0]:.2f}/{cold_rounds[1]:.2f}")
+    return launches, wall, vox / wall
+
+
+def ws3d_phase(vol_np, path: str, work: str, card: str):
+    """Phase 7: ``WatershedWorkflow`` in the 3d mode with a halo, then two
+    blocks against their plain re-run."""
+    from cluster_tools_tpu_torch import WatershedWorkflow, build
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_volume
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedTask
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    config_dir = os.path.join(work, "configs_ws3d")
+    cfg.write_global_config(
+        config_dir, {"block_shape": list(BLOCK), "target": "cuda", "device": "cuda"}
+    )
+    cfg.write_config(config_dir, "watershed", {
+        **WatershedTask.default_task_config(), "apply_dt_2d": False, "apply_ws_2d": False,
+        "halo": list(HALO),
+    })
+    wf = WatershedWorkflow(
+        os.path.join(work, "tmp_ws3d"), config_dir, input_path=path, input_key="raw",
+        output_path=path, output_key="ws3d",
+    )
+    reset_counts(flood_volume)
+    t0 = time.perf_counter()
+    if not build([wf]):
+        raise AssertionError("3d watershed workflow build failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if flood_volume.launches == 0:
+        raise AssertionError("the 3d watershed never launched flood_volume")
+    vox = int(np.prod(vol_np.shape))
+    log(f"3d watershed: {vol_np.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on {card}; "
+        f"flood_volume launches {flood_volume.launches}, rounds per batch alt/assign "
+        f"{flood_volume.alt_rounds / flood_volume.launches:.2f}/"
+        f"{flood_volume.assign_rounds / flood_volume.launches:.2f}")
+    task_seconds(wf, "3d watershed")
+    out = file_reader(path, "r")["ws3d"]
+    task = wf.requires()[0]
+    config = {**task.global_config(), **task.get_task_config()}
+    blocking = Blocking(vol_np.shape, BLOCK)
+    check_ids = [0, blocking.n_blocks - 1]
+    with plain_kernels():
+        _, blocks, labels = task.compute_batch(
+            task.read_batch(check_ids, blocking, config), blocking, config
+        )
+    torch.cuda.synchronize()
+    unit = int(np.prod(BLOCK))
+    fg = 0
+    for bid, bh, lab in zip(check_ids, blocks, labels):
+        lab = lab[tuple(slice(0, e - b) for b, e in zip(bh.inner.begin, bh.inner.end))]
+        lab = np.where(lab > 0, lab + np.uint64(bid * unit), 0).astype(np.uint64)
+        got = out[bh.inner.slicing]
+        if not np.array_equal(lab, got):
+            raise AssertionError(f"3d watershed block {bid}: plain re-run differs from the workflow")
+        fg += int((got > 0).sum())
+    if fg == 0:
+        raise AssertionError("3d watershed: the checked blocks hold no labels")
+    log(f"3d watershed blocks {check_ids} re-run through the plain versions: byte-identical")
+    return wall, vox / wall
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--z", type=int, default=CREMI_A[0], help="volume depth (cut z only)")
@@ -543,6 +890,7 @@ def main() -> int:
         f"boundary fraction {float((vol >= THRESHOLD).float().mean()):.4f}")
     records = kernel_phase(vol, dev, args.batch)
     records.update(cc_kernel_phase(vol, dev, args.batch))
+    records.update(flood3d_kernel_phase(vol, dev))
     vol_np = vol.cpu().numpy()
     del vol
     torch.cuda.empty_cache()
@@ -567,6 +915,10 @@ def main() -> int:
                 path, work, block, card, fg, ref, n_ref, kernel)
             launches[kernel] = cc_launches[kernel]
             rates[block] = (cc_wall, cc_rate)
+        seed_launches, seeds_wall, seeds_rate = seeds_phase(vol_np, path, work, card)
+        for name in ("flood_tiles_warm", "flood_volume"):
+            launches[name] = seed_launches[name]
+        ws3d_wall, ws3d_rate = ws3d_phase(vol_np, path, work, card)
     for name, rec in records.items():
         rec["launches"] = launches[name]
         log(f"kernel {name}: {rec['launches']} launches in its workflow run, {rec['ms']:.3f} ms "
@@ -576,8 +928,12 @@ def main() -> int:
     for block, (cc_wall, cc_rate) in rates.items():
         log(f"{card}: ThresholdedComponentsWorkflow {vol_np.shape} blocks {block} "
             f"{cc_rate:.6g} voxels/s ({cc_wall:.3f} s)")
+    log(f"{card}: ThresholdAndWatershedWorkflow {vol_np.shape} {seeds_rate:.6g} voxels/s "
+        f"({seeds_wall:.3f} s)")
+    log(f"{card}: WatershedWorkflow 3d {vol_np.shape} {ws3d_rate:.6g} voxels/s ({ws3d_wall:.3f} s)")
     log(json.dumps({"kernels": [records[k] for k in (
-        "flood_slices", "dtws_slices", "cc_slices", "cc_tiles")]}))
+        "flood_slices", "dtws_slices", "flood_tiles_warm", "cc_slices", "cc_tiles",
+        "flood_volume")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

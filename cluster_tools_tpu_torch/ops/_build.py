@@ -23,13 +23,14 @@ from typing import Dict, Sequence
 _OPS = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_OPS), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_OPS)), "build", "kernels")
-SOURCES = ("flood", "dtws", "cc")
+SOURCES = ("flood", "dtws", "cc", "flood3d")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -100,6 +101,16 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _LIBS[name] = lib
         return lib
+
+
+def count_launch(wrapper, **sums) -> None:
+    """Add one to ``wrapper.launches``, and each keyword's value to the
+    attribute of its name, under a lock: block tasks launch the kernels from
+    ``max_jobs`` host threads at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        for name, value in sums.items():
+            setattr(wrapper, name, getattr(wrapper, name) + value)
 
 
 def check(rc: int, what: str) -> None:

@@ -118,6 +118,23 @@ def consecutive_from_flat_roots(flat: torch.Tensor, size: int):
     return labels.to(torch.int32), n
 
 
+def parse_tile_spec(spec, ndim: int) -> Optional[Tuple[int, ...]]:
+    """Parse a tile spec ("8,64,64", or a single int for a cube) into an
+    ``ndim`` tile tuple: a longer spec keeps its trailing entries, a shorter
+    one is left-padded with its first entry.  Invalid specs give None."""
+    try:
+        parts = [int(p) for p in str(spec).split(",") if p.strip() != ""]
+    except (TypeError, ValueError):
+        return None
+    if not parts or any(p < 1 for p in parts):
+        return None
+    if len(parts) == 1:
+        parts = parts * ndim
+    if len(parts) >= ndim:
+        return tuple(parts[-ndim:])
+    return tuple([parts[0]] * (ndim - len(parts)) + parts)
+
+
 def _tile_grid(shape, tile) -> Tuple[int, ...]:
     return tuple(-(-int(s) // int(t)) for s, t in zip(shape, tile))
 

@@ -122,7 +122,7 @@ def cc_slices(
         rc = fn(_build.ptr(mk), _build.ptr(out), n, depth, h, w, rounds_ptr,
                 _build.stream_handle(mask.device))
     _build.check(rc, "ctt_cc_slices")
-    cc_slices.launches += 1
+    _build.count_launch(cc_slices)
     return out
 
 
@@ -160,7 +160,7 @@ def cc_tiles(
         rc = fn(_build.ptr(mk), _build.ptr(out), n, depth, h, w, th, tw, rounds_ptr,
                 _build.stream_handle(mask.device))
     _build.check(rc, "ctt_cc_tiles")
-    cc_tiles.launches += 1
+    _build.count_launch(cc_tiles)
     return out
 
 

@@ -70,11 +70,11 @@ def dtws_slices_plain(
     x, below = _inputs(x, threshold, invert)
     fg = below & mask.bool()
     dt = distance_transform_2d_stack(fg)
-    lm = local_maxima(dt, sigma_seeds)
+    lm = local_maxima(dt, sigma_seeds, per_slice=True)
     raw = connected_components_raw(lm, connectivity=3, per_slice=True)
     roots = torch.where(lm, raw, -1).to(torch.int32)
     seed_ids = torch.where(lm, raw + 1, 0)
-    hmap = make_hmap(x, dt, alpha, sigma_weights)
+    hmap = make_hmap(x, dt, alpha, sigma_weights, per_slice=True)
     labels = flood_slices_plain(
         hmap.view(-1, h, w), seed_ids.view(-1, h, w), (fg & valid.bool()).view(-1, h, w)
     ).view(b, z, h, w)
@@ -163,7 +163,7 @@ def dtws_slices(
             _build.stream_handle(dev),
         )
     _build.check(rc, "ctt_dtws_slices")
-    dtws_slices.launches += 1
+    _build.count_launch(dtws_slices)
     return labels, roots, hmap
 
 
@@ -202,6 +202,6 @@ def dt_watershed_slices(
         _, below = _inputs(x, threshold, invert_input)
         labels = apply_size_filter(
             labels, hmap, size_filter, num_segments_of((z, h, w)),
-            mask=below & mask & valid,
+            mask=below & mask & valid, per_slice=True,
         )
     return labels, n_seeds

@@ -1,34 +1,62 @@
-"""Kernel 1: the per-slice seeded flood, written in CUDA for Hopper.
+"""The seeded flood on the card: kernel 1 (per slice), kernel 3 (tile-local
+altitude warm start) and the 3d sweep flood, written in CUDA for Hopper.
 
-Replaces ``cluster_tools_tpu/ops/pallas_flood.py::flood_slices``.  The
-kernel (``csrc/flood.cuh``) floods each (H, W) slice of an (N, H, W) stack in
-one thread block; ``flood_slices_plain`` computes the same function with
-PyTorch ops, the JAX package's XLA fixpoint (``_seeded_watershed_scan`` with
-``per_slice=True``) written as Jacobi neighbour relaxation.  Both reach the
-unique fixpoint (see ``csrc/flood.cuh``), so labels are equal exactly.
+``flood_slices`` replaces ``cluster_tools_tpu/ops/pallas_flood.py::flood_slices``:
+the kernel (``csrc/flood.cuh``) floods each (H, W) slice of an (N, H, W)
+stack in one thread block.  ``flood_tiles_warm`` replaces
+``pallas_flood.py::flood_tiles_warm``: the phase-1 altitude fixpoint of each
+in-plane (th, tw) tile of each slice (``csrc/flood3d.cuh``), ragged edge
+tiles cut to the slice.  ``flood_volume`` is the 3d flood of a (B, Z, H, W)
+batch of blocks over 6 neighbours, the counterpart of the JAX package's XLA
+``_flood_scan_impl`` (no Pallas kernel there): global directional sweeps
+(``csrc/flood3d.cuh``), optionally from kernel 3's warm altitudes.
 
-``flood_slices`` takes the plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises.
+The ``*_plain`` functions compute the same functions with PyTorch ops, the
+JAX package's fixpoints written as Jacobi neighbour relaxation.  Every
+fixpoint is unique (see ``csrc/flood.cuh``), so labels and altitudes are
+equal exactly.  The wrappers take the plain versions only for tensors on
+the CPU; for a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
 from .cc import shift
+from .cuda_cc import SMEM_MAX
 
 BIG = 3.0e38
 BIG_DIST = 2**31 - 2
 _OFFSETS = ((0, -1), (0, 1), (-1, 0), (1, 0))
+_OFFSETS_3D = ((0, 0, -1), (0, 0, 1), (0, -1, 0), (0, 1, 0), (-1, 0, 0), (1, 0, 0))
 
 
-def flood_slices_plain(hmap: torch.Tensor, seeds: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Flood every z-slice of ``hmap`` (N, H, W) from ``seeds`` (0 =
-    unlabeled), restricted to ``mask``.  Returns int32 labels, 0 off mask."""
+def _altitude_plain(hmap, mask, conduct, alt, links):
+    """Phase 1 to its fixpoint: ``A(p) = min(A(p), max(min_q A(q), h(p)))``
+    where ``p`` conducts, over the linked neighbours ``q`` (``links``:
+    ``(offset, ok)`` pairs, ``ok`` None or where the link exists)."""
+    big = torch.tensor(BIG, dtype=torch.float32, device=hmap.device)
+    while True:
+        alt_m = torch.where(mask, alt, big)
+        nb = torch.full_like(alt, BIG)
+        for off, ok in links:
+            q = shift(alt_m, off, BIG)
+            nb = torch.minimum(nb, q if ok is None else torch.where(ok, q, big))
+        new = torch.where(conduct, torch.minimum(alt, torch.maximum(nb, hmap)), alt)
+        if torch.equal(new, alt):
+            return alt
+        alt = new
+
+
+def _flood_plain(hmap, seeds, mask, offsets, warm=None):
+    """Both phases over the neighbour ``offsets`` (of the trailing axes).
+    Returns int32 labels, 0 off the mask."""
+    from .watershed import minlex
+
     hmap = hmap.to(torch.float32)
     mask = mask.bool()
     seeds = torch.where(mask, seeds.to(torch.int32), 0)
@@ -36,17 +64,11 @@ def flood_slices_plain(hmap: torch.Tensor, seeds: torch.Tensor, mask: torch.Tens
     conduct = mask & ~is_seed
     big = torch.tensor(BIG, dtype=torch.float32, device=hmap.device)
 
-    # phase 1: altitude A(p) = min(A(p), max(min_q A(q), h(p)))
+    # phase 1: altitude, from the warm state where one is given
     alt = torch.where(is_seed, hmap, big)
-    while True:
-        alt_m = torch.where(mask, alt, big)
-        nb = torch.full_like(alt, BIG)
-        for off in _OFFSETS:
-            nb = torch.minimum(nb, shift(alt_m, off, BIG))
-        new = torch.where(conduct, torch.minimum(alt, torch.maximum(nb, hmap)), alt)
-        if torch.equal(new, alt):
-            break
-        alt = new
+    if warm is not None:
+        alt = torch.minimum(alt, warm.to(torch.float32))
+    alt = _altitude_plain(hmap, mask, conduct, alt, [(off, None) for off in offsets])
 
     # phase 2: (hops, label) over optimal-prefix edges, smaller label on ties
     alt_m = torch.where(mask, alt, big)
@@ -54,10 +76,8 @@ def flood_slices_plain(hmap: torch.Tensor, seeds: torch.Tensor, mask: torch.Tens
     label = seeds
     edges = [
         (off, conduct & (alt == torch.maximum(shift(alt_m, off, BIG), hmap)))
-        for off in _OFFSETS
+        for off in offsets
     ]
-    from .watershed import minlex
-
     while True:
         best_d, best_l = dist, label
         lab_m = torch.where(mask, label, 0)
@@ -68,6 +88,51 @@ def flood_slices_plain(hmap: torch.Tensor, seeds: torch.Tensor, mask: torch.Tens
             break
         dist, label = best_d, best_l
     return torch.where(mask, label, 0).to(torch.int32)
+
+
+def flood_slices_plain(hmap: torch.Tensor, seeds: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Flood every z-slice of ``hmap`` (N, H, W) from ``seeds`` (0 =
+    unlabeled), restricted to ``mask``.  Returns int32 labels, 0 off mask."""
+    return _flood_plain(hmap, seeds, mask, _OFFSETS)
+
+
+def flood_volume_plain(
+    hmap: torch.Tensor,
+    seeds: torch.Tensor,
+    mask: torch.Tensor,
+    warm: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """3d flood of every block of a (B, Z, H, W) batch over 6 neighbours
+    (never across blocks), phase 1 from ``min(A0, warm)`` where ``warm`` is
+    given.  Returns int32 labels, 0 off mask."""
+    return _flood_plain(hmap, seeds, mask, _OFFSETS_3D, warm)
+
+
+def _clip_tile(tile_hw: Sequence[int], h: int, w: int) -> Tuple[int, int]:
+    th, tw = int(tile_hw[0]), int(tile_hw[1])
+    if th <= 0 or tw <= 0:
+        raise ValueError(f"flood_tiles_warm: bad tile {tuple(tile_hw)}")
+    return min(th, max(h, 1)), min(tw, max(w, 1))
+
+
+def flood_tiles_warm_plain(
+    hmap: torch.Tensor, seeds: torch.Tensor, mask: torch.Tensor, tile_hw: Sequence[int]
+) -> torch.Tensor:
+    """Phase-1 altitude fixpoint of every (th, tw) tile of every slice of an
+    (N, H, W) stack, links cut at the tile borders (edge tiles cut to the
+    slice).  Float32; seeds keep their height, voxels off the mask and
+    voxels no in-tile path reaches hold ``BIG``."""
+    n, h, w = hmap.shape
+    th, tw = _clip_tile(tile_hw, h, w)
+    gw = -(-w // tw)
+    dev = hmap.device
+    tid = (torch.arange(h, device=dev) // th)[:, None] * gw + (torch.arange(w, device=dev) // tw)[None, :]
+    links = [(off, shift(tid, off, -1) == tid) for off in _OFFSETS]
+    mask = mask.bool()
+    is_seed = (seeds > 0) & mask
+    hmap = hmap.to(torch.float32)
+    alt = torch.where(is_seed, hmap, torch.tensor(BIG, dtype=torch.float32, device=dev))
+    return _altitude_plain(hmap, mask, mask & ~is_seed, alt, links)
 
 
 def flood_slices(
@@ -114,8 +179,116 @@ def flood_slices(
             _build.stream_handle(dev),
         )
     _build.check(rc, "ctt_flood_slices")
-    flood_slices.launches += 1
+    _build.count_launch(flood_slices)
     return out
 
 
 flood_slices.launches = 0
+
+
+def _check_same(what: str, ref: torch.Tensor, *others) -> None:
+    for t in others:
+        if t is not None and (t.shape != ref.shape or t.device != ref.device):
+            raise ValueError(f"{what}: every tensor must have shape {tuple(ref.shape)} "
+                             f"on {ref.device}, got {tuple(t.shape)} on {t.device}")
+
+
+def flood_tiles_warm(
+    hmap: torch.Tensor,
+    seeds: torch.Tensor,
+    mask: torch.Tensor,
+    tile_hw: Sequence[int],
+    rounds: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel 3: tile-local altitude warm start of an (N, H, W) stack for
+    CUDA tensors, ``flood_tiles_warm_plain`` for CPU tensors.  ``rounds``
+    (int32, one entry per (slice, tile), on the card) receives each tile's
+    fixpoint rounds."""
+    if hmap.dim() != 3:
+        raise ValueError(f"flood_tiles_warm takes (N, H, W) tensors, got {tuple(hmap.shape)}")
+    _check_same("flood_tiles_warm", hmap, seeds, mask)
+    n, h, w = hmap.shape
+    th, tw = _clip_tile(tile_hw, h, w)
+    if hmap.device.type == "cpu":
+        return flood_tiles_warm_plain(hmap, seeds, mask, (th, tw))
+    if hmap.device.type != "cuda":
+        raise ValueError(f"flood_tiles_warm: unsupported device {hmap.device}")
+    if 2 * th * (tw + 1) * 4 > SMEM_MAX:
+        raise ValueError(f"flood_tiles_warm: tile {(th, tw)} exceeds a thread block's shared memory")
+    n_tiles = n * -(-h // th) * -(-w // tw)
+    if rounds is not None and (rounds.shape != (n_tiles,) or rounds.dtype != torch.int32
+                               or rounds.device != hmap.device):
+        raise ValueError(f"flood_tiles_warm: rounds must be an int32 ({n_tiles},) tensor on the device")
+    out = torch.empty((n, h, w), dtype=torch.float32, device=hmap.device)
+    if out.numel() == 0:
+        return out
+    hm = hmap.to(torch.float32).contiguous()
+    sd = seeds.to(torch.int32).contiguous()
+    mk = mask.to(torch.bool).contiguous()
+    fn = _build.library("flood3d").ctt_flood_tiles_warm
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(hmap.device):
+        rc = fn(_build.ptr(hm), _build.ptr(sd), _build.ptr(mk), _build.ptr(out),
+                n, h, w, th, tw, _build.ptr(rounds) if rounds is not None else None,
+                _build.stream_handle(hmap.device))
+    _build.check(rc, "ctt_flood_tiles_warm")
+    _build.count_launch(flood_tiles_warm)
+    return out
+
+
+flood_tiles_warm.launches = 0
+
+
+def flood_volume(
+    hmap: torch.Tensor,
+    seeds: torch.Tensor,
+    mask: torch.Tensor,
+    warm: Optional[torch.Tensor] = None,
+    stats: Optional[dict] = None,
+) -> torch.Tensor:
+    """3d seeded flood of a (B, Z, H, W) batch: the CUDA sweeps for CUDA
+    tensors, ``flood_volume_plain`` for CPU tensors.  ``warm`` (float32, the
+    batch's shape) lowers the initial altitudes (kernel 3's output).
+    ``stats`` receives the rounds of each phase on the card
+    (``flood_alt_iters``, ``flood_assign_iters``, the JAX package's names);
+    the wrapper's ``alt_rounds`` / ``assign_rounds`` sum them over calls."""
+    if hmap.dim() != 4:
+        raise ValueError(f"flood_volume takes (B, Z, H, W) tensors, got {tuple(hmap.shape)}")
+    _check_same("flood_volume", hmap, seeds, mask, warm)
+    if hmap.device.type == "cpu":
+        return flood_volume_plain(hmap, seeds, mask, warm)
+    if hmap.device.type != "cuda":
+        raise ValueError(f"flood_volume: unsupported device {hmap.device}")
+    b, z, h, w = hmap.shape
+    dev = hmap.device
+    lab = torch.empty((b, z, h, w), dtype=torch.int32, device=dev)
+    if lab.numel() == 0:
+        return lab
+    hm_in = hmap.to(torch.float32).contiguous()
+    sd = seeds.to(torch.int32).contiguous()
+    mk = mask.to(torch.bool).contiguous()
+    wm = None if warm is None else warm.to(torch.float32).contiguous()
+    hm = torch.empty_like(hm_in)
+    alt = torch.empty_like(hm_in)
+    dist = torch.empty_like(lab)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    rounds = (ctypes.c_int * 2)()
+    fn = _build.library("flood3d").ctt_flood3d
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(_build.ptr(hm_in), _build.ptr(sd), _build.ptr(mk),
+                _build.ptr(wm) if wm is not None else None, _build.ptr(hm),
+                _build.ptr(alt), _build.ptr(dist), _build.ptr(lab), _build.ptr(flag),
+                b, z, h, w, ctypes.cast(rounds, ctypes.c_void_p), _build.stream_handle(dev))
+    _build.check(rc, "ctt_flood3d")
+    _build.count_launch(flood_volume, alt_rounds=rounds[0], assign_rounds=rounds[1])
+    if stats is not None:
+        stats["flood_alt_iters"], stats["flood_assign_iters"] = rounds[0], rounds[1]
+    return lab
+
+
+flood_volume.launches = 0
+flood_volume.alt_rounds = 0
+flood_volume.assign_rounds = 0

@@ -1,29 +1,39 @@
-"""Seeded watershed and seed detection in PyTorch — the per-block 2d
-DT-watershed.
+"""Seeded watershed and seed detection in PyTorch — the per-block
+DT-watershed in every mode, and the seeded flood.
 
-Port of the parts of ``cluster_tools_tpu/ops/watershed.py`` the production
-configuration runs (``apply_dt_2d=True, apply_ws_2d=True``): every z-slice
-goes threshold → 2d EDT → smoothed-maxima seeds → height map → seeded flood,
-then a block-wide size filter re-floods the voxels of small segments.
+Port of ``cluster_tools_tpu/ops/watershed.py``: threshold → distance
+transform (per slice or 3d, with a pixel pitch) → smoothed-maxima seeds
+(optionally thinned by non-maximum suppression) → height map → seeded flood
+→ size filter (a second flood of the voxels of small segments).
 
 The flood is the unique fixpoint of the lexicographic path cost
 (pass height, hops, seed label), ties to the smaller label (``minlex``), so
-any schedule gives the same labels; the port runs it in the CUDA kernels of
-``cuda_flood`` and ``cuda_dtws`` on the card and in their plain PyTorch
-versions on the CPU.  Tensors carry a leading batch axis of blocks
+any schedule gives the same labels.  ``seeded_watershed`` dispatches as the
+JAX package does: a per-slice flood goes to kernel 1 (``cuda_flood.
+flood_slices``); a 3d flood to the global sweeps (``cuda_flood.
+flood_volume``), warm-started by kernel 3 (``cuda_flood.flood_tiles_warm``)
+when a flood tile resolves (``resolve_flood_tile``).  On the CPU each runs
+its plain PyTorch version.  The production 2d mode of ``dt_watershed`` runs
+as kernel 2 (``cuda_dtws``).  Tensors carry a leading batch axis of blocks
 (B, Z, H, W) where the JAX package used ``vmap``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+import warnings
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .cc import connected_components
-from .cuda_flood import flood_slices
+from .cc import connected_components, parse_tile_spec
+from .cuda_flood import flood_slices, flood_tiles_warm, flood_volume
+from .dt import distance_transform, distance_transform_2d_stack, parabola_pass_axis
 from .filters import fma32, gaussian, maximum_filter, normalize
+
+FLOOD_TILE_ENV = "CTT_FLOOD_TILE"
+_BIG = 3.0e38
 
 
 def minlex(d1, l1, d2, l2):
@@ -41,42 +51,136 @@ def hmap_weights(alpha: float) -> Tuple[torch.Tensor, torch.Tensor]:
     )
 
 
-def local_maxima(dt: torch.Tensor, sigma: float) -> torch.Tensor:
-    """Per-slice plateau maxima of the smoothed distances, where dt > 0."""
-    sm = gaussian(dt, (0.0, 0.0, sigma, sigma)) if sigma and sigma > 0 else dt
-    return (maximum_filter(sm, (3, 3)) == sm) & (dt > 0)
+def _sigmas(per_slice: bool, sigma: float) -> Tuple[float, float, float]:
+    """Gaussian sigmas over (Z, H, W): in plane only when ``per_slice``."""
+    return (0.0 if per_slice else sigma, sigma, sigma)
 
 
-def dt_seeds(dt: torch.Tensor, sigma: float = 2.0):
-    """Seeds from a (B, Z, H, W) distance transform, per slice: smooth →
-    3×3 plateau maxima → 8-connected CC → consecutive ids per block in
-    minimal-flat-index order.  Returns ``(int32 seeds, n per block)``."""
-    return connected_components(local_maxima(dt, sigma), connectivity=3, per_slice=True)
+def local_maxima(dt: torch.Tensor, sigma: float, per_slice: bool = False) -> torch.Tensor:
+    """Plateau maxima of the smoothed distances where dt > 0, per slice
+    (3×3 window) or in 3d (3×3×3) over a (..., Z, H, W) tensor."""
+    sm = gaussian(dt, _sigmas(per_slice, float(sigma))) if sigma and sigma > 0 else dt
+    window = (3, 3) if per_slice else (3, 3, 3)
+    return (maximum_filter(sm, window) == sm) & (dt > 0)
 
 
-def make_hmap(x: torch.Tensor, dt: torch.Tensor, alpha: float, sigma: float = 0.0) -> torch.Tensor:
-    """Height map ``alpha·x + (1-alpha)·(1 - normalize(dt))`` with the
-    distances normalized and the result smoothed within each z-slice; the
-    blend is ``fma(alpha, x, (1-alpha)·(1-dtn))``, the JAX package's
-    contraction of it on the CPU."""
+def suppress_seeds(
+    maxima: torch.Tensor,
+    dt: torch.Tensor,
+    per_slice: bool = False,
+    pixel_pitch: Optional[Sequence[float]] = None,
+) -> torch.Tensor:
+    """Distance-based non-maximum suppression of seed maxima over the three
+    trailing axes: p is dropped iff a maximum q covers it,
+    ``dt(q)² − ‖p−q‖² > dt(p)²`` (up to the JAX package's 1e-5 slack); the
+    cover field is a separable max-parabola transform."""
+    pitch = (1.0, 1.0, 1.0) if pixel_pitch is None else tuple(float(p) for p in pixel_pitch)
+    d = dt.to(torch.float32)
+    d2 = d * d
+    g = torch.where(maxima, -d2, torch.tensor(_BIG, dtype=torch.float32, device=dt.device))
+    nd = dt.dim()
+    for axis in ((1, 2) if per_slice else (0, 1, 2)):
+        g = parabola_pass_axis(g, nd - 3 + axis, pitch[axis])
+    slack = torch.tensor(1.0 + 1e-5, dtype=torch.float32, device=dt.device).expand_as(d2)
+    eps = torch.tensor(1e-5, dtype=torch.float32, device=dt.device).expand_as(d2)
+    return maxima & (-g <= fma32(d2, slack, eps))
+
+
+def dt_seeds(
+    dt: torch.Tensor,
+    sigma: float = 2.0,
+    per_slice: bool = False,
+    nms: bool = False,
+    pixel_pitch: Optional[Sequence[float]] = None,
+):
+    """Seeds from a (B, Z, H, W) distance transform: smooth → plateau
+    maxima → optional NMS → CC of the maxima (8-connected per slice, or
+    26-connected in 3d) → consecutive ids per block in minimal-flat-index
+    order.  Returns ``(int32 seeds, n per block)``."""
+    lm = local_maxima(dt, sigma, per_slice)
+    if nms:
+        lm = suppress_seeds(lm, dt, per_slice=per_slice, pixel_pitch=pixel_pitch)
+    return connected_components(lm, connectivity=3, per_slice=per_slice)
+
+
+def make_hmap(
+    x: torch.Tensor, dt: torch.Tensor, alpha: float, sigma: float = 0.0, per_slice: bool = False
+) -> torch.Tensor:
+    """Height map ``alpha·x + (1-alpha)·(1 - normalize(dt))`` of a
+    (B, Z, H, W) batch, the distances normalized and the result smoothed per
+    z-slice (``per_slice``) or per block; the blend is
+    ``fma(alpha, x, (1-alpha)·(1-dtn))``, the JAX package's contraction of it
+    on the CPU."""
     a, b = (w.to(x.device) for w in hmap_weights(alpha))
-    dtn = normalize(dt, dims=(-2, -1))
+    dtn = normalize(dt, dims=(-2, -1) if per_slice else (-3, -2, -1))
     hmap = fma32(a.expand_as(x), x, b * (1 - dtn))
     if sigma and sigma > 0:
-        hmap = gaussian(hmap, (0.0, 0.0, sigma, sigma))
+        hmap = gaussian(hmap, _sigmas(per_slice, float(sigma)))
     return hmap
 
 
-def seeded_watershed(hmap: torch.Tensor, seeds: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Per-slice flood of a (..., H, W) stack from ``seeds`` (0 = unlabeled)
-    over ``hmap``, restricted to ``mask`` (connectivity 1, to the fixpoint):
-    kernel 1 on the card, its plain version on the CPU."""
+def resolve_flood_tile(shape, coarse_tile=None) -> Optional[Tuple[int, ...]]:
+    """The flood's warm-start tile: an explicit ``coarse_tile`` (int = cube,
+    sequence = per axis) first, then the ``CTT_FLOOD_TILE`` environment
+    variable, read at call time, then None (no warm start) — clipped per
+    axis to ``shape``.  An invalid variable warns and gives None."""
+    ndim = len(shape)
+    if coarse_tile is None:
+        pin = os.environ.get(FLOOD_TILE_ENV)
+        if pin is None:
+            return None
+        tile = parse_tile_spec(pin, ndim)
+        if tile is None:
+            warnings.warn(
+                f"invalid {FLOOD_TILE_ENV}={pin!r}; tile warm start off",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            return None
+    elif isinstance(coarse_tile, (int, np.integer)):
+        tile = (int(coarse_tile),) * ndim
+    else:
+        tile = tuple(int(t) for t in coarse_tile)
+        if len(tile) != ndim:
+            raise ValueError(f"coarse_tile {coarse_tile!r} does not match ndim {ndim}")
+    return tuple(max(1, min(int(t), int(s))) for t, s in zip(tile, shape))
+
+
+def seeded_watershed(
+    hmap: torch.Tensor,
+    seeds: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    connectivity: int = 1,
+    max_iter: int = 0,
+    per_slice: bool = False,
+    coarse_tile=None,
+) -> torch.Tensor:
+    """Flood ``seeds`` (0 = unlabeled) over ``hmap`` to the fixpoint,
+    restricted to ``mask``, for one (Z, H, W) block or a (B, Z, H, W) batch.
+    ``per_slice`` floods each z-slice on its own (kernel 1); otherwise the
+    3d flood, warm-started by kernel 3 when a tile resolves from
+    ``coarse_tile`` or ``CTT_FLOOD_TILE`` (same labels, fewer global
+    rounds).  Returns int32 labels."""
+    if connectivity != 1:
+        raise NotImplementedError("flood connectivity > 1 is not ported yet (ROADMAP Queue A 5)")
+    if max_iter:
+        raise NotImplementedError("a capped flood (max_iter > 0) is not ported yet (ROADMAP Queue A 5)")
+    if mask is None:
+        mask = torch.ones(hmap.shape, dtype=torch.bool, device=hmap.device)
     shape = hmap.shape
+    tile = resolve_flood_tile(shape[-3:], coarse_tile)
     h, w = shape[-2:]
-    out = flood_slices(
-        hmap.reshape(-1, h, w), seeds.reshape(-1, h, w), mask.reshape(-1, h, w)
-    )
-    return out.view(shape)
+    if per_slice:
+        out = flood_slices(hmap.reshape(-1, h, w), seeds.reshape(-1, h, w), mask.reshape(-1, h, w))
+        return out.view(shape)
+    batch = (-1,) + tuple(shape[-3:])
+    hmap, seeds, mask = (t.reshape(batch) for t in (hmap, seeds, mask))
+    warm = None
+    if tile is not None:
+        warm = flood_tiles_warm(
+            hmap.reshape(-1, h, w), seeds.reshape(-1, h, w), mask.reshape(-1, h, w), tile[1:]
+        ).view(hmap.shape)
+    return flood_volume(hmap, seeds, mask, warm=warm).view(shape)
 
 
 def apply_size_filter(
@@ -84,19 +188,23 @@ def apply_size_filter(
     hmap: torch.Tensor,
     size_filter: int,
     num_segments: int,
-    mask: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    connectivity: int = 1,
+    per_slice: bool = False,
 ) -> torch.Tensor:
-    """Per block of a (B, Z, H, W) batch: zero the segments with fewer than
-    ``size_filter`` voxels and re-flood the freed voxels from the survivors.
-    ``num_segments`` bounds the label values (exclusive)."""
-    b = labels.shape[0]
-    flat = labels.reshape(b, -1).to(torch.int64)
+    """Per block of one (Z, H, W) block or a (B, Z, H, W) batch: zero the
+    segments with fewer than ``size_filter`` voxels and re-flood the freed
+    voxels from the survivors.  ``num_segments`` bounds the label values
+    (exclusive)."""
+    lab = labels.reshape((-1,) + tuple(labels.shape[-3:]))
+    b = lab.shape[0]
+    flat = lab.reshape(b, -1).to(torch.int64)
     base = (torch.arange(b, device=labels.device) * num_segments)[:, None]
     counts = torch.bincount((flat + base).reshape(-1), minlength=b * num_segments)
     counts = counts[: b * num_segments].view(b, num_segments)
     too_small = torch.gather(counts, 1, torch.clamp(flat, max=num_segments - 1)) < size_filter
     kept = torch.where(too_small, 0, flat).view(labels.shape).to(torch.int32)
-    return seeded_watershed(hmap, kept, mask)
+    return seeded_watershed(hmap, kept, mask, connectivity=connectivity, per_slice=per_slice)
 
 
 def dt_watershed(
@@ -118,27 +226,44 @@ def dt_watershed(
     batch of blocks, on the tensor's device.  Returns ``(int32 labels,
     n_seeds)`` (n_seeds per block for a batch).
 
-    Only the production 2d mode is ported; the 3d distance transform, pixel
-    pitch and non-maximum suppression raise."""
+    The 2d mode (``apply_dt_2d`` and ``apply_ws_2d``, no NMS) runs as
+    kernel 2; every other mode runs the steps here, with the 3d flood (or
+    kernel 1 for a per-slice flood).  ``valid`` restricts the flood and the
+    size filter to the real voxels of a padded block."""
     from .cuda_dtws import dt_watershed_slices
 
-    if not (apply_dt_2d and apply_ws_2d):
-        raise NotImplementedError(
-            "3d DT-watershed mode is not ported yet (ROADMAP Queue A 5)"
-        )
-    if pixel_pitch is not None or non_maximum_suppression:
-        raise NotImplementedError(
-            "pixel_pitch / non_maximum_suppression are not ported yet (ROADMAP Queue A 5)"
-        )
+    if pixel_pitch is not None and apply_dt_2d:
+        raise ValueError("pixel_pitch requires apply_dt_2d=False")
     single = input_.dim() == 3
     x = input_[None] if single else input_
     m = None if mask is None else (mask[None] if single else mask)
     v = None if valid is None else (valid[None] if single else valid)
-    labels, n = dt_watershed_slices(
-        x, m, v, threshold=threshold, sigma_seeds=sigma_seeds,
-        sigma_weights=sigma_weights, alpha=alpha, size_filter=size_filter,
-        invert_input=invert_input,
-    )
+    if apply_dt_2d and apply_ws_2d and not non_maximum_suppression:
+        labels, n = dt_watershed_slices(
+            x, m, v, threshold=threshold, sigma_seeds=sigma_seeds,
+            sigma_weights=sigma_weights, alpha=alpha, size_filter=size_filter,
+            invert_input=invert_input,
+        )
+    else:
+        x = x.to(torch.float32)
+        if invert_input:
+            x = 1.0 - x
+        fg = x < torch.tensor(threshold, dtype=torch.float32, device=x.device)
+        if m is not None:
+            fg = fg & m.bool()
+        dt = distance_transform_2d_stack(fg) if apply_dt_2d else distance_transform(fg, pixel_pitch)
+        seeds, n = dt_seeds(
+            dt, sigma_seeds, per_slice=apply_ws_2d, nms=non_maximum_suppression,
+            pixel_pitch=pixel_pitch,
+        )
+        hmap = make_hmap(x, dt, alpha, sigma_weights, per_slice=apply_ws_2d)
+        flood_mask = fg if v is None else fg & v.bool()
+        labels = seeded_watershed(hmap, seeds, flood_mask, per_slice=apply_ws_2d)
+        if size_filter > 0:
+            labels = apply_size_filter(
+                labels, hmap, size_filter, num_segments_of(x.shape[1:]), flood_mask,
+                per_slice=apply_ws_2d,
+            )
     if single:
         return labels[0], n[0]
     return labels, n

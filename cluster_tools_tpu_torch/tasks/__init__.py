@@ -4,10 +4,10 @@ from .thresholded_components import (
     MergeAssignmentsTask,
     MergeOffsetsTask,
 )
-from .watershed import MAX_IDS_KEY, WatershedTask, kernel_params
+from .watershed import MAX_IDS_KEY, WatershedFromSeedsTask, WatershedTask, kernel_params
 from .write import WriteTask
 
 __all__ = [
     "BlockComponentsTask", "BlockFacesTask", "MAX_IDS_KEY", "MergeAssignmentsTask",
-    "MergeOffsetsTask", "WatershedTask", "WriteTask", "kernel_params",
+    "MergeOffsetsTask", "WatershedFromSeedsTask", "WatershedTask", "WriteTask", "kernel_params",
 ]

@@ -1,14 +1,22 @@
-"""Watershed task — the per-block DT-watershed (port of
-``cluster_tools_tpu/tasks/watershed.py::WatershedTask``).
+"""Watershed tasks (port of ``cluster_tools_tpu/tasks/watershed.py``):
+``WatershedTask`` and ``WatershedFromSeedsTask``.
 
-Per halo'd block: run the DT-watershed, crop the inner box and re-close the
-labels by connected components (only with a halo), add the block's id offset
-``block_id * prod(block_shape)``, write.  The split batch protocol reads the
-halo'd blocks on host threads (edge blocks padded to the static batch shape
-by ``_pad_block``, a ``valid`` mask marking real voxels), computes a whole
-batch as one (B, Z, H, W) tensor on the configured device — kernel 2 plus
-the size filter's kernel-1 re-flood on the card — and writes on a host
-thread.  ``MAX_IDS_KEY`` holds each block's largest written id.
+``WatershedTask``, per halo'd block: run the DT-watershed, crop the inner
+box and re-close the labels by connected components (only with a halo), add
+the block's id offset ``block_id * prod(block_shape)``, write.  The split
+batch protocol reads the halo'd blocks on host threads (edge blocks padded
+to the static batch shape by ``_pad_block``, a ``valid`` mask marking real
+voxels), computes a whole batch as one (B, Z, H, W) tensor on the
+configured device — in the 2d mode kernel 2 plus the size filter's kernel-1
+re-flood on the card, in the other modes the plain steps and the 3d flood —
+and writes on a host thread.  ``MAX_IDS_KEY`` holds each block's largest
+written id.
+
+``WatershedFromSeedsTask``, per halo'd block: smooth the boundary map,
+flood it from the block's global seed ids (compacted to int32 for the
+device and mapped back), optionally size-filter, write the inner box.  It
+has no batch protocol: the ``cuda`` target runs ``process_block`` in
+``max_jobs`` host threads.
 """
 
 from __future__ import annotations
@@ -19,7 +27,8 @@ import numpy as np
 import torch
 
 from ..ops.cc import connected_components_labels
-from ..ops.watershed import dt_watershed
+from ..ops.filters import gaussian
+from ..ops.watershed import apply_size_filter, dt_watershed, seeded_watershed
 from ..runtime.device import resolve_device
 from ..utils import store
 from ..utils.blocking import Blocking
@@ -179,3 +188,75 @@ class WatershedTask(VolumeTask):
             self.compute_batch(self.read_batch([block_id], blocking, config), blocking, config),
             blocking, config,
         )
+
+
+class WatershedFromSeedsTask(VolumeTask):
+    """Seeded watershed from a given (global-id) seed volume.
+
+    ``input_path/key`` is the boundary map, ``seeds_path/key`` a label
+    volume whose non-zero ids become the seeds.  The seed ids are global, so
+    the output is boundary-consistent across blocks without a stitching
+    step."""
+
+    task_name = "watershed_from_seeds"
+    output_dtype = "uint64"
+
+    def __init__(self, *args, seeds_path: str = None, seeds_key: str = None,
+                 mask_path: str = None, mask_key: str = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.seeds_path = seeds_path
+        self.seeds_key = seeds_key
+        self.mask_path = mask_path
+        self.mask_key = mask_key
+
+    @classmethod
+    def default_task_config(cls) -> Dict[str, Any]:
+        conf = super().default_task_config()
+        conf.update({
+            "sigma_weights": 2.0,
+            "halo": [2, 8, 8],
+            "invert_inputs": False,
+            "apply_ws_2d": False,
+            "size_filter": 0,
+            "channel_begin": 0,
+            "channel_end": None,
+            "agglomerate_channels": "mean",
+        })
+        return conf
+
+    def process_block(self, block_id: int, blocking: Blocking, config):
+        dev = resolve_device(config)
+        seeds_ds = store.file_reader(self.seeds_path, "r")[self.seeds_key]
+        halo = config.get("halo") or [0, 0, 0]
+        bh = blocking.block_with_halo(block_id, halo)
+
+        x = _read_input_block(self.input_ds(), bh.outer.slicing, config)
+        if config.get("invert_inputs", False):
+            x = 1.0 - x
+        seeds = seeds_ds[bh.outer.slicing].astype(np.uint64)
+        mask = None
+        if self.mask_path:
+            mask_ds = store.file_reader(self.mask_path, "r")[self.mask_key]
+            mask = torch.from_numpy(mask_ds[bh.outer.slicing].astype(bool)).to(dev)
+
+        sigma = float(config.get("sigma_weights", 2.0))
+        per_slice = bool(config.get("apply_ws_2d", False))
+        hmap = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        if sigma > 0:
+            hmap = gaussian(hmap, (0.0, sigma, sigma) if per_slice else sigma)
+
+        # flood over compact ids (int32 on the device), map back after
+        uniq = np.unique(seeds)
+        uniq = uniq[uniq > 0]
+        compact = np.where(seeds > 0, np.searchsorted(uniq, seeds) + 1, 0).astype(np.int32)
+        labels = seeded_watershed(
+            hmap, torch.from_numpy(compact).to(dev), mask=mask, per_slice=per_slice
+        )
+        size_filter = int(config.get("size_filter", 0))
+        if size_filter > 0:
+            labels = apply_size_filter(
+                labels, hmap, size_filter, int(uniq.size + 2), mask=mask, per_slice=per_slice
+            )
+        labels = labels.cpu().numpy().astype(np.int64)
+        lookup = np.concatenate([[np.uint64(0)], uniq]).astype(np.uint64)
+        self.output_ds()[bh.inner.slicing] = lookup[labels[bh.inner_local.slicing]]

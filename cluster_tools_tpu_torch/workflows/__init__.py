@@ -1,4 +1,4 @@
-from .thresholded_components import ThresholdedComponentsWorkflow
+from .thresholded_components import ThresholdAndWatershedWorkflow, ThresholdedComponentsWorkflow
 from .watershed import WatershedWorkflow
 
-__all__ = ["ThresholdedComponentsWorkflow", "WatershedWorkflow"]
+__all__ = ["ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "WatershedWorkflow"]

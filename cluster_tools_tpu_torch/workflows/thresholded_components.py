@@ -1,7 +1,10 @@
-"""Distributed thresholded connected components workflow (port of
-``cluster_tools_tpu/workflows/thresholded_components.py``, default branch):
-block CC → offsets → faces → union-find → write.  The sharded branch (one
-collective task over several cards) is not ported yet and raises."""
+"""Distributed thresholded connected components workflows (port of
+``cluster_tools_tpu/workflows/thresholded_components.py``):
+``ThresholdedComponentsWorkflow`` (default branch: block CC → offsets →
+faces → union-find → write; the sharded branch, one collective task over
+several cards, is not ported yet and raises) and
+``ThresholdAndWatershedWorkflow`` (those components as global seeds of a
+watershed over the boundary map)."""
 
 from __future__ import annotations
 
@@ -86,4 +89,60 @@ class ThresholdedComponentsWorkflow(WorkflowBase):
         conf = super().get_config()
         conf["block_components"] = BlockComponentsTask.default_task_config()
         conf["write"] = WriteTask.default_task_config()
+        return conf
+
+
+class ThresholdAndWatershedWorkflow(WorkflowBase):
+    """Thresholded components written to ``output_key + "_seeds"``, used as
+    global seeds of a watershed over the full boundary map
+    (``WatershedFromSeedsTask``)."""
+
+    task_name = "threshold_and_watershed_workflow"
+
+    def __init__(
+        self,
+        tmp_folder: str,
+        config_dir: Optional[str] = None,
+        max_jobs: Optional[int] = None,
+        target: Optional[str] = None,
+        input_path: str = None,
+        input_key: str = None,
+        output_path: str = None,
+        output_key: str = None,
+        mask_path: str = None,
+        mask_key: str = None,
+    ):
+        super().__init__(tmp_folder, config_dir, max_jobs, target)
+        self.input_path = input_path
+        self.input_key = input_key
+        self.output_path = output_path
+        self.output_key = output_key
+        self.mask_path = mask_path
+        self.mask_key = mask_key
+
+    def requires(self):
+        from ..tasks.watershed import WatershedFromSeedsTask
+
+        seeds_key = self.output_key + "_seeds"
+        components = ThresholdedComponentsWorkflow(
+            self.tmp_folder, self.config_dir, self.max_jobs, self.target,
+            input_path=self.input_path, input_key=self.input_key,
+            output_path=self.output_path, output_key=seeds_key,
+            mask_path=self.mask_path, mask_key=self.mask_key,
+        )
+        ws = WatershedFromSeedsTask(
+            self.tmp_folder, self.config_dir, self.max_jobs, dependencies=[components],
+            input_path=self.input_path, input_key=self.input_key,
+            seeds_path=self.output_path, seeds_key=seeds_key,
+            output_path=self.output_path, output_key=self.output_key,
+            mask_path=self.mask_path, mask_key=self.mask_key,
+        )
+        return [ws]
+
+    @classmethod
+    def get_config(cls):
+        from ..tasks.watershed import WatershedFromSeedsTask
+
+        conf = ThresholdedComponentsWorkflow.get_config()
+        conf["watershed_from_seeds"] = WatershedFromSeedsTask.default_task_config()
         return conf

@@ -9,20 +9,32 @@ it also runs on a machine that has only PyTorch:
 
 Contract: labels, seed roots and the height map equal the plain version bit
 for bit (both round every float operation the same way); the CC kernels'
-labels equal their plain versions exactly (the min-label fixpoint is
-unique)."""
+labels, kernel 3's warm altitudes and the 3d flood's labels equal their
+plain versions exactly (each fixpoint is unique)."""
 
 import numpy as np
 import pytest
 import torch
 from scipy import ndimage
 
-from cluster_tools_tpu_torch import ThresholdedComponentsWorkflow, WatershedWorkflow, build
+from cluster_tools_tpu_torch import (
+    ThresholdAndWatershedWorkflow,
+    ThresholdedComponentsWorkflow,
+    WatershedWorkflow,
+    build,
+)
 from cluster_tools_tpu_torch.ops.cc import connected_components, serpentine_mask
 from cluster_tools_tpu_torch.ops.cuda_cc import cc_slices, cc_slices_plain, cc_tiles, cc_tiles_plain
 from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices, dtws_slices_plain
-from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices, flood_slices_plain
-from cluster_tools_tpu_torch.ops.watershed import dt_watershed
+from cluster_tools_tpu_torch.ops.cuda_flood import (
+    flood_slices,
+    flood_slices_plain,
+    flood_tiles_warm,
+    flood_tiles_warm_plain,
+    flood_volume,
+    flood_volume_plain,
+)
+from cluster_tools_tpu_torch.ops.watershed import dt_watershed, seeded_watershed
 from cluster_tools_tpu_torch.runtime import config as cfg
 from cluster_tools_tpu_torch.utils import file_reader
 
@@ -228,3 +240,122 @@ def test_components_workflow_on_card_equals_cpu(tmp_path, mode, cuda_device):
     want, n = ndimage.label(fg)
     assert got.max() == n and ((got > 0) == fg).all()
     assert len(np.unique(np.stack([got[fg], want[fg]], axis=1), axis=0)) == n
+
+
+def _flood3d_case(case):
+    """(B, Z, H, W) height map, seeds and mask."""
+    if case == "random":
+        rng = np.random.default_rng(7)
+        hmap = np.stack([_volume((9, 37, 70), s, (1.0, 2.0, 2.0)) for s in (7, 8)])
+        seeds = np.zeros(hmap.shape, np.int32)
+        idx = rng.choice(hmap.size, 80, replace=False)
+        seeds.flat[idx] = np.arange(1, 81)
+        mask = rng.random(hmap.shape) < 0.9
+    elif case == "serpentine":
+        # a corridor snaking through the (z, x) plane: a bend per z-row
+        mask = np.zeros((1, 24, 3, 40), bool)
+        mask[0, :, 1, :] = serpentine_mask((24, 40))
+        hmap = np.full(mask.shape, 0.5, np.float32)
+        seeds = np.zeros(mask.shape, np.int32)
+        seeds[0, 0, 1, 0] = 1
+    else:  # in-plane serpentine in every slice, one seed per slice
+        mask = serpentine_mask((2, 4, 32, 64))
+        hmap = np.full(mask.shape, 0.5, np.float32)
+        seeds = np.zeros(mask.shape, np.int32)
+        seeds[:, :, 0, 0] = np.arange(1, 9).reshape(2, 4)
+    return hmap, seeds, mask
+
+
+FLOOD3D_CASES = ["random", "serpentine", "serpentine_slices"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLOOD3D_CASES)
+@pytest.mark.parametrize("tile", [(64, 128), (5, 7), (16, 16)])
+def test_flood_tiles_warm_kernel_equals_plain(case, tile, cuda_device):
+    h, s, m = (torch.from_numpy(a).to(cuda_device) for a in _flood3d_case(case))
+    h, s, m = (t.reshape((-1,) + t.shape[-2:]) for t in (h, s, m))
+    n_tiles = h.shape[0] * -(-h.shape[1] // min(tile[0], h.shape[1])) * -(-h.shape[2] // min(tile[1], h.shape[2]))
+    rounds = torch.zeros(n_tiles, dtype=torch.int32, device=cuda_device)
+    before = flood_tiles_warm.launches
+    got = flood_tiles_warm(h, s, m, tile, rounds=rounds)
+    assert flood_tiles_warm.launches == before + 1
+    torch.testing.assert_close(got, flood_tiles_warm_plain(h, s, m, tile), rtol=0, atol=0)
+    assert int(rounds.min()) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLOOD3D_CASES)
+@pytest.mark.parametrize("warm", [False, True])
+def test_flood_volume_kernel_equals_plain(case, warm, cuda_device):
+    h, s, m = (torch.from_numpy(a).to(cuda_device) for a in _flood3d_case(case))
+    w = None
+    if warm:
+        hw = h.shape[-2:]
+        w = flood_tiles_warm(h.reshape((-1,) + hw), s.reshape((-1,) + hw),
+                             m.reshape((-1,) + hw), (16, 32)).view(h.shape)
+    stats = {}
+    before = flood_volume.launches
+    got = flood_volume(h, s, m, warm=w, stats=stats)
+    assert flood_volume.launches == before + 1
+    torch.testing.assert_close(got, flood_volume_plain(h, s, m, warm=w), rtol=0, atol=0)
+    assert stats["flood_alt_iters"] >= 1 and stats["flood_assign_iters"] >= 1
+    if case == "serpentine":
+        assert bool((got[m] == 1).all())
+
+
+@pytest.mark.cuda
+def test_seeded_watershed_on_card_equals_cpu(cuda_device, monkeypatch):
+    """The dispatch on the card: the 3d flood (warm-started by kernel 3 when
+    CTT_FLOOD_TILE is set) and the per-slice flood give the CPU's labels."""
+    h, s, m = (torch.from_numpy(a) for a in _flood3d_case("random"))
+    want = seeded_watershed(h, s, m)
+    for pin in (None, "4,16,32"):
+        if pin:
+            monkeypatch.setenv("CTT_FLOOD_TILE", pin)
+        k0, v0 = flood_tiles_warm.launches, flood_volume.launches
+        got = seeded_watershed(h.to(cuda_device), s.to(cuda_device), m.to(cuda_device))
+        assert (flood_tiles_warm.launches - k0, flood_volume.launches - v0) == (1 if pin else 0, 1)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    got = seeded_watershed(h.to(cuda_device), s.to(cuda_device), m.to(cuda_device), per_slice=True)
+    np.testing.assert_array_equal(got.cpu().numpy(), seeded_watershed(h, s, m, per_slice=True).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [(False, False), (True, False), (False, True)])
+def test_dt_watershed_3d_modes_on_card_equal_cpu(mode, cuda_device):
+    raw = torch.from_numpy(np.stack([_volume((8, 24, 28), s, (1.0, 2.0, 2.0)) for s in (1, 2)]))
+    kw = dict(threshold=0.5, apply_dt_2d=mode[0], apply_ws_2d=mode[1], size_filter=10,
+              pixel_pitch=None if mode[0] else (2.5, 1.3, 0.7))
+    got, n = dt_watershed(raw.to(cuda_device), **kw)
+    want, nw = dt_watershed(raw, **kw)
+    np.testing.assert_array_equal(n.cpu().numpy(), nw.numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_seeds_workflow_on_card_equals_cpu(tmp_path, cuda_device, monkeypatch):
+    """``ThresholdAndWatershedWorkflow`` on the card (``cuda`` target, a
+    flood tile pinned) writes what the same config writes on the CPU."""
+    monkeypatch.setenv("CTT_FLOOD_TILE", "4,16,16")
+    path = str(tmp_path / "d.n5")
+    raw = _volume((20, 41, 37), 5, (1.0, 2.0, 2.0))
+    file_reader(path).create_dataset("bnd", data=raw, chunks=(12, 24, 24), compression="raw")
+    for device in ("cuda", "cpu"):
+        config_dir = str(tmp_path / f"configs_{device}")
+        cfg.write_global_config(config_dir, {
+            "block_shape": [12, 24, 24], "target": "cuda", "device": device, "max_jobs": 4,
+        })
+        cfg.write_config(config_dir, "block_components", {"threshold": 0.4, "threshold_mode": "less"})
+        cfg.write_config(config_dir, "watershed_from_seeds", {"sigma_weights": 1.0, "halo": [2, 6, 6]})
+        k0, v0 = flood_tiles_warm.launches, flood_volume.launches
+        assert build([ThresholdAndWatershedWorkflow(
+            str(tmp_path / f"tmp_{device}"), config_dir, input_path=path, input_key="bnd",
+            output_path=path, output_key=f"seg_{device}",
+        )])
+        n_blocks = 2 * 2 * 2
+        expect = n_blocks if device == "cuda" else 0
+        assert (flood_tiles_warm.launches - k0, flood_volume.launches - v0) == (expect, expect)
+    out = file_reader(path, "r")
+    for key in ("seg_{}_seeds", "seg_{}"):
+        np.testing.assert_array_equal(out[key.format("cuda")][:], out[key.format("cpu")][:])

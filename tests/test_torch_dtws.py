@@ -99,8 +99,19 @@ def test_dt_watershed_batch_numbers_each_block_alone():
 
 
 def test_dt_watershed_unported_modes_raise():
+    """The 3d and NMS modes are ported (``tests/test_torch_dtws3d.py`` holds
+    them against the JAX package) and run; what stays unported raises — the
+    flood's connectivity > 1 and capped floods — and a pitch with the 2d
+    EDT is refused, as in the JAX package."""
+    from cluster_tools_tpu_torch.ops.watershed import seeded_watershed
+
     x = torch.rand(2, 8, 8)
-    with pytest.raises(NotImplementedError):
-        dt_watershed(x, apply_dt_2d=False)
-    with pytest.raises(NotImplementedError):
-        dt_watershed(x, non_maximum_suppression=True)
+    for kw in ({"apply_dt_2d": False}, {"non_maximum_suppression": True}):
+        labels, _ = dt_watershed(x, **kw)
+        assert labels.shape == x.shape and labels.dtype == torch.int32
+    with pytest.raises(ValueError, match="pixel_pitch"):
+        dt_watershed(x, pixel_pitch=(1.0, 1.0, 1.0))
+    seeds = torch.zeros(x.shape, dtype=torch.int32)
+    for kw in ({"connectivity": 2}, {"max_iter": 4}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            seeded_watershed(x, seeds, **kw)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from cluster_tools_tpu_torch import WatershedWorkflow, build
+from cluster_tools_tpu_torch import ThresholdAndWatershedWorkflow, WatershedWorkflow, build
 from cluster_tools_tpu_torch.runtime import config as cfg
 from cluster_tools_tpu_torch.runtime.device import resolve_device
 from cluster_tools_tpu_torch.utils import file_reader
@@ -32,6 +32,9 @@ def test_port_imports_no_jax(entry):
         body = """
             import importlib, pkgutil
             import cluster_tools_tpu_torch as pkg
+            from cluster_tools_tpu_torch import ThresholdAndWatershedWorkflow
+            from cluster_tools_tpu_torch.ops.cuda_flood import flood_tiles_warm, flood_volume
+            from cluster_tools_tpu_torch.tasks import WatershedFromSeedsTask
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
                 importlib.import_module(m.name)
         """
@@ -65,8 +68,13 @@ def test_cuda_device_without_card_raises(monkeypatch):
     assert resolve_device({"device": "cpu"}) == torch.device("cpu")
 
 
-@pytest.mark.parametrize("target", ["local", "cuda"])
-def test_workflow_defaults_to_card_and_raises_without_one(tmp_path, monkeypatch, target):
+@pytest.mark.parametrize("target,workflow", [
+    pytest.param("local", WatershedWorkflow, id="local"),
+    pytest.param("cuda", WatershedWorkflow, id="cuda"),
+    pytest.param("local", ThresholdAndWatershedWorkflow, id="local-seeds"),
+    pytest.param("cuda", ThresholdAndWatershedWorkflow, id="cuda-seeds"),
+])
+def test_workflow_defaults_to_card_and_raises_without_one(tmp_path, monkeypatch, target, workflow):
     """No ``device`` key: the workflow asks for the card; without one the
     build raises instead of computing on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -78,7 +86,7 @@ def test_workflow_defaults_to_card_and_raises_without_one(tmp_path, monkeypatch,
     config_dir = str(tmp_path / "configs")
     cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16], "target": target})
     assert cfg.global_config(config_dir)["device"] == "cuda"
-    wf = WatershedWorkflow(
+    wf = workflow(
         str(tmp_path / "tmp"), config_dir, input_path=path, input_key="bnd",
         output_path=path, output_key="ws",
     )

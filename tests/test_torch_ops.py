@@ -133,7 +133,7 @@ def test_dt_seeds_per_slice_matches_jax(sigma):
     fg = raw < np.quantile(raw, 0.6)
     dt = np.array(jax_edt(jnp.asarray(fg)))
     want, nw = jax_dt_seeds(jnp.asarray(dt), sigma=sigma, per_slice=True)
-    got, n = dt_seeds(torch.from_numpy(dt)[None], sigma=sigma)
+    got, n = dt_seeds(torch.from_numpy(dt)[None], sigma=sigma, per_slice=True)
     assert int(n[0]) == int(nw)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
 
@@ -150,7 +150,9 @@ def test_make_hmap_matches_jax():
     dt = (rng.random((3, 16, 64)) * 9).astype(np.float32)
     for sigma in (0.0, 2.0):
         want = np.asarray(jax_make_hmap(jnp.asarray(x), jnp.asarray(dt), 0.8, sigma, per_slice=True))
-        got = make_hmap(torch.from_numpy(x)[None], torch.from_numpy(dt)[None], 0.8, sigma)[0].numpy()
+        got = make_hmap(
+            torch.from_numpy(x)[None], torch.from_numpy(dt)[None], 0.8, sigma, per_slice=True
+        )[0].numpy()
         if sigma == 0.0:
             np.testing.assert_array_equal(got, want)
         else:

@@ -157,3 +157,38 @@ def test_task_refuses_retry_when_half_the_blocks_fail(tmp_path):
     with pytest.raises(FailedBlocksError, match="refusing retry"):
         build([task])
     assert sorted(task.calls) == list(range(16))  # no second attempt
+
+
+def test_launch_counts_survive_concurrent_threads():
+    """Block tasks launch kernels from ``max_jobs`` host threads at once:
+    every count lands (a bare ``+=`` on the wrapper attribute loses some
+    when the interpreter switches threads mid-update)."""
+    import sys
+    import threading
+
+    from cluster_tools_tpu_torch.ops import _build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    wrapper.alt_rounds = 0
+    n_threads, per_thread = 16, 2000
+
+    def work():
+        for _ in range(per_thread):
+            _build.count_launch(wrapper, alt_rounds=3)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == n_threads * per_thread
+    assert wrapper.alt_rounds == 3 * n_threads * per_thread

@@ -10,10 +10,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      compiler per source, all started together;
   2. kernels against their plain PyTorch versions on the card.  Kernels 1-2
      (watershed) on a batch of (32, 256, 256) blocks of the synthetic volume
-     (the workflow's batch), a ragged edge block (29, 226, 226) and a
-     serpentine corridor: labels and seed roots exactly, the height map
-     exactly (the kernels round every float operation as the plain versions
-     do).  Kernels 4-5 (CC) on the same blocks thresholded (``vol < 0.5``)
+     (the workflow's batch), a ragged edge block (29, 226, 226), serpentine
+     corridors (one of 64 x 256, and two of 256 x 256 that cross every band
+     border of the cluster route along rows and along columns), empty and
+     full masks, and (2, 384, 384) slices above the cluster route's size
+     rule: labels and seed roots exactly, the height map exactly (the
+     kernels round every float operation as the plain versions do), each
+     case on the route its size gives.  At the workflow's batch the cluster
+     route's flood rounds must equal the parent design's (the global
+     route's), both designs are timed in turns and their phase splits
+     printed.  Kernels 4-5 (CC) on the same blocks thresholded (``vol < 0.5``)
      and their complement, the ragged block, a serpentine corridor and,
      for kernel 5, the (32, 640, 640) blocks of the second components run
      and their complement: labels exactly.
@@ -22,7 +28,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      sample A's shape (125, 1250, 1250), made the way ``bench.make_volume``
      makes it, written to n5 with raw chunks; ``build([WatershedWorkflow(...)])``
      on the ``cuda`` target with the default watershed config and blocks
-     (32, 256, 256).  Both kernels' launch counts must rise in this run; the
+     (32, 256, 256).  Both kernels' launch counts must rise in this run, all
+     down the cluster route; the
      output is checked (shape, labels only on the foreground, ids unique per
      block through the offsets) and two blocks re-run through the plain
      versions on the card must equal it byte for byte;
@@ -173,6 +180,17 @@ def size_filter_inputs(x, mask, valid, labels_flat, roots, hmap):
     return (hmap.view(-1, h, w), kept.view(-1, h, w).int(), flood_mask.view(-1, h, w))
 
 
+def phase_split(stamps: torch.Tensor, names) -> dict:
+    """Per-phase microseconds (mean and max over slices) from an (N, K)
+    tensor of the card's clock stamps in ns, K = len(names) + 1."""
+    d = (stamps[:, 1:] - stamps[:, :-1]).double() / 1e3
+    total = (stamps[:, -1] - stamps[:, 0]).double() / 1e3
+    out = {n: (round(d[:, i].mean().item(), 1), round(d[:, i].max().item(), 1))
+           for i, n in enumerate(names)}
+    out["slice total"] = (round(total.mean().item(), 1), round(total.max().item(), 1))
+    return out
+
+
 def serpentine(h, w, dev):
     from cluster_tools_tpu_torch.ops.cc import serpentine_mask
 
@@ -182,11 +200,67 @@ def serpentine(h, w, dev):
     return torch.full((1, h, w), 0.5, device=dev), seeds, m
 
 
+@contextlib.contextmanager
+def parent_route():
+    """Send kernels 1 and 2 down the global route, the parent design (one
+    thread block per slice over device scratch), by setting the size rule's
+    limit to 0 bytes."""
+    from cluster_tools_tpu_torch.ops import cuda_dtws, cuda_flood
+
+    saved = (cuda_flood.CLUSTER_SMEM_MAX, cuda_dtws.CLUSTER_SMEM_MAX)
+    cuda_flood.CLUSTER_SMEM_MAX = cuda_dtws.CLUSTER_SMEM_MAX = 0
+    try:
+        yield
+    finally:
+        cuda_flood.CLUSTER_SMEM_MAX, cuda_dtws.CLUSTER_SMEM_MAX = saved
+
+
+def cluster_occupancy(n_slices: int, h: int, w: int) -> str:
+    """The cluster routes' launch shape at (h, w) slices: shared memory per
+    CTA and the clusters (slices) the card runs at once, from
+    cudaOccupancyMaxActiveClusters, hence the waves of ``n_slices``."""
+    import ctypes
+
+    from cluster_tools_tpu_torch.ops import _build
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_cluster_smem
+    from cluster_tools_tpu_torch.ops.cuda_flood import CLUSTER, flood_cluster_smem
+
+    parts = []
+    for name, lib, fn, args, smem in (
+        ("dtws_slices", "dtws", "ctt_dtws_cluster_occupancy", (h, w, 17), dtws_cluster_smem(h, w, 17)),
+        ("flood_slices", "flood", "ctt_flood_cluster_occupancy", (h, w), flood_cluster_smem(h, w)),
+    ):
+        f = getattr(_build.library(lib), fn)
+        f.argtypes = [ctypes.c_int] * len(args)
+        f.restype = ctypes.c_int
+        clusters = f(*args)
+        if clusters <= 0:
+            raise AssertionError(f"{fn}: no cluster fits the card (code {clusters})")
+        parts.append(f"{name} {smem} B per CTA, {clusters} slices at once, "
+                     f"{-(-n_slices // clusters)} waves of {n_slices}")
+    return (f"cluster route at ({h}, {w}): clusters of {CLUSTER} CTAs x 1024 threads; "
+            + "; ".join(parts))
+
+
+def check_route(wrapper, before: dict, route: str, what: str) -> None:
+    """``wrapper`` launched once since ``before``, down ``route``."""
+    after = wrapper.launches_by_route
+    if after[route] != before[route] + 1 or sum(after.values()) != sum(before.values()) + 1:
+        raise AssertionError(f"{what}: expected one launch down the {route} route, "
+                             f"counts {before} -> {after}")
+
+
 def kernel_phase(vol, dev, batch: int):
-    """Phase 2: both kernels against their plain versions.  Returns the
-    per-kernel records of the kernels line (without the launch counts)."""
-    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices, dtws_slices_plain
-    from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices, flood_slices_plain
+    """Phase 2: both kernels against their plain versions on both routes,
+    and the cluster route's rounds, times and phase split against the
+    parent design's (the global route).  Returns the per-kernel records of
+    the kernels line (without the launch counts)."""
+    from cluster_tools_tpu_torch.ops.cuda_dtws import (
+        DTWS_PHASES, DTWS_STAMPS, dtws_route, dtws_slices, dtws_slices_plain,
+    )
+    from cluster_tools_tpu_torch.ops.cuda_flood import (
+        FLOOD_STAMPS, flood_route, flood_slices, flood_slices_plain,
+    )
 
     zb, yb, xb = BLOCK
     blocks = [
@@ -202,18 +276,39 @@ def kernel_phase(vol, dev, batch: int):
     sh, ss, sm = serpentine(64, 256, dev)
     serp_x = torch.where(sm, 0.2, 0.9).view(1, 1, 64, 256).expand(1, 2, 64, 256).contiguous()
     sones = torch.ones(serp_x.shape, dtype=torch.bool, device=dev)
+    from cluster_tools_tpu_torch.ops.cc import serpentine_mask
+
+    # corridors that cross every band border of the cluster route along
+    # columns (runs every 8 rows) and, transposed, along rows
+    m = serpentine_mask((256, 256), 8)
+    bands = {t: torch.from_numpy(np.ascontiguousarray(m.T if t else m)).to(dev) for t in (False, True)}
+    big = vol[:2, :384, :384][None].contiguous()  # above the size rule of both kernels
+    bones = torch.ones(big.shape, dtype=torch.bool, device=dev)
+    three = vol[:3, :256, :256][None].contiguous()
+    tones = torch.ones(three.shape, dtype=torch.bool, device=dev)
+
+    def case_xmv(x):
+        return x, torch.ones(x.shape, dtype=torch.bool, device=dev), torch.ones(x.shape, dtype=torch.bool, device=dev)
 
     cases = {
         "main": (x_main, ones, ones),
         "ragged": (ragged, rones, rones),
         "serpentine": (serp_x, sones, sones),
+        "serpentine rows 256": case_xmv(torch.where(bands[False], 0.2, 0.9)[None, None].contiguous()),
+        "serpentine columns 256": case_xmv(torch.where(bands[True], 0.2, 0.9)[None, None].contiguous()),
+        "empty mask": (three, torch.zeros_like(tones), tones),
+        "full mask": case_xmv(torch.full((1, 3, 256, 256), 0.2, device=dev)),
+        "above the size rule": (big, bones, bones),
     }
     dt_err = 0.0
     main_out = None
     for name, (x, m, v) in cases.items():
+        route = dtws_route(x.shape[2], x.shape[3], 17)
+        before = dict(dtws_slices.launches_by_route)
         got = dtws_slices(x, m, v, threshold=THRESHOLD)
         want = dtws_slices_plain(x, m, v, threshold=THRESHOLD)
         torch.cuda.synchronize()
+        check_route(dtws_slices, before, route, f"dtws_slices {name}")
         for what, g, w in zip(("labels", "roots", "hmap"), got, want):
             if not torch.equal(g, w):
                 raise AssertionError(
@@ -221,59 +316,118 @@ def kernel_phase(vol, dev, batch: int):
                     f"(max abs err {(g.double() - w.double()).abs().max().item()})"
                 )
         dt_err = max(dt_err, (got[2] - want[2]).abs().max().item())
-        log(f"dtws_slices {name} {tuple(x.shape)}: equal to plain")
+        log(f"dtws_slices {name} {tuple(x.shape)}: equal to plain ({route} route, "
+            f"{int((got[1] >= 0).sum())} maxima, {int((got[0] > 0).sum())} voxels labelled)")
         if name == "main":
             main_out = got
 
     flood_err = 0.0
     flood_main = size_filter_inputs(x_main, ones, ones, *main_out)
     rlab, rroots, rhmap = dtws_slices(ragged, rones, rones, threshold=THRESHOLD)
+
+    def corridor(t):
+        seeds = torch.zeros((1, 256, 256), dtype=torch.int32, device=dev)
+        seeds[0, 0, 0] = 1
+        return torch.full((1, 256, 256), 0.5, device=dev), seeds, bands[t][None]
+
+    rand_seeds = torch.zeros((2, 384, 384), dtype=torch.int32, device=dev)
+    rand_seeds.view(2, -1)[:, ::997] = torch.arange(1, 2 * len(range(0, 384 * 384, 997)) + 1,
+                                                    dtype=torch.int32, device=dev).view(2, -1)
     flood_cases = {
         "main": flood_main,
         "ragged": size_filter_inputs(ragged, rones, rones, rlab, rroots, rhmap),
         "serpentine": (sh, ss, sm),
+        "serpentine rows 256": corridor(False),
+        "serpentine columns 256": corridor(True),
+        "empty mask": (flood_main[0][:2], flood_main[1][:2], torch.zeros_like(flood_main[2][:2])),
+        "full mask": (flood_main[0][:2], flood_main[1][:2], torch.ones_like(flood_main[2][:2])),
+        "above the size rule": (big[0], rand_seeds, big[0] < THRESHOLD),
     }
     for name, (h, s, m) in flood_cases.items():
+        route = flood_route(h.shape[1], h.shape[2])
+        before = dict(flood_slices.launches_by_route)
         got = flood_slices(h, s, m)
         want = flood_slices_plain(h, s, m)
         torch.cuda.synchronize()
+        check_route(flood_slices, before, route, f"flood_slices {name}")
         if not torch.equal(got, want):
             raise AssertionError(f"flood_slices {name}: differs from the plain version")
         flood_err = max(flood_err, (got - want).abs().max().item())
-        if name == "serpentine" and not bool((got[m] == 1).all()):
-            raise AssertionError("flood_slices serpentine: corridor not flooded to its end")
-        log(f"flood_slices {name} {tuple(h.shape)}: equal to plain")
+        if name.startswith("serpentine") and not bool((got[m] == 1).all()):
+            raise AssertionError(f"flood_slices {name}: corridor not flooded to its end")
+        log(f"flood_slices {name} {tuple(h.shape)}: equal to plain ({route} route)")
 
-    # times and fixpoint rounds at the workflow's batch shape
+    # rounds, times and phase split at the workflow's batch shape: the new
+    # design (the cluster route) against the parent's (the global route)
     n_sl = x_main.shape[0] * x_main.shape[1]
-    d_rounds = torch.zeros((n_sl, 3), dtype=torch.int32, device=dev)
-    f_rounds = torch.zeros((n_sl, 2), dtype=torch.int32, device=dev)
-    dtws_ms = cuda_ms(lambda: dtws_slices(x_main, ones, ones, threshold=THRESHOLD, rounds=d_rounds), 3)
+    if dtws_route(*x_main.shape[2:], 17) != "cluster" or flood_route(*flood_main[0].shape[1:]) != "cluster":
+        raise AssertionError("the timed shapes must take the cluster route")
+    rounds = {}
+    for design in ("parent", "new"):
+        d_rounds = torch.zeros((n_sl, 3), dtype=torch.int32, device=dev)
+        f_rounds = torch.zeros((n_sl, 2), dtype=torch.int32, device=dev)
+        with parent_route() if design == "parent" else contextlib.nullcontext():
+            dtws_slices(x_main, ones, ones, threshold=THRESHOLD, rounds=d_rounds)
+            flood_slices(*flood_main, rounds=f_rounds)
+        torch.cuda.synchronize()
+        rounds[design] = (d_rounds, f_rounds)
+    (pd, pf), (nd, nf) = rounds["parent"], rounds["new"]
+    if not torch.equal(pd[:, 1:], nd[:, 1:]) or not torch.equal(pf, nf):
+        raise AssertionError("the cluster route's flood rounds differ from the parent design's")
+    cc_diff = int((pd[:, 0] != nd[:, 0]).sum())
+    log(f"rounds per slice equal to the parent design's: dtws flood alt/assign, flood_slices "
+        f"alt/assign; maxima CC rounds differ in {cc_diff} of {n_sl} slices "
+        f"(parent mean {pd[:, 0].float().mean().item():.2f}, new {nd[:, 0].float().mean().item():.2f})")
+
+    def timed(design, fn, reps):
+        with parent_route() if design == "parent" else contextlib.nullcontext():
+            return cuda_ms(fn, reps)
+
+    d_fn = lambda: dtws_slices(x_main, ones, ones, threshold=THRESHOLD)  # noqa: E731
+    f_fn = lambda: flood_slices(*flood_main)  # noqa: E731
+    ms = {("parent", "d"): [], ("new", "d"): [], ("parent", "f"): [], ("new", "f"): []}
+    for design in ("parent", "new", "new", "parent"):  # in turns, on one card
+        ms[(design, "d")].append(timed(design, d_fn, 3))
+        ms[(design, "f")].append(timed(design, f_fn, 5))
+    ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    dtws_ms, flood_ms = ms[("new", "d")], ms[("new", "f")]
     dtws_plain_ms = cuda_ms(lambda: dtws_slices_plain(x_main, ones, ones, threshold=THRESHOLD), 1)
-    flood_ms = cuda_ms(lambda: flood_slices(*flood_main, rounds=f_rounds), 3)
     flood_plain_ms = cuda_ms(lambda: flood_slices_plain(*flood_main), 1)
+    for design in ("parent", "new"):
+        d_stamps = torch.zeros((n_sl, DTWS_STAMPS), dtype=torch.int64, device=dev)
+        f_stamps = torch.zeros((n_sl, FLOOD_STAMPS), dtype=torch.int64, device=dev)
+        with parent_route() if design == "parent" else contextlib.nullcontext():
+            dtws_slices(x_main, ones, ones, threshold=THRESHOLD, stamps=d_stamps)
+            flood_slices(*flood_main, stamps=f_stamps)
+        torch.cuda.synchronize()
+        log(f"dtws_slices {tuple(x_main.shape)} {design} design phase split, us per slice "
+            f"(mean, max): {phase_split(d_stamps, DTWS_PHASES)}")
+        log(f"flood_slices {tuple(flood_main[0].shape)} {design} design phase split, us per "
+            f"slice (mean, max): {phase_split(f_stamps, ('set-up', 'phase 1', 'phase 2'))}")
+    log(cluster_occupancy(n_sl, x_main.shape[2], x_main.shape[3]))
     vox = x_main.numel()
     d_bytes, f_bytes = 24 * vox, 16 * vox
     d_ops = 2 * x_main.shape[-1] * vox
     d_bound = max(d_bytes / HBM_BYTES_PER_S, d_ops / FP32_OPS_PER_S) * 1e3
     f_bound = f_bytes / HBM_BYTES_PER_S * 1e3
-    dr, fr = d_rounds.float(), f_rounds.float()
+    dr, fr = nd.float(), nf.float()
     log(
-        f"dtws_slices {tuple(x_main.shape)}: {dtws_ms:.3f} ms/launch, plain "
-        f"{dtws_plain_ms:.1f} ms, bound {d_bound:.4f} ms "
+        f"dtws_slices {tuple(x_main.shape)}: {dtws_ms:.3f} ms/launch (cluster route; parent "
+        f"design {ms[('parent', 'd')]:.3f} ms), plain {dtws_plain_ms:.1f} ms, bound {d_bound:.4f} ms "
         f"({'operations' if d_ops / FP32_OPS_PER_S > d_bytes / HBM_BYTES_PER_S else 'bytes'}); "
         f"rounds per slice cc/alt/assign max {dr.max(0).values.tolist()} "
         f"mean {[round(v, 2) for v in dr.mean(0).tolist()]}"
     )
     log(
-        f"flood_slices {tuple(flood_main[0].shape)}: {flood_ms:.3f} ms/launch, plain "
-        f"{flood_plain_ms:.1f} ms, bound {f_bound:.4f} ms (bytes); rounds per slice "
-        f"alt/assign max {fr.max(0).values.tolist()} mean {[round(v, 2) for v in fr.mean(0).tolist()]}"
+        f"flood_slices {tuple(flood_main[0].shape)}: {flood_ms:.3f} ms/launch (cluster route; "
+        f"parent design {ms[('parent', 'f')]:.3f} ms), plain {flood_plain_ms:.1f} ms, bound "
+        f"{f_bound:.4f} ms (bytes); rounds per slice alt/assign max {fr.max(0).values.tolist()} "
+        f"mean {[round(v, 2) for v in fr.mean(0).tolist()]}"
     )
     return {
         "dtws_slices": dict(
             name="dtws_slices", route="cuda",
-            source="cluster_tools_tpu_torch/csrc/dtws.cuh",
+            source="cluster_tools_tpu_torch/csrc/dtws_cluster.cuh",
             replaces="cluster_tools_tpu/ops/pallas_dtws.py:265",
             max_abs_err=dt_err, ms=dtws_ms, plain_ms=dtws_plain_ms, bound_ms=d_bound,
             bound_by="operations" if d_ops / FP32_OPS_PER_S > d_bytes / HBM_BYTES_PER_S else "bytes",
@@ -281,7 +435,7 @@ def kernel_phase(vol, dev, batch: int):
         ),
         "flood_slices": dict(
             name="flood_slices", route="cuda",
-            source="cluster_tools_tpu_torch/csrc/flood.cuh",
+            source="cluster_tools_tpu_torch/csrc/flood_cluster.cuh",
             replaces="cluster_tools_tpu/ops/pallas_flood.py:186",
             max_abs_err=flood_err, ms=flood_ms, plain_ms=flood_plain_ms, bound_ms=f_bound,
             bound_by="bytes", library_ms=None,
@@ -486,20 +640,21 @@ def workflow_phase(vol_np, path: str, work: str, card: str):
         os.path.join(work, "tmp"), config_dir, input_path=path, input_key="raw",
         output_path=path, output_key="ws",
     )
-    dtws_slices.launches = 0
-    flood_slices.launches = 0
+    reset_counts(dtws_slices, flood_slices)
     t0 = time.perf_counter()
     if not build([wf]):
         raise AssertionError("workflow build failed")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"dtws_slices": dtws_slices.launches, "flood_slices": flood_slices.launches}
-    for name, n in launches.items():
-        if n == 0:
+    for name, wrapper in (("dtws_slices", dtws_slices), ("flood_slices", flood_slices)):
+        if wrapper.launches == 0:
             raise AssertionError(f"the workflow never launched {name}")
+        if wrapper.launches_by_route["cluster"] != wrapper.launches:
+            raise AssertionError(f"{name}: launches off the cluster route {wrapper.launches_by_route}")
     vox = int(np.prod(vol_np.shape))
     log(f"workflow: {vol_np.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on {card}; "
-        f"launches {launches}")
+        f"launches {launches}, all down the cluster route")
     stages = {t["label"]: t["seconds"] for t in wf.output().read()["timings"]
               if t["label"].startswith("stage_")}
     log(f"workflow stages (summed over batches, s): {stages}")
@@ -684,6 +839,8 @@ def task_seconds(wf, tag: str) -> None:
 def reset_counts(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
+        for route in getattr(w, "launches_by_route", {}):
+            w.launches_by_route[route] = 0
         for name in ("alt_rounds", "assign_rounds"):
             if hasattr(w, name):
                 setattr(w, name, 0)

@@ -1,24 +1,63 @@
 // C entry point of kernel 2 (fused per-slice DT-watershed), loaded with
-// ctypes by cluster_tools_tpu_torch/ops/cuda_dtws.py.  See dtws.cuh.
+// ctypes by cluster_tools_tpu_torch/ops/cuda_dtws.py.  Two routes, chosen by
+// the caller before launch by the slice's size: `cluster` != 0 launches the
+// cluster kernel (dtws_cluster.cuh; the slice in shared memory, needs
+// ctt_dtws_cluster_smem(h, w, taps) <= CTT_SMEM_MAX), else one thread block
+// per slice over device scratch (dtws.cuh).
 #include "dtws.cuh"
+#include "dtws_cluster.cuh"
+
+extern "C" long long ctt_dtws_cluster_smem(int h, int w, int n_taps) {
+  return (long long)ctt_dtws_cluster_bytes(h, w, n_taps < 1 ? 1 : n_taps);
+}
+
+// Clusters of the cluster route the card runs at once for (h, w) slices
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
+extern "C" int ctt_dtws_cluster_occupancy(int h, int w, int n_taps) {
+  const size_t smem = ctt_dtws_cluster_bytes(h, w, n_taps < 1 ? 1 : n_taps);
+  cudaError_t e = cudaFuncSetAttribute(ctt_dtws_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = ctt_cluster_config(1, smem, 0, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, ctt_dtws_cluster_kernel, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
 
 extern "C" int ctt_dtws_slices(
     const float* x, const int* mask, const int* valid, int* labels, int* roots,
     float* hmap, float* dt, float* tmp, float* alt, int* dist,
     unsigned char* flags, int n, int z, int h, int w, float threshold,
     float alpha, float beta, int invert, const float* seed_taps, int n_seed,
-    const float* weight_taps, int n_weight, int* rounds, void* stream) {
+    const float* weight_taps, int n_weight, int* rounds, long long* stamps,
+    int cluster, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  const size_t smem = (size_t)(w + 2 * threads) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ctt_dtws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if (!cluster) {
+    const int threads = 256;
+    const size_t smem = (size_t)(w + 2 * threads) * sizeof(float);
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          ctt_dtws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    ctt_dtws_kernel<<<n, threads, smem, (cudaStream_t)stream>>>(
+        x, mask, valid, labels, roots, hmap, dt, tmp, alt, dist, flags, z, h, w,
+        threshold, alpha, beta, invert, seed_taps, n_seed, weight_taps, n_weight,
+        rounds, stamps);
+    return (int)cudaGetLastError();
   }
-  ctt_dtws_kernel<<<n, threads, smem, (cudaStream_t)stream>>>(
-      x, mask, valid, labels, roots, hmap, dt, tmp, alt, dist, flags, z, h, w,
-      threshold, alpha, beta, invert, seed_taps, n_seed, weight_taps, n_weight,
-      rounds);
+  const int nt = n_seed > n_weight ? n_seed : n_weight;
+  const size_t smem = ctt_dtws_cluster_bytes(h, w, nt < 1 ? 1 : nt);
+  if (smem > CTT_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(ctt_dtws_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = ctt_cluster_config(n, smem, (cudaStream_t)stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, ctt_dtws_cluster_kernel, x, mask, valid, labels, roots, hmap, z,
+                         h, w, threshold, alpha, beta, invert, seed_taps, n_seed, weight_taps,
+                         n_weight, rounds, stamps);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

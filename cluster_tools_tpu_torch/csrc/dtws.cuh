@@ -37,11 +37,7 @@
 
 #include "flood.cuh"
 
-#define CTT_SENT 2147483646
 #define CTT_BIG_DT 1e10f
-#define CTT_FG 1
-#define CTT_FLOOD 2
-#define CTT_MAX 4
 
 // numpy "symmetric" padding: source index of position q on an axis of n.
 __device__ inline int ctt_reflect(int q, int n) {
@@ -72,6 +68,11 @@ __device__ inline float ctt_input(const float* x, int p, int invert) {
   return invert ? __fsub_rn(1.f, x[p]) : x[p];
 }
 
+// Phase stamps of kernel 2 (both routes): start, threshold, column EDT,
+// parabola, seed gaussians, maxima, maxima CC, height map, then the flood's
+// set-up, phase 1 and phase 2.
+#define CTT_DTWS_STAMPS 11
+
 // grid = B*Z slices; all (N, H, W) arrays are offset per slice.  Dynamic
 // shared memory: (W + 2*blockDim.x) floats; blockDim.x a power of two.
 __global__ void ctt_dtws_kernel(
@@ -80,7 +81,8 @@ __global__ void ctt_dtws_kernel(
     float* dt, float* tmp, float* alt, int* dist, unsigned char* flags, int Z,
     int H, int W, float threshold, float alpha, float beta, int invert,
     const float* __restrict__ seed_taps, int n_seed,
-    const float* __restrict__ weight_taps, int n_weight, int* rounds) {
+    const float* __restrict__ weight_taps, int n_weight, int* rounds,
+    long long* stamps) {
   extern __shared__ float ctt_smem[];
   const int n = H * W;
   const size_t off = (size_t)blockIdx.x * n;
@@ -88,6 +90,8 @@ __global__ void ctt_dtws_kernel(
   x += off; mask += off; valid += off; labels += off; roots += off;
   hmap += off; dt += off; tmp += off; alt += off; dist += off; flags += off;
   const int tid = threadIdx.x, nth = blockDim.x;
+  if (stamps != nullptr) stamps += (size_t)blockIdx.x * CTT_DTWS_STAMPS;
+  ctt_stamp(stamps, 0);
 
   // -- 1. threshold ------------------------------------------------------------
   for (int p = tid; p < n; p += nth) {
@@ -95,6 +99,7 @@ __global__ void ctt_dtws_kernel(
     flags[p] = fg ? (CTT_FG | (valid[p] != 0 ? CTT_FLOOD : 0)) : 0;
   }
   __syncthreads();
+  ctt_stamp(stamps, 1);
 
   // -- 2. squared EDT: columns, then the parabola along rows -----------------
   for (int col = tid; col < W; col += nth) {
@@ -113,6 +118,7 @@ __global__ void ctt_dtws_kernel(
     }
   }
   __syncthreads();
+  ctt_stamp(stamps, 2);
   float* row_g = ctt_smem;
   for (int r = 0; r < H; ++r) {
     for (int j = tid; j < W; j += nth) row_g[j] = tmp[r * W + j];
@@ -127,6 +133,7 @@ __global__ void ctt_dtws_kernel(
     }
     __syncthreads();
   }
+  ctt_stamp(stamps, 3);
 
   // -- 3. seeds: smoothed-distance plateau maxima, 8-connected CC -------------
   const float* sm = dt;
@@ -135,6 +142,7 @@ __global__ void ctt_dtws_kernel(
     ctt_conv(tmp, alt, H, W, seed_taps, n_seed, false);
     sm = alt;
   }
+  ctt_stamp(stamps, 4);
   for (int p = tid; p < n; p += nth) {
     const int row = p / W, col = p % W;
     const float v = sm[p];
@@ -149,6 +157,7 @@ __global__ void ctt_dtws_kernel(
     roots[p] = (flags[p] & CTT_MAX) ? (z * H + row) * W + col : CTT_SENT;
   }
   __syncthreads();
+  ctt_stamp(stamps, 5);
   int r_cc = 0;
   for (;;) {
     int changed = 0;
@@ -196,6 +205,7 @@ __global__ void ctt_dtws_kernel(
     ++r_cc;
     if (!__syncthreads_or(changed)) break;
   }
+  ctt_stamp(stamps, 6);
   for (int p = tid; p < n; p += nth) {
     if (flags[p] & CTT_MAX) {
       labels[p] = roots[p] + 1;
@@ -236,9 +246,11 @@ __global__ void ctt_dtws_kernel(
     ctt_conv(tmp, dt, H, W, weight_taps, n_weight, true);
     ctt_conv(dt, hmap, H, W, weight_taps, n_weight, false);
   }
+  ctt_stamp(stamps, 7);  // both branches above end in __syncthreads
 
   // -- 5. flood ---------------------------------------------------------------
   ctt_flood_slice(hmap, BitMask{flags, CTT_FLOOD}, alt, dist, labels, H, W,
-                  rounds ? rounds + 3 * blockIdx.x + 1 : nullptr);
+                  rounds ? rounds + 3 * blockIdx.x + 1 : nullptr,
+                  stamps ? stamps + 8 : nullptr);
   if (rounds != nullptr && tid == 0) rounds[3 * blockIdx.x] = r_cc;
 }

@@ -1,13 +1,49 @@
 // C entry point of kernel 1 (per-slice seeded flood), loaded with ctypes by
-// cluster_tools_tpu_torch/ops/cuda_flood.py.  See flood.cuh for the design.
+// cluster_tools_tpu_torch/ops/cuda_flood.py.  Two routes, chosen by the
+// caller before launch by the slice's size: `cluster` != 0 launches the
+// cluster kernel (flood_cluster.cuh; the slice in shared memory, needs
+// ctt_flood_cluster_smem(h, w) <= CTT_SMEM_MAX), else one thread block per
+// slice over device scratch `alt`/`dist` (flood.cuh).
 #include "flood.cuh"
+#include "flood_cluster.cuh"
+
+extern "C" long long ctt_flood_cluster_smem(int h, int w) {
+  return (long long)ctt_flood_cluster_bytes(h, w);
+}
+
+// Clusters of the cluster route the card runs at once for (h, w) slices
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
+extern "C" int ctt_flood_cluster_occupancy(int h, int w) {
+  const size_t smem = ctt_flood_cluster_bytes(h, w);
+  cudaError_t e = cudaFuncSetAttribute(ctt_flood_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = ctt_cluster_config(1, smem, 0, &attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, ctt_flood_cluster_kernel, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
 
 extern "C" int ctt_flood_slices(const float* hmap, const int* seeds,
                                 const int* mask, int* out, float* alt,
                                 int* dist, int n, int h, int w, int* rounds,
-                                void* stream) {
+                                long long* stamps, int cluster, void* stream) {
   if (n <= 0) return 0;
-  ctt_flood_kernel<<<n, 256, 0, (cudaStream_t)stream>>>(hmap, seeds, mask, out,
-                                                        alt, dist, h, w, rounds);
+  if (!cluster) {
+    ctt_flood_kernel<<<n, 256, 0, (cudaStream_t)stream>>>(hmap, seeds, mask, out, alt, dist,
+                                                          h, w, rounds, stamps);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = ctt_flood_cluster_bytes(h, w);
+  if (smem > CTT_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(ctt_flood_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = ctt_cluster_config(n, smem, (cudaStream_t)stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, ctt_flood_cluster_kernel, hmap, seeds, mask, out, h, w, rounds,
+                         stamps);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -29,6 +29,23 @@
 
 #define CTT_BIG 3.0e38f
 #define CTT_BIG_DIST 2147483646
+#define CTT_SENT 2147483646  // "no root" of kernel 2's maxima CC
+
+// Flag bits of kernels 1-2's flag bytes: foreground, flood mask, maximum;
+// the cluster routes keep phase 2's edge bits in bits 4..7 (scan.cuh).
+#define CTT_FG 1
+#define CTT_FLOOD 2
+#define CTT_MAX 4
+
+// Phase stamps: thread 0 writes the %globaltimer (ns) into stamps[k] when
+// `stamps` is not null (callers pass null to skip; then it costs a branch).
+__device__ inline void ctt_stamp(long long* stamps, int k) {
+  if (stamps != nullptr && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    stamps[k] = (long long)t;
+  }
+}
 
 struct IntMask {
   const int* m;
@@ -58,11 +75,12 @@ __device__ inline void ctt_line(int dir, int line, int H, int W, int* start,
 
 // Flood one H x W slice.  On entry `lab` holds the seeds (0 = unlabeled);
 // on exit it holds the labels, 0 outside the mask.  `alt` and `dist` are
-// scratch of H*W each.  All threads of the block must call it.
+// scratch of H*W each.  All threads of the block must call it.  `stamps`
+// (or null) receives the time after the set-up, phase 1 and phase 2.
 template <typename Mask>
 __device__ void ctt_flood_slice(const float* __restrict__ hm, Mask mk,
                                 float* alt, int* dist, int* lab, int H, int W,
-                                int* rounds) {
+                                int* rounds, long long* stamps) {
   const int n = H * W;
   for (int p = threadIdx.x; p < n; p += blockDim.x) {
     int s = mk(p) ? lab[p] : 0;
@@ -71,6 +89,7 @@ __device__ void ctt_flood_slice(const float* __restrict__ hm, Mask mk,
     dist[p] = s > 0 ? 0 : CTT_BIG_DIST;  // dist 0 marks a seed from here on
   }
   __syncthreads();
+  ctt_stamp(stamps, 0);
 
   // -- phase 1: altitude -----------------------------------------------------
   int r1 = 0;
@@ -104,6 +123,7 @@ __device__ void ctt_flood_slice(const float* __restrict__ hm, Mask mk,
     ++r1;
     if (!__syncthreads_or(changed)) break;
   }
+  ctt_stamp(stamps, 1);
 
   // -- phase 2: (hops, label) over optimal-prefix edges ----------------------
   int r2 = 0;
@@ -147,6 +167,7 @@ __device__ void ctt_flood_slice(const float* __restrict__ hm, Mask mk,
     ++r2;
     if (!__syncthreads_or(changed)) break;
   }
+  ctt_stamp(stamps, 2);
   if (rounds != nullptr && threadIdx.x == 0) {
     rounds[0] = r1;
     rounds[1] = r2;
@@ -154,15 +175,19 @@ __device__ void ctt_flood_slice(const float* __restrict__ hm, Mask mk,
 }
 
 // Kernel 1: grid = slices.  seeds/mask/out/alt/dist are (N, H, W);
-// `rounds` (N, 2) or null.
+// `rounds` (N, 2) or null; `stamps` (N, CTT_FLOOD_STAMPS) or null.
+#define CTT_FLOOD_STAMPS 4
 __global__ void ctt_flood_kernel(const float* __restrict__ hmap,
                                  const int* __restrict__ seeds,
                                  const int* __restrict__ mask, int* out,
                                  float* alt, int* dist, int H, int W,
-                                 int* rounds) {
+                                 int* rounds, long long* stamps) {
   const size_t off = (size_t)blockIdx.x * H * W;
+  if (stamps != nullptr) stamps += (size_t)blockIdx.x * CTT_FLOOD_STAMPS;
+  ctt_stamp(stamps, 0);
   for (int p = threadIdx.x; p < H * W; p += blockDim.x) out[off + p] = seeds[off + p];
   __syncthreads();
   ctt_flood_slice(hmap + off, IntMask{mask + off}, alt + off, dist + off,
-                  out + off, H, W, rounds ? rounds + 2 * blockIdx.x : nullptr);
+                  out + off, H, W, rounds ? rounds + 2 * blockIdx.x : nullptr,
+                  stamps ? stamps + 1 : nullptr);
 }

@@ -103,12 +103,15 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(wrapper, **sums) -> None:
-    """Add one to ``wrapper.launches``, and each keyword's value to the
+def count_launch(wrapper, route=None, **sums) -> None:
+    """Add one to ``wrapper.launches`` (and to ``wrapper.launches_by_route
+    [route]`` where a route is named), and each keyword's value to the
     attribute of its name, under a lock: block tasks launch the kernels from
     ``max_jobs`` host threads at once."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        if route is not None:
+            wrapper.launches_by_route[route] += 1
         for name, value in sums.items():
             setattr(wrapper, name, getattr(wrapper, name) + value)
 
@@ -117,6 +120,15 @@ def check(rc: int, what: str) -> None:
     """Raise on a nonzero ``cudaGetLastError`` code returned by a launch."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def check_stamps(what: str, stamps, n: int, k: int, device) -> None:
+    """A phase-stamp buffer is None or an int64 (n, k) tensor on ``device``."""
+    import torch
+
+    if stamps is not None and (tuple(stamps.shape) != (n, k) or stamps.dtype != torch.int64
+                               or stamps.device != device or not stamps.is_contiguous()):
+        raise ValueError(f"{what}: stamps must be a contiguous int64 ({n}, {k}) tensor on {device}")
 
 
 def ptr(t) -> ctypes.c_void_p:

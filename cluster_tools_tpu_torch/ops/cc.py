@@ -252,15 +252,18 @@ def connected_components_labels(
     )
 
 
-def serpentine_mask(shape) -> np.ndarray:
-    """One corridor snaking through every other row, turning at alternating
-    ends: graph diameter Θ(H·W), a bend every band — the worst case for
-    propagation schedules.  3d shapes repeat it in every z-slice."""
+def serpentine_mask(shape, pitch: int = 2) -> np.ndarray:
+    """One corridor snaking through every ``pitch``-th row, joined by
+    ``pitch - 1`` cells at alternating ends: graph diameter Θ(H·W / pitch),
+    a bend every band — the worst case for propagation schedules (with
+    pitch 8, a connector crosses every band border of kernels 1-2's
+    cluster route; transposed, every run crosses them all).  3d shapes
+    repeat it in every z-slice."""
     h, w = int(shape[-2]), int(shape[-1])
     m2 = np.zeros((h, w), dtype=bool)
-    m2[::2, :] = True
-    for i, r in enumerate(range(1, h, 2)):
-        m2[r, w - 1 if i % 2 == 0 else 0] = True
+    m2[::pitch, :] = True
+    for i, r in enumerate(range(pitch - 1, h, pitch)):
+        m2[r - pitch + 2:r + 1, w - 1 if i % 2 == 0 else 0] = True
     if len(shape) == 2:
         return m2
     return np.broadcast_to(m2, tuple(shape)).copy()

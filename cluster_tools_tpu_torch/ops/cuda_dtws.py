@@ -3,7 +3,11 @@
 Replaces ``cluster_tools_tpu/ops/pallas_dtws.py::dtws_slices`` and its host
 wrapper ``pallas_dt_watershed``.  ``dtws_slices`` runs threshold → 2d EDT →
 smoothed-maxima seeds (8-connected CC) → height map → flood for every z-slice
-of a (B, Z, H, W) batch of blocks in one launch (``csrc/dtws.cuh``);
+of a (B, Z, H, W) batch of blocks in one launch, by one of two routes chosen
+by the slice's size before launch (``dtws_route``): a thread-block cluster of
+8 CTAs per slice with the slice in shared memory (``csrc/dtws_cluster.cuh``),
+or, for slices that do not fit the cluster, one thread block per slice over
+device scratch (``csrc/dtws.cuh``);
 ``dtws_slices_plain`` is the same function in PyTorch ops, following the
 JAX package's XLA path.  ``dt_watershed_slices`` is the host wrapper: it
 ranks the seed roots per block and runs the size filter, whose re-flood is
@@ -36,7 +40,8 @@ from . import _build
 from .cc import connected_components_raw, rank_of_flat_roots
 from .dt import distance_transform_2d_stack
 from .filters import gauss_kernel
-from .cuda_flood import flood_slices_plain
+from .cuda_cc import SMEM_MAX
+from .cuda_flood import _align16, band_elems, flood_slices_plain
 from .watershed import (
     apply_size_filter,
     hmap_weights,
@@ -81,6 +86,35 @@ def dtws_slices_plain(
     return labels, roots, hmap
 
 
+# the phases between kernel 2's stamps (csrc/dtws.cuh), in order
+DTWS_PHASES = ("threshold", "column EDT", "parabola", "seed gaussians", "maxima",
+               "maxima CC", "height map", "flood set-up", "flood phase 1", "flood phase 2")
+DTWS_STAMPS = len(DTWS_PHASES) + 1
+
+
+CLUSTER_SMEM_MAX = SMEM_MAX  # the cluster route's size rule: shared memory per CTA
+
+
+def dtws_cluster_smem(h: int, w: int, n_taps: int) -> int:
+    """Shared memory per CTA of kernel 2's cluster route for gaussians of at
+    most ``n_taps`` taps (the formula of ``csrc/dtws_cluster.cuh::
+    ctt_dtws_cluster_bytes``): 17 B per band element (three float fields,
+    roots/labels, flags), 24 B per column of scan summaries, 512 B of words,
+    the row-pointer and column tables of the gaussians."""
+    nt = max(int(n_taps), 1)
+    return (band_elems(h, w) * 17 + _align16(24 * w) + 512
+            + _align16(8 * (-(-h // 8) + nt)) + _align16(4 * (w + nt)))
+
+
+def dtws_route(h: int, w: int, n_taps: int) -> str:
+    """Kernel 2's route for (h, w) slices, by size alone: ``"cluster"`` when
+    ``dtws_cluster_smem(h, w, n_taps) <= CLUSTER_SMEM_MAX`` (232,448 B, an
+    H100 CTA's shared memory; 256 x 256 needs 152,320 B with 17 taps, and
+    square slices up to 318 x 318 fit), else
+    ``"global"``."""
+    return "cluster" if dtws_cluster_smem(h, w, n_taps) <= CLUSTER_SMEM_MAX else "global"
+
+
 _TAPS = {}
 
 
@@ -103,10 +137,16 @@ def dtws_slices(
     alpha: float = 0.8,
     invert: bool = False,
     rounds: Optional[torch.Tensor] = None,
+    stamps: Optional[torch.Tensor] = None,
 ):
     """Kernel 2 over a (B, Z, H, W) batch of blocks (the plain version for
-    CPU tensors).  ``rounds`` (int32 (B*Z, 3) CUDA tensor) receives each
-    slice's CC, flood-altitude and flood-assignment round counts."""
+    CPU tensors).  The kernel's route is ``dtws_route(H, W, taps)``, counted
+    in ``launches_by_route``; a launch the card refuses raises.  ``rounds`` (int32 (B*Z, 3) CUDA tensor) receives each
+    slice's CC, flood-altitude and flood-assignment round counts (the
+    cluster route's CC rounds may differ from the global route's: its
+    diagonal pass reads other bands while they change);
+    ``stamps`` (int64 (B*Z, DTWS_STAMPS) CUDA tensor) the card's clock in
+    ns at the start of each slice and after each of ``DTWS_PHASES``."""
     if x.dim() != 4 or mask.shape != x.shape or valid.shape != x.shape:
         raise ValueError(f"dtws_slices takes three (B, Z, H, W) tensors, got "
                          f"{tuple(x.shape)}, {tuple(mask.shape)}, {tuple(valid.shape)}")
@@ -131,43 +171,48 @@ def dtws_slices(
     hmap = torch.empty((b, z, h, w), dtype=torch.float32, device=dev)
     if n == 0:
         return labels, roots, hmap
-    dt = torch.empty_like(hmap)
-    tmp = torch.empty_like(hmap)
-    alt = torch.empty_like(hmap)
-    dist = torch.empty_like(labels)
-    flags = torch.empty((b, z, h, w), dtype=torch.uint8, device=dev)
+    st, wt = _taps(sigma_seeds, dev), _taps(sigma_weights, dev)
+    n_taps = max(0 if st is None else st.numel(), 0 if wt is None else wt.numel())
+    route = dtws_route(h, w, n_taps)
+    scratch = [None] * 5  # dt, tmp, alt, dist, flags: the global route's
+    if route == "global":
+        scratch = [torch.empty_like(hmap), torch.empty_like(hmap), torch.empty_like(hmap),
+                   torch.empty_like(labels),
+                   torch.empty((b, z, h, w), dtype=torch.uint8, device=dev)]
     if rounds is not None and (rounds.shape != (n, 3) or rounds.dtype != torch.int32
                                or rounds.device != dev):
         raise ValueError("dtws_slices: rounds must be an int32 (B*Z, 3) tensor on the device")
-    st, wt = _taps(sigma_seeds, dev), _taps(sigma_weights, dev)
+    _build.check_stamps("dtws_slices", stamps, n, DTWS_STAMPS, dev)
     a, c = hmap_weights(alpha)
     lib = _build.library("dtws")
     fn = lib.ctt_dtws_slices
     fn.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
         + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(
             _build.ptr(xs), _build.ptr(ms), _build.ptr(vs), _build.ptr(labels),
-            _build.ptr(roots), _build.ptr(hmap), _build.ptr(dt), _build.ptr(tmp),
-            _build.ptr(alt), _build.ptr(dist), _build.ptr(flags),
+            _build.ptr(roots), _build.ptr(hmap),
+            *[_build.ptr(t) if t is not None else None for t in scratch],
             n, z, h, w,
             float(torch.tensor(threshold, dtype=torch.float32)), float(a), float(c),
             int(bool(invert)),
             _build.ptr(st) if st is not None else None, 0 if st is None else st.numel(),
             _build.ptr(wt) if wt is not None else None, 0 if wt is None else wt.numel(),
             _build.ptr(rounds) if rounds is not None else None,
-            _build.stream_handle(dev),
+            _build.ptr(stamps) if stamps is not None else None,
+            int(route == "cluster"), _build.stream_handle(dev),
         )
-    _build.check(rc, "ctt_dtws_slices")
-    _build.count_launch(dtws_slices)
+    _build.check(rc, f"ctt_dtws_slices ({route} route)")
+    _build.count_launch(dtws_slices, route=route)
     return labels, roots, hmap
 
 
 dtws_slices.launches = 0
+dtws_slices.launches_by_route = {"cluster": 0, "global": 0}
 
 
 def dt_watershed_slices(

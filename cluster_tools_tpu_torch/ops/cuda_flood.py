@@ -2,8 +2,12 @@
 altitude warm start) and the 3d sweep flood, written in CUDA for Hopper.
 
 ``flood_slices`` replaces ``cluster_tools_tpu/ops/pallas_flood.py::flood_slices``:
-the kernel (``csrc/flood.cuh``) floods each (H, W) slice of an (N, H, W)
-stack in one thread block.  ``flood_tiles_warm`` replaces
+the kernel floods each (H, W) slice of an (N, H, W) stack, by one of two
+routes chosen by the slice's size before launch (``flood_route``): a
+thread-block cluster of 8 CTAs per slice with the slice's state in shared
+memory and the line sweeps as warp scans (``csrc/flood_cluster.cuh``), or,
+for slices whose state does not fit the cluster, one thread block per slice
+over device scratch (``csrc/flood.cuh``).  ``flood_tiles_warm`` replaces
 ``pallas_flood.py::flood_tiles_warm``: the phase-1 altitude fixpoint of each
 in-plane (th, tw) tile of each slice (``csrc/flood3d.cuh``), ragged edge
 tiles cut to the slice.  ``flood_volume`` is the 3d flood of a (B, Z, H, W)
@@ -31,6 +35,36 @@ from .cuda_cc import SMEM_MAX
 
 BIG = 3.0e38
 BIG_DIST = 2**31 - 2
+FLOOD_STAMPS = 4  # kernel 1's phase stamps per slice: start, set-up, phase 1, phase 2
+CLUSTER = 8  # CTAs per slice on the cluster routes of kernels 1 and 2
+CLUSTER_SMEM_MAX = SMEM_MAX  # the cluster routes' size rule: shared memory per CTA
+
+
+def band_elems(h: int, w: int) -> int:
+    """Elements of one field of a cluster CTA's band (``csrc/scan.cuh``):
+    ceil(h / 8) rows of stride ``w + w // 32`` made odd, rounded up to 16."""
+    rows = -(-h // CLUSTER)
+    return (rows * ((w + (w >> 5)) | 1) + 15) & ~15
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def flood_cluster_smem(h: int, w: int) -> int:
+    """Shared memory per CTA of kernel 1's cluster route (the same formula as
+    ``csrc/flood_cluster.cuh::ctt_flood_cluster_bytes``): 13 B per band
+    element (altitude, height, label, flags), 24 B per column of scan
+    summaries, 512 B of words."""
+    return band_elems(h, w) * 13 + _align16(24 * w) + 512
+
+
+def flood_route(h: int, w: int) -> str:
+    """Kernel 1's route for (h, w) slices, by size alone: ``"cluster"`` when
+    ``flood_cluster_smem(h, w) <= CLUSTER_SMEM_MAX`` (232,448 B, an H100
+    CTA's shared memory; 256 x 256 needs 116,896 B, and square slices up
+    to 362 x 362 fit), else ``"global"``."""
+    return "cluster" if flood_cluster_smem(h, w) <= CLUSTER_SMEM_MAX else "global"
 _OFFSETS = ((0, -1), (0, 1), (-1, 0), (1, 0))
 _OFFSETS_3D = ((0, 0, -1), (0, 0, 1), (0, -1, 0), (0, 1, 0), (-1, 0, 0), (1, 0, 0))
 
@@ -108,6 +142,103 @@ def flood_volume_plain(
     return _flood_plain(hmap, seeds, mask, _OFFSETS_3D, warm)
 
 
+# -- the cluster route's scan algebra (csrc/scan.cuh) in PyTorch ----------
+# A sweep along a line is a chain of per-voxel transfers of the incoming
+# carry.  These functions build, compose and apply them elementwise over
+# tensors of lines the way the kernel's lanes do; the tests hold them
+# against the JAX package's sequential sweeps.  Transfers are tuples of
+# tensors; ``compose(f, g)`` is f first, then g.
+
+
+def alt_transfers(alt: torch.Tensor, hmap: torch.Tensor, mask: torch.Tensor):
+    """Flood phase 1: (u, l) = (A, h) with h = +inf off the mask, so that a
+    voxel off the mask (A = BIG) is the constant BIG and a seed (A = h) the
+    constant A: c -> min(u, max(c, l))."""
+    return alt, torch.where(mask, hmap, torch.full_like(hmap, float("inf")))
+
+
+def clamp_compose(f, g):
+    return torch.minimum(g[0], torch.maximum(f[0], g[1])), torch.maximum(f[1], g[1])
+
+
+def clamp_apply(f, c):
+    return torch.minimum(f[0], torch.maximum(c, f[1]))
+
+
+def assign_edges(alt: torch.Tensor, hmap: torch.Tensor, mask: torch.Tensor,
+                 seeds: torch.Tensor) -> torch.Tensor:
+    """Flood phase 2's edge bits of a forward sweep along the last axis:
+    in the mask, not a seed, and A(p) == max(A(prev), h(p)), A(prev) = BIG
+    before the line's first voxel (BIG off the mask too: A is BIG there)."""
+    prev = torch.cat([torch.full_like(alt[..., :1], BIG), alt[..., :-1]], -1)
+    return mask & (seeds == 0) & (alt == torch.maximum(prev, hmap))
+
+
+def assign_transfers(dist: torch.Tensor, label: torch.Tensor, edge: torch.Tensor):
+    """Flood phase 2: (d, l, s), the voxel's own key (hops, label) and s = 1
+    where the sweep's edge into it exists (c -> minlex((d, l), c + (s, 0))),
+    s = -1 elsewhere (the constant (d, l))."""
+    return dist.long(), label.long(), torch.where(edge, 1, -1)
+
+
+def _key_less(d1, l1, d2, l2):
+    # label 0 is +inf (the kernel compares unsigned label - 1)
+    l1 = torch.where(l1 == 0, 2**32, l1)
+    l2 = torch.where(l2 == 0, 2**32, l2)
+    return (d1 < d2) | ((d1 == d2) & (l1 < l2))
+
+
+def _key_add(d, l, s):
+    return torch.where(l == 0, BIG_DIST, d + s), l
+
+
+def assign_compose(f, g):
+    cd, cl = _key_add(f[0], f[1], g[2])
+    take = (g[2] >= 0) & _key_less(cd, cl, g[0], g[1])
+    s = torch.where((f[2] < 0) | (g[2] < 0), -1, f[2] + g[2])
+    return torch.where(take, cd, g[0]), torch.where(take, cl, g[1]), s
+
+
+def assign_apply(f, c):
+    ad, al = _key_add(c[0], c[1], f[2])
+    take = (f[2] >= 0) & _key_less(ad, al, f[0], f[1])
+    return torch.where(take, ad, f[0]), torch.where(take, al, f[1])
+
+
+def scan_sweep(compose, apply, identity, transfers, init, cuts: Sequence[int]):
+    """One forward sweep along the last axis, run as the kernel runs it: the
+    line cut at ``cuts`` into runs (a lane's run, a band's segment), each
+    run's transfers composed in order, an inclusive Hillis-Steele scan over
+    the runs (the shuffle scan), each run's exclusive prefix applied to
+    ``init``, then each run walked voxel by voxel.  Returns each voxel's
+    outgoing carry (its new value), stacked along the last axis."""
+    n = transfers[0].shape[-1]
+    bounds = [0, *sorted(cuts), n]
+
+    def at(k):
+        return tuple(t[..., k] for t in transfers)
+
+    inc = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        acc = identity
+        for k in range(a, b):
+            acc = compose(acc, at(k))
+        inc.append(acc)
+    d = 1
+    while d < len(inc):
+        inc = [compose(inc[i - d], inc[i]) if i >= d else inc[i] for i in range(len(inc))]
+        d *= 2
+    outs = []
+    for r, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        c = init if r == 0 else apply(inc[r - 1], init)
+        for k in range(a, b):
+            c = apply(at(k), c)
+            outs.append(c)
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(v, -1) for v in zip(*outs))
+    return torch.stack(outs, -1)
+
+
 def _clip_tile(tile_hw: Sequence[int], h: int, w: int) -> Tuple[int, int]:
     th, tw = int(tile_hw[0]), int(tile_hw[1])
     if th <= 0 or tw <= 0:
@@ -140,11 +271,16 @@ def flood_slices(
     seeds: torch.Tensor,
     mask: torch.Tensor,
     rounds: Optional[torch.Tensor] = None,
+    stamps: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-slice seeded flood of an (N, H, W) stack: the CUDA kernel for
-    CUDA tensors, ``flood_slices_plain`` for CPU tensors.  ``rounds`` (an
+    CUDA tensors, ``flood_slices_plain`` for CPU tensors.  The kernel's
+    route is ``flood_route(H, W)``, counted in ``launches_by_route``; a
+    launch the card refuses raises.  ``rounds`` (an
     int32 (N, 2) CUDA tensor) receives each slice's phase-1 and phase-2
-    round counts."""
+    round counts; ``stamps`` (an int64 (N, FLOOD_STAMPS) CUDA tensor) the
+    card's clock in ns at the start, after the set-up, after phase 1 and
+    after phase 2 of each slice."""
     if hmap.dim() != 3 or seeds.shape != hmap.shape or mask.shape != hmap.shape:
         raise ValueError(f"flood_slices takes three (N, H, W) tensors, got "
                          f"{tuple(hmap.shape)}, {tuple(seeds.shape)}, {tuple(mask.shape)}")
@@ -162,28 +298,36 @@ def flood_slices(
     if sd.device != dev or mk.device != dev:
         raise ValueError("flood_slices: all tensors must be on one device")
     out = torch.empty((n, h, w), dtype=torch.int32, device=dev)
-    alt = torch.empty((n, h, w), dtype=torch.float32, device=dev)
-    dist = torch.empty((n, h, w), dtype=torch.int32, device=dev)
+    route = flood_route(h, w)
+    alt = dist = None
+    if route == "global":
+        alt = torch.empty((n, h, w), dtype=torch.float32, device=dev)
+        dist = torch.empty((n, h, w), dtype=torch.int32, device=dev)
     if rounds is not None and (rounds.shape != (n, 2) or rounds.dtype != torch.int32
                                or rounds.device != dev):
         raise ValueError("flood_slices: rounds must be an int32 (N, 2) tensor on the device")
+    _build.check_stamps("flood_slices", stamps, n, FLOOD_STAMPS, dev)
     lib = _build.library("flood")
     fn = lib.ctt_flood_slices
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(
             _build.ptr(hm), _build.ptr(sd), _build.ptr(mk), _build.ptr(out),
-            _build.ptr(alt), _build.ptr(dist), n, h, w,
+            _build.ptr(alt) if alt is not None else None,
+            _build.ptr(dist) if dist is not None else None, n, h, w,
             _build.ptr(rounds) if rounds is not None else None,
-            _build.stream_handle(dev),
+            _build.ptr(stamps) if stamps is not None else None,
+            int(route == "cluster"), _build.stream_handle(dev),
         )
-    _build.check(rc, "ctt_flood_slices")
-    _build.count_launch(flood_slices)
+    _build.check(rc, f"ctt_flood_slices ({route} route)")
+    _build.count_launch(flood_slices, route=route)
     return out
 
 
 flood_slices.launches = 0
+flood_slices.launches_by_route = {"cluster": 0, "global": 0}
 
 
 def _check_same(what: str, ref: torch.Tensor, *others) -> None:

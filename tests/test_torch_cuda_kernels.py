@@ -25,8 +25,10 @@ from cluster_tools_tpu_torch import (
 )
 from cluster_tools_tpu_torch.ops.cc import connected_components, serpentine_mask
 from cluster_tools_tpu_torch.ops.cuda_cc import cc_slices, cc_slices_plain, cc_tiles, cc_tiles_plain
-from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices, dtws_slices_plain
+from cluster_tools_tpu_torch.ops import cuda_dtws, cuda_flood
+from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_route, dtws_slices, dtws_slices_plain
 from cluster_tools_tpu_torch.ops.cuda_flood import (
+    flood_route,
     flood_slices,
     flood_slices_plain,
     flood_tiles_warm,
@@ -105,6 +107,116 @@ def test_dtws_kernel_equals_plain(shape, invert, cuda_device):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+def _band_serpentine(transpose):
+    """A 256 x 256 corridor that crosses every band border of the cluster
+    route along columns (runs every 8 rows) or, transposed, along rows."""
+    m = serpentine_mask((256, 256), 8)
+    return np.ascontiguousarray(m.T) if transpose else m
+
+
+CLUSTER_CASES = ["serpentine rows", "serpentine columns", "ragged", "empty", "full",
+                 "above the size rule"]
+
+
+def _cluster_flood_case(case):
+    if case.startswith("serpentine"):
+        mask = _band_serpentine(case.endswith("columns"))[None]
+        seeds = np.zeros(mask.shape, np.int32)
+        seeds[0, 0, 0] = 1
+        return np.full(mask.shape, 0.5, np.float32), seeds, mask
+    shape = {"ragged": (29, 226, 226), "above the size rule": (2, 384, 384)}.get(case, (2, 256, 256))
+    hmap = _volume(shape, 5, (0, 2.0, 2.0))
+    mask = {"empty": np.zeros(shape, bool), "full": np.ones(shape, bool)}.get(case, hmap < 0.6)
+    rng = np.random.default_rng(5)
+    seeds = np.zeros(shape, np.int32)
+    for z in range(shape[0]):
+        idx = rng.choice(shape[1] * shape[2], 40, replace=False)
+        seeds[z].flat[idx] = np.arange(1, 41)
+    return hmap, seeds, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(256, 256), (226, 226), (16, 128), (37, 53), (362, 362)])
+def test_cluster_smem_formulas_agree(hw, cuda_device):
+    """The size rule's shared-memory formulas in Python equal the kernels'."""
+    import ctypes
+
+    from cluster_tools_tpu_torch.ops import _build
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_cluster_smem
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_cluster_smem
+
+    f = _build.library("flood").ctt_flood_cluster_smem
+    d = _build.library("dtws").ctt_dtws_cluster_smem
+    f.argtypes, d.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3
+    f.restype = d.restype = ctypes.c_longlong
+    assert f(*hw) == flood_cluster_smem(*hw)
+    for taps in (0, 9, 17):
+        assert d(*hw, taps) == dtws_cluster_smem(*hw, taps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CLUSTER_CASES)
+def test_flood_kernel_routes_and_rounds(case, cuda_device, monkeypatch):
+    """Kernel 1 equals its plain version on both routes; slices that fit
+    take the cluster route in the same rounds as the global route."""
+    hmap, seeds, mask = (torch.from_numpy(a).to(cuda_device) for a in _cluster_flood_case(case))
+    route = "global" if case == "above the size rule" else "cluster"
+    assert flood_route(*hmap.shape[1:]) == route
+    before = dict(flood_slices.launches_by_route)
+    rounds = torch.zeros((hmap.shape[0], 2), dtype=torch.int32, device=cuda_device)
+    got = flood_slices(hmap, seeds, mask, rounds=rounds)
+    assert flood_slices.launches_by_route[route] == before[route] + 1
+    torch.testing.assert_close(got, flood_slices_plain(hmap, seeds, mask), rtol=0, atol=0)
+    if case.startswith("serpentine"):
+        assert bool((got[mask] == 1).all())
+    if route == "cluster":
+        monkeypatch.setattr(cuda_flood, "CLUSTER_SMEM_MAX", 0)
+        parent = torch.zeros_like(rounds)
+        torch.testing.assert_close(flood_slices(hmap, seeds, mask, rounds=parent), got, rtol=0, atol=0)
+        assert flood_slices.launches_by_route["global"] == before["global"] + 1
+        torch.testing.assert_close(parent, rounds, rtol=0, atol=0)
+
+
+def _cluster_dtws_case(case):
+    if case.startswith("serpentine"):
+        m = _band_serpentine(case.endswith("columns"))
+        x = np.where(m, 0.2, 0.9).astype(np.float32)[None, None]
+        return x, np.ones(x.shape, bool), np.ones(x.shape, bool)
+    shape = {"ragged": (1, 29, 226, 226), "above the size rule": (1, 2, 384, 384)}.get(case, (1, 3, 256, 256))
+    x = _volume(shape, 6, (0, 0.5, 2.0, 2.0))
+    if case == "full":
+        x = np.full(shape, 0.2, np.float32)  # all foreground: one plateau of maxima
+    mask = np.zeros(shape, bool) if case == "empty" else np.ones(shape, bool)
+    valid = np.ones(shape, bool)
+    valid[..., -5:, :] = False
+    return x, mask, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CLUSTER_CASES)
+def test_dtws_kernel_routes_and_rounds(case, cuda_device, monkeypatch):
+    """Kernel 2 equals its plain version bit for bit on both routes; slices
+    that fit take the cluster route, whose flood takes the same rounds as
+    the global route's (the CC's diagonal pass may take others)."""
+    x, m, v = (torch.from_numpy(a).to(cuda_device) for a in _cluster_dtws_case(case))
+    route = "global" if case == "above the size rule" else "cluster"
+    assert dtws_route(*x.shape[2:], 17) == route
+    before = dict(dtws_slices.launches_by_route)
+    rounds = torch.zeros((x.shape[0] * x.shape[1], 3), dtype=torch.int32, device=cuda_device)
+    got = dtws_slices(x, m, v, threshold=0.5, rounds=rounds)
+    assert dtws_slices.launches_by_route[route] == before[route] + 1
+    for g, w in zip(got, dtws_slices_plain(x, m, v, threshold=0.5)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    if route == "cluster":
+        monkeypatch.setattr(cuda_dtws, "CLUSTER_SMEM_MAX", 0)
+        parent = torch.zeros_like(rounds)
+        for g, w in zip(dtws_slices(x, m, v, threshold=0.5, rounds=parent), got):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert dtws_slices.launches_by_route["global"] == before["global"] + 1
+        torch.testing.assert_close(parent[:, 1:], rounds[:, 1:], rtol=0, atol=0)
+        assert int(rounds[:, 0].min()) >= 1
+
+
 @pytest.mark.cuda
 def test_dt_watershed_on_card_launches_both_kernels_and_equals_cpu(cuda_device):
     raw = torch.from_numpy(_volume((3, 16, 128), 0, 1.0))
@@ -126,6 +238,16 @@ def test_kernel_wrappers_reject_bad_input(cuda_device):
         dtws_slices(torch.zeros(2, 4, 4, device=cuda_device),
                     torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device),
                     torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device))
+    with pytest.raises(ValueError):
+        flood_slices(torch.zeros(2, 4, 4, device=cuda_device),
+                     torch.zeros(2, 4, 4, dtype=torch.int32, device=cuda_device),
+                     torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device),
+                     stamps=torch.zeros(2, 3, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError):
+        dtws_slices(torch.zeros(1, 2, 4, 4, device=cuda_device),
+                    torch.ones(1, 2, 4, 4, dtype=torch.bool, device=cuda_device),
+                    torch.ones(1, 2, 4, 4, dtype=torch.bool, device=cuda_device),
+                    stamps=torch.zeros(2, 11, dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError):
         cc_slices(torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device),
                   rounds=torch.zeros(3, dtype=torch.int32, device=cuda_device))

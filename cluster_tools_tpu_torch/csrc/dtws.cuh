@@ -31,6 +31,8 @@
 // one thread block per slice, per-slice fields in device-memory scratch (a
 // dozen 256x256 fields do not fit the 227 KB of shared memory; they stay in
 // the 50 MB L2 at these sizes), the parabola's source row in shared memory.
+// This is kernel 2's global route, for slices too large for the cluster
+// route (dtws_cluster.cuh), which computes the same function on chip.
 #pragma once
 
 #include <cfloat>

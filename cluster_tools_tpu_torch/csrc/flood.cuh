@@ -22,7 +22,10 @@
 // dependent chain of loads inside each line sweep, times the round count.
 // The per-slice state (altitude, hops, labels) lives in device-memory scratch
 // that stays in L2 at 256x256; a 256x256 float field alone (256 KB) exceeds
-// the 227 KB of shared memory a block may use.
+// the 227 KB of shared memory a block may use.  This is the global route of
+// kernel 1 (and of kernel 2's flood): slices whose state fits a cluster of
+// 8 CTAs take the cluster route instead (flood_cluster.cuh), whose scans give
+// the same sweeps, rounds and labels.
 #pragma once
 
 #include <cuda_runtime.h>

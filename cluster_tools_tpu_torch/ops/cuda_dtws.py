@@ -110,8 +110,7 @@ def dtws_route(h: int, w: int, n_taps: int) -> str:
     """Kernel 2's route for (h, w) slices, by size alone: ``"cluster"`` when
     ``dtws_cluster_smem(h, w, n_taps) <= CLUSTER_SMEM_MAX`` (232,448 B, an
     H100 CTA's shared memory; 256 x 256 needs 152,320 B with 17 taps, and
-    square slices up to 318 x 318 fit), else
-    ``"global"``."""
+    square slices up to 318 x 318 fit), else ``"global"``."""
     return "cluster" if dtws_cluster_smem(h, w, n_taps) <= CLUSTER_SMEM_MAX else "global"
 
 
@@ -141,12 +140,13 @@ def dtws_slices(
 ):
     """Kernel 2 over a (B, Z, H, W) batch of blocks (the plain version for
     CPU tensors).  The kernel's route is ``dtws_route(H, W, taps)``, counted
-    in ``launches_by_route``; a launch the card refuses raises.  ``rounds`` (int32 (B*Z, 3) CUDA tensor) receives each
-    slice's CC, flood-altitude and flood-assignment round counts (the
-    cluster route's CC rounds may differ from the global route's: its
-    diagonal pass reads other bands while they change);
-    ``stamps`` (int64 (B*Z, DTWS_STAMPS) CUDA tensor) the card's clock in
-    ns at the start of each slice and after each of ``DTWS_PHASES``."""
+    in ``launches_by_route``; a launch the card refuses raises.  ``rounds``
+    (int32 (B*Z, 3) CUDA tensor) receives each slice's CC, flood-altitude
+    and flood-assignment round counts (the cluster route's CC rounds may
+    differ from the global route's: its diagonal pass reads other bands
+    while they change); ``stamps`` (int64 (B*Z, DTWS_STAMPS) CUDA tensor)
+    the card's clock in ns at the start of each slice and after each of
+    ``DTWS_PHASES``."""
     if x.dim() != 4 or mask.shape != x.shape or valid.shape != x.shape:
         raise ValueError(f"dtws_slices takes three (B, Z, H, W) tensors, got "
                          f"{tuple(x.shape)}, {tuple(mask.shape)}, {tuple(valid.shape)}")

@@ -65,6 +65,8 @@ def flood_route(h: int, w: int) -> str:
     CTA's shared memory; 256 x 256 needs 116,896 B, and square slices up
     to 362 x 362 fit), else ``"global"``."""
     return "cluster" if flood_cluster_smem(h, w) <= CLUSTER_SMEM_MAX else "global"
+
+
 _OFFSETS = ((0, -1), (0, 1), (-1, 0), (1, 0))
 _OFFSETS_3D = ((0, 0, -1), (0, 0, 1), (0, -1, 0), (0, 1, 0), (-1, 0, 0), (1, 0, 0))
 

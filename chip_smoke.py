@@ -330,9 +330,8 @@ def kernel_phase(vol, dev, batch: int):
         seeds[0, 0, 0] = 1
         return torch.full((1, 256, 256), 0.5, device=dev), seeds, bands[t][None]
 
-    rand_seeds = torch.zeros((2, 384, 384), dtype=torch.int32, device=dev)
-    rand_seeds.view(2, -1)[:, ::997] = torch.arange(1, 2 * len(range(0, 384 * 384, 997)) + 1,
-                                                    dtype=torch.int32, device=dev).view(2, -1)
+    spaced = torch.zeros(big[0].numel(), dtype=torch.int32, device=dev)  # a seed every 997 voxels
+    spaced[::997] = torch.arange(1, spaced[::997].numel() + 1, dtype=torch.int32, device=dev)
     flood_cases = {
         "main": flood_main,
         "ragged": size_filter_inputs(ragged, rones, rones, rlab, rroots, rhmap),
@@ -341,7 +340,7 @@ def kernel_phase(vol, dev, batch: int):
         "serpentine columns 256": corridor(True),
         "empty mask": (flood_main[0][:2], flood_main[1][:2], torch.zeros_like(flood_main[2][:2])),
         "full mask": (flood_main[0][:2], flood_main[1][:2], torch.ones_like(flood_main[2][:2])),
-        "above the size rule": (big[0], rand_seeds, big[0] < THRESHOLD),
+        "above the size rule": (big[0], spaced.view(big[0].shape), big[0] < THRESHOLD),
     }
     for name, (h, s, m) in flood_cases.items():
         route = flood_route(h.shape[1], h.shape[2])

@@ -81,6 +81,12 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# Kernel 2's operations per voxel besides its gaussians, for an exact
+# O(1)-per-voxel algorithm: threshold 1, EDT column scans 4, the row lower
+# envelope (insert, pop, query) 10, square root 1, 3x3 maxima 8, their CC 4,
+# the height map's normalisation and blend 6, one pass of each flood phase
+# over 4 neighbours 8 + 12.
+DTWS_OTHER_OPS = 54
 CREMI_A = (125, 1250, 1250)
 BLOCK = (32, 256, 256)
 BLOCK_WIDE = (32, 640, 640)  # 640 x 640 slices exceed the whole-slice limit
@@ -200,21 +206,6 @@ def serpentine(h, w, dev):
     return torch.full((1, h, w), 0.5, device=dev), seeds, m
 
 
-@contextlib.contextmanager
-def parent_route():
-    """Send kernels 1 and 2 down the global route, the parent design (one
-    thread block per slice over device scratch), by setting the size rule's
-    limit to 0 bytes."""
-    from cluster_tools_tpu_torch.ops import cuda_dtws, cuda_flood
-
-    saved = (cuda_flood.CLUSTER_SMEM_MAX, cuda_dtws.CLUSTER_SMEM_MAX)
-    cuda_flood.CLUSTER_SMEM_MAX = cuda_dtws.CLUSTER_SMEM_MAX = 0
-    try:
-        yield
-    finally:
-        cuda_flood.CLUSTER_SMEM_MAX, cuda_dtws.CLUSTER_SMEM_MAX = saved
-
-
 def cluster_occupancy(n_slices: int, h: int, w: int) -> str:
     """The cluster routes' launch shape at (h, w) slices: shared memory per
     CTA and the clusters (slices) the card runs at once, from
@@ -222,14 +213,14 @@ def cluster_occupancy(n_slices: int, h: int, w: int) -> str:
     import ctypes
 
     from cluster_tools_tpu_torch.ops import _build
-    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_cluster_smem
-    from cluster_tools_tpu_torch.ops.cuda_flood import CLUSTER, flood_cluster_smem
+    from cluster_tools_tpu_torch.ops.cuda_flood import CLUSTER
 
     parts = []
-    for name, lib, fn, args, smem in (
-        ("dtws_slices", "dtws", "ctt_dtws_cluster_occupancy", (h, w, 17), dtws_cluster_smem(h, w, 17)),
-        ("flood_slices", "flood", "ctt_flood_cluster_occupancy", (h, w), flood_cluster_smem(h, w)),
+    for name, lib, fn, args in (
+        ("dtws_slices", "dtws", "ctt_dtws_cluster_occupancy", (h, w, 17)),
+        ("flood_slices", "flood", "ctt_flood_cluster_occupancy", (h, w)),
     ):
+        smem = _build.cluster_smem(lib, *args)
         f = getattr(_build.library(lib), fn)
         f.argtypes = [ctypes.c_int] * len(args)
         f.restype = ctypes.c_int
@@ -365,9 +356,9 @@ def kernel_phase(vol, dev, batch: int):
     for design in ("parent", "new"):
         d_rounds = torch.zeros((n_sl, 3), dtype=torch.int32, device=dev)
         f_rounds = torch.zeros((n_sl, 2), dtype=torch.int32, device=dev)
-        with parent_route() if design == "parent" else contextlib.nullcontext():
-            dtws_slices(x_main, ones, ones, threshold=THRESHOLD, rounds=d_rounds)
-            flood_slices(*flood_main, rounds=f_rounds)
+        fg = design == "parent"
+        dtws_slices(x_main, ones, ones, threshold=THRESHOLD, rounds=d_rounds, force_global=fg)
+        flood_slices(*flood_main, rounds=f_rounds, force_global=fg)
         torch.cuda.synchronize()
         rounds[design] = (d_rounds, f_rounds)
     (pd, pf), (nd, nf) = rounds["parent"], rounds["new"]
@@ -378,16 +369,12 @@ def kernel_phase(vol, dev, batch: int):
         f"alt/assign; maxima CC rounds differ in {cc_diff} of {n_sl} slices "
         f"(parent mean {pd[:, 0].float().mean().item():.2f}, new {nd[:, 0].float().mean().item():.2f})")
 
-    def timed(design, fn, reps):
-        with parent_route() if design == "parent" else contextlib.nullcontext():
-            return cuda_ms(fn, reps)
-
-    d_fn = lambda: dtws_slices(x_main, ones, ones, threshold=THRESHOLD)  # noqa: E731
-    f_fn = lambda: flood_slices(*flood_main)  # noqa: E731
     ms = {("parent", "d"): [], ("new", "d"): [], ("parent", "f"): [], ("new", "f"): []}
     for design in ("parent", "new", "new", "parent"):  # in turns, on one card
-        ms[(design, "d")].append(timed(design, d_fn, 3))
-        ms[(design, "f")].append(timed(design, f_fn, 5))
+        fg = design == "parent"
+        ms[(design, "d")].append(cuda_ms(
+            lambda: dtws_slices(x_main, ones, ones, threshold=THRESHOLD, force_global=fg), 3))
+        ms[(design, "f")].append(cuda_ms(lambda: flood_slices(*flood_main, force_global=fg), 5))
     ms = {k: sum(v) / len(v) for k, v in ms.items()}
     dtws_ms, flood_ms = ms[("new", "d")], ms[("new", "f")]
     dtws_plain_ms = cuda_ms(lambda: dtws_slices_plain(x_main, ones, ones, threshold=THRESHOLD), 1)
@@ -395,9 +382,9 @@ def kernel_phase(vol, dev, batch: int):
     for design in ("parent", "new"):
         d_stamps = torch.zeros((n_sl, DTWS_STAMPS), dtype=torch.int64, device=dev)
         f_stamps = torch.zeros((n_sl, FLOOD_STAMPS), dtype=torch.int64, device=dev)
-        with parent_route() if design == "parent" else contextlib.nullcontext():
-            dtws_slices(x_main, ones, ones, threshold=THRESHOLD, stamps=d_stamps)
-            flood_slices(*flood_main, stamps=f_stamps)
+        fg = design == "parent"
+        dtws_slices(x_main, ones, ones, threshold=THRESHOLD, stamps=d_stamps, force_global=fg)
+        flood_slices(*flood_main, stamps=f_stamps, force_global=fg)
         torch.cuda.synchronize()
         log(f"dtws_slices {tuple(x_main.shape)} {design} design phase split, us per slice "
             f"(mean, max): {phase_split(d_stamps, DTWS_PHASES)}")
@@ -406,14 +393,19 @@ def kernel_phase(vol, dev, batch: int):
     log(cluster_occupancy(n_sl, x_main.shape[2], x_main.shape[3]))
     vox = x_main.numel()
     d_bytes, f_bytes = 24 * vox, 16 * vox
-    d_ops = 2 * x_main.shape[-1] * vox
+    # operations of an exact O(1)-per-voxel kernel 2: the four gaussian
+    # passes' fused multiply-adds (2 operations each; 17 taps at sigma 2) and
+    # DTWS_OTHER_OPS per voxel for the rest
+    d_ops = (4 * 2 * 17 + DTWS_OTHER_OPS) * vox
     d_bound = max(d_bytes / HBM_BYTES_PER_S, d_ops / FP32_OPS_PER_S) * 1e3
+    dense_ms = 2 * x_main.shape[-1] * vox / FP32_OPS_PER_S * 1e3  # PRs 1-3's count
     f_bound = f_bytes / HBM_BYTES_PER_S * 1e3
     dr, fr = nd.float(), nf.float()
     log(
         f"dtws_slices {tuple(x_main.shape)}: {dtws_ms:.3f} ms/launch (cluster route; parent "
         f"design {ms[('parent', 'd')]:.3f} ms), plain {dtws_plain_ms:.1f} ms, bound {d_bound:.4f} ms "
-        f"({'operations' if d_ops / FP32_OPS_PER_S > d_bytes / HBM_BYTES_PER_S else 'bytes'}); "
+        f"({'operations' if d_ops / FP32_OPS_PER_S > d_bytes / HBM_BYTES_PER_S else 'bytes'}; "
+        f"a dense EDT's 2*W operations per voxel would take {dense_ms:.4f} ms); "
         f"rounds per slice cc/alt/assign max {dr.max(0).values.tolist()} "
         f"mean {[round(v, 2) for v in dr.mean(0).tolist()]}"
     )

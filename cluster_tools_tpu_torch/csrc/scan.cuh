@@ -34,6 +34,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 #include <cmath>
 
@@ -295,6 +296,23 @@ __device__ void ctt_col_sweep(const Op& op, cg::cluster_group& cl, const CttBand
 
 // Launch configuration of a cluster kernel over n slices: n clusters of
 // CTT_CLUSTER CTAs of CTT_CL_THREADS threads, `smem` bytes each.
+// Lets `kernel` take up to CTT_SMEM_MAX bytes of dynamic shared memory on the
+// current device; set once per device (a bit of `done` each).  The attribute
+// is the process's and the wrappers launch from several host threads with
+// slices of different sizes, so it is only ever set to the one value that
+// covers every launch the size rule allows, never to one launch's size.
+inline cudaError_t ctt_allow_smem_max(const void* kernel,
+                                      std::atomic<unsigned long long>* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done->load() & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CTT_SMEM_MAX);
+  if (e == cudaSuccess) done->fetch_or(bit);
+  return e;
+}
+
 inline cudaLaunchConfig_t ctt_cluster_config(int n, size_t smem, cudaStream_t stream,
                                              cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};

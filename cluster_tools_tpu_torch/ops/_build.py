@@ -103,6 +103,17 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def cluster_smem(name: str, *args: int) -> int:
+    """Shared memory per CTA of the cluster route of ``csrc/<name>.cu``
+    (``ctt_<name>_cluster_smem``) for slices of the given size, 0 where the
+    slice takes the global route: the size rule, kept in the kernel's source
+    alone.  Builds the library at first use."""
+    fn = getattr(library(name), f"ctt_{name}_cluster_smem")
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*args))
+
+
 def count_launch(wrapper, route=None, **sums) -> None:
     """Add one to ``wrapper.launches`` (and to ``wrapper.launches_by_route
     [route]`` where a route is named), and each keyword's value to the

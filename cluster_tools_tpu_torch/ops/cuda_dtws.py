@@ -40,8 +40,7 @@ from . import _build
 from .cc import connected_components_raw, rank_of_flat_roots
 from .dt import distance_transform_2d_stack
 from .filters import gauss_kernel
-from .cuda_cc import SMEM_MAX
-from .cuda_flood import _align16, band_elems, flood_slices_plain
+from .cuda_flood import flood_slices_plain
 from .watershed import (
     apply_size_filter,
     hmap_weights,
@@ -92,26 +91,14 @@ DTWS_PHASES = ("threshold", "column EDT", "parabola", "seed gaussians", "maxima"
 DTWS_STAMPS = len(DTWS_PHASES) + 1
 
 
-CLUSTER_SMEM_MAX = SMEM_MAX  # the cluster route's size rule: shared memory per CTA
-
-
-def dtws_cluster_smem(h: int, w: int, n_taps: int) -> int:
-    """Shared memory per CTA of kernel 2's cluster route for gaussians of at
-    most ``n_taps`` taps (the formula of ``csrc/dtws_cluster.cuh::
-    ctt_dtws_cluster_bytes``): 17 B per band element (three float fields,
-    roots/labels, flags), 24 B per column of scan summaries, 512 B of words,
-    the row-pointer and column tables of the gaussians."""
-    nt = max(int(n_taps), 1)
-    return (band_elems(h, w) * 17 + _align16(24 * w) + 512
-            + _align16(8 * (-(-h // 8) + nt)) + _align16(4 * (w + nt)))
-
-
 def dtws_route(h: int, w: int, n_taps: int) -> str:
-    """Kernel 2's route for (h, w) slices, by size alone: ``"cluster"`` when
-    ``dtws_cluster_smem(h, w, n_taps) <= CLUSTER_SMEM_MAX`` (232,448 B, an
-    H100 CTA's shared memory; 256 x 256 needs 152,320 B with 17 taps, and
-    square slices up to 318 x 318 fit), else ``"global"``."""
-    return "cluster" if dtws_cluster_smem(h, w, n_taps) <= CLUSTER_SMEM_MAX else "global"
+    """Kernel 2's route for (h, w) slices and gaussians of at most
+    ``n_taps`` taps, by size alone: ``"cluster"`` where the slice fits the
+    shared memory of a cluster's CTAs (the rule is
+    ``csrc/dtws.cu::ctt_dtws_cluster_smem``: 256 x 256 needs 152,320 of
+    232,448 B per CTA with 17 taps, square slices up to 318 x 318 fit), else
+    ``"global"``.  Asks the built kernel library, so it needs ``nvcc``."""
+    return "cluster" if _build.cluster_smem("dtws", h, w, n_taps) else "global"
 
 
 _TAPS = {}
@@ -137,10 +124,13 @@ def dtws_slices(
     invert: bool = False,
     rounds: Optional[torch.Tensor] = None,
     stamps: Optional[torch.Tensor] = None,
+    force_global: bool = False,
 ):
     """Kernel 2 over a (B, Z, H, W) batch of blocks (the plain version for
-    CPU tensors).  The kernel's route is ``dtws_route(H, W, taps)``, counted
-    in ``launches_by_route``; a launch the card refuses raises.  ``rounds``
+    CPU tensors).  The kernel's route is ``dtws_route(H, W, taps)``
+    (``force_global`` takes the global route, the parent design, for
+    comparisons), counted in ``launches_by_route``; a launch the card
+    refuses raises.  ``rounds``
     (int32 (B*Z, 3) CUDA tensor) receives each slice's CC, flood-altitude
     and flood-assignment round counts (the cluster route's CC rounds may
     differ from the global route's: its diagonal pass reads other bands
@@ -173,7 +163,7 @@ def dtws_slices(
         return labels, roots, hmap
     st, wt = _taps(sigma_seeds, dev), _taps(sigma_weights, dev)
     n_taps = max(0 if st is None else st.numel(), 0 if wt is None else wt.numel())
-    route = dtws_route(h, w, n_taps)
+    route = "global" if force_global else dtws_route(h, w, n_taps)
     scratch = [None] * 5  # dt, tmp, alt, dist, flags: the global route's
     if route == "global":
         scratch = [torch.empty_like(hmap), torch.empty_like(hmap), torch.empty_like(hmap),

@@ -37,34 +37,15 @@ BIG = 3.0e38
 BIG_DIST = 2**31 - 2
 FLOOD_STAMPS = 4  # kernel 1's phase stamps per slice: start, set-up, phase 1, phase 2
 CLUSTER = 8  # CTAs per slice on the cluster routes of kernels 1 and 2
-CLUSTER_SMEM_MAX = SMEM_MAX  # the cluster routes' size rule: shared memory per CTA
-
-
-def band_elems(h: int, w: int) -> int:
-    """Elements of one field of a cluster CTA's band (``csrc/scan.cuh``):
-    ceil(h / 8) rows of stride ``w + w // 32`` made odd, rounded up to 16."""
-    rows = -(-h // CLUSTER)
-    return (rows * ((w + (w >> 5)) | 1) + 15) & ~15
-
-
-def _align16(n: int) -> int:
-    return (n + 15) & ~15
-
-
-def flood_cluster_smem(h: int, w: int) -> int:
-    """Shared memory per CTA of kernel 1's cluster route (the same formula as
-    ``csrc/flood_cluster.cuh::ctt_flood_cluster_bytes``): 13 B per band
-    element (altitude, height, label, flags), 24 B per column of scan
-    summaries, 512 B of words."""
-    return band_elems(h, w) * 13 + _align16(24 * w) + 512
 
 
 def flood_route(h: int, w: int) -> str:
-    """Kernel 1's route for (h, w) slices, by size alone: ``"cluster"`` when
-    ``flood_cluster_smem(h, w) <= CLUSTER_SMEM_MAX`` (232,448 B, an H100
-    CTA's shared memory; 256 x 256 needs 116,896 B, and square slices up
-    to 362 x 362 fit), else ``"global"``."""
-    return "cluster" if flood_cluster_smem(h, w) <= CLUSTER_SMEM_MAX else "global"
+    """Kernel 1's route for (h, w) slices, by size alone: ``"cluster"`` where
+    the slice's state fits the shared memory of a cluster's CTAs (the rule
+    is ``csrc/flood.cu::ctt_flood_cluster_smem``: 256 x 256 needs 116,896 of
+    232,448 B per CTA, square slices up to 362 x 362 fit), else
+    ``"global"``.  Asks the built kernel library, so it needs ``nvcc``."""
+    return "cluster" if _build.cluster_smem("flood", h, w) else "global"
 
 
 _OFFSETS = ((0, -1), (0, 1), (-1, 0), (1, 0))
@@ -274,11 +255,13 @@ def flood_slices(
     mask: torch.Tensor,
     rounds: Optional[torch.Tensor] = None,
     stamps: Optional[torch.Tensor] = None,
+    force_global: bool = False,
 ) -> torch.Tensor:
     """Per-slice seeded flood of an (N, H, W) stack: the CUDA kernel for
     CUDA tensors, ``flood_slices_plain`` for CPU tensors.  The kernel's
-    route is ``flood_route(H, W)``, counted in ``launches_by_route``; a
-    launch the card refuses raises.  ``rounds`` (an
+    route is ``flood_route(H, W)`` (``force_global`` takes the global
+    route, the parent design, for comparisons), counted in
+    ``launches_by_route``; a launch the card refuses raises.  ``rounds`` (an
     int32 (N, 2) CUDA tensor) receives each slice's phase-1 and phase-2
     round counts; ``stamps`` (an int64 (N, FLOOD_STAMPS) CUDA tensor) the
     card's clock in ns at the start, after the set-up, after phase 1 and
@@ -300,7 +283,7 @@ def flood_slices(
     if sd.device != dev or mk.device != dev:
         raise ValueError("flood_slices: all tensors must be on one device")
     out = torch.empty((n, h, w), dtype=torch.int32, device=dev)
-    route = flood_route(h, w)
+    route = "global" if force_global else flood_route(h, w)
     alt = dist = None
     if route == "global":
         alt = torch.empty((n, h, w), dtype=torch.float32, device=dev)

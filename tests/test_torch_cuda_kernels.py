@@ -25,7 +25,6 @@ from cluster_tools_tpu_torch import (
 )
 from cluster_tools_tpu_torch.ops.cc import connected_components, serpentine_mask
 from cluster_tools_tpu_torch.ops.cuda_cc import cc_slices, cc_slices_plain, cc_tiles, cc_tiles_plain
-from cluster_tools_tpu_torch.ops import cuda_dtws, cuda_flood
 from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_route, dtws_slices, dtws_slices_plain
 from cluster_tools_tpu_torch.ops.cuda_flood import (
     flood_route,
@@ -136,27 +135,29 @@ def _cluster_flood_case(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(256, 256), (226, 226), (16, 128), (37, 53), (362, 362)])
-def test_cluster_smem_formulas_agree(hw, cuda_device):
-    """The size rule's shared-memory formulas in Python equal the kernels'."""
-    import ctypes
-
+@pytest.mark.parametrize("hw,flood,dtws", [
+    ((256, 256), "cluster", "cluster"),   # the main path's slices
+    ((226, 226), "cluster", "cluster"),   # ragged edge blocks
+    ((16, 128), "cluster", "cluster"),    # two rows per CTA
+    ((362, 362), "cluster", "global"),
+    ((384, 384), "global", "global"),     # above the size rule: one block per slice
+])
+def test_size_rule_routes(hw, flood, dtws, cuda_device):
+    """The cluster routes take a slice when its band fits one CTA's 232,448 B
+    of shared memory (kernel 1: 13 B per band element, kernel 2: 17 B); the
+    rule is the kernels' own (``ctt_*_cluster_smem``)."""
     from cluster_tools_tpu_torch.ops import _build
-    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_cluster_smem
-    from cluster_tools_tpu_torch.ops.cuda_flood import flood_cluster_smem
 
-    f = _build.library("flood").ctt_flood_cluster_smem
-    d = _build.library("dtws").ctt_dtws_cluster_smem
-    f.argtypes, d.argtypes = [ctypes.c_int] * 2, [ctypes.c_int] * 3
-    f.restype = d.restype = ctypes.c_longlong
-    assert f(*hw) == flood_cluster_smem(*hw)
-    for taps in (0, 9, 17):
-        assert d(*hw, taps) == dtws_cluster_smem(*hw, taps)
+    assert flood_route(*hw) == flood
+    assert dtws_route(*hw, 17) == dtws
+    assert _build.cluster_smem("flood", 256, 256) == 116896
+    assert _build.cluster_smem("dtws", 256, 256, 17) == 152320
+    assert _build.cluster_smem("flood", 384, 384) == _build.cluster_smem("dtws", 384, 384, 17) == 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CLUSTER_CASES)
-def test_flood_kernel_routes_and_rounds(case, cuda_device, monkeypatch):
+def test_flood_kernel_routes_and_rounds(case, cuda_device):
     """Kernel 1 equals its plain version on both routes; slices that fit
     take the cluster route in the same rounds as the global route."""
     hmap, seeds, mask = (torch.from_numpy(a).to(cuda_device) for a in _cluster_flood_case(case))
@@ -170,9 +171,9 @@ def test_flood_kernel_routes_and_rounds(case, cuda_device, monkeypatch):
     if case.startswith("serpentine"):
         assert bool((got[mask] == 1).all())
     if route == "cluster":
-        monkeypatch.setattr(cuda_flood, "CLUSTER_SMEM_MAX", 0)
         parent = torch.zeros_like(rounds)
-        torch.testing.assert_close(flood_slices(hmap, seeds, mask, rounds=parent), got, rtol=0, atol=0)
+        torch.testing.assert_close(flood_slices(hmap, seeds, mask, rounds=parent, force_global=True),
+                                   got, rtol=0, atol=0)
         assert flood_slices.launches_by_route["global"] == before["global"] + 1
         torch.testing.assert_close(parent, rounds, rtol=0, atol=0)
 
@@ -194,7 +195,7 @@ def _cluster_dtws_case(case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CLUSTER_CASES)
-def test_dtws_kernel_routes_and_rounds(case, cuda_device, monkeypatch):
+def test_dtws_kernel_routes_and_rounds(case, cuda_device):
     """Kernel 2 equals its plain version bit for bit on both routes; slices
     that fit take the cluster route, whose flood takes the same rounds as
     the global route's (the CC's diagonal pass may take others)."""
@@ -208,9 +209,8 @@ def test_dtws_kernel_routes_and_rounds(case, cuda_device, monkeypatch):
     for g, w in zip(got, dtws_slices_plain(x, m, v, threshold=0.5)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     if route == "cluster":
-        monkeypatch.setattr(cuda_dtws, "CLUSTER_SMEM_MAX", 0)
         parent = torch.zeros_like(rounds)
-        for g, w in zip(dtws_slices(x, m, v, threshold=0.5, rounds=parent), got):
+        for g, w in zip(dtws_slices(x, m, v, threshold=0.5, rounds=parent, force_global=True), got):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
         assert dtws_slices.launches_by_route["global"] == before["global"] + 1
         torch.testing.assert_close(parent[:, 1:], rounds[:, 1:], rtol=0, atol=0)

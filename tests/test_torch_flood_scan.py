@@ -29,11 +29,8 @@ from cluster_tools_tpu_torch.ops.cuda_flood import (
     assign_transfers,
     clamp_apply,
     clamp_compose,
-    flood_cluster_smem,
-    flood_route,
     scan_sweep,
 )
-from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_cluster_smem, dtws_route
 
 LEVELS = np.float32([0.1, 0.25, 0.25, 0.5, 0.75, 0.75])  # heights with ties
 SENT = 2**31 - 2
@@ -180,17 +177,48 @@ def test_segment_summaries_compose_to_the_whole_line(kind, seed):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("hw,flood,dtws", [
-    ((256, 256), "cluster", "cluster"),   # the main path's slices
-    ((226, 226), "cluster", "cluster"),   # ragged edge blocks
-    ((16, 128), "cluster", "cluster"),    # two rows per CTA
-    ((362, 362), "cluster", "global"),
-    ((384, 384), "global", "global"),     # above the size rule: one block per slice
-])
-def test_size_rule_routes(hw, flood, dtws):
-    """The cluster routes take a slice when its band fits one CTA's 232,448 B
-    of shared memory (kernel 1: 13 B per band element, kernel 2: 17 B)."""
-    assert flood_route(*hw) == flood
-    assert dtws_route(*hw, 17) == dtws
-    assert flood_cluster_smem(256, 256) == 116896
-    assert dtws_cluster_smem(256, 256, 17) == 152320
+def _band_cuts(n, parts, lanes):
+    """Run boundaries of a column of ``n`` elements as the cluster route cuts
+    it: ``parts`` bands of ceil(n / parts) rows, each band's segment split
+    among ``lanes`` lanes."""
+    rows = -(-n // parts)
+    cuts = set()
+    for b0 in range(0, n, rows):
+        seg = min(rows, n - b0)
+        run = -(-seg // lanes)
+        cuts.update(range(b0, b0 + seg, run))
+    return sorted(c for c in cuts if 0 < c < n)
+
+
+@pytest.mark.parametrize("phase", ["altitude", "assign"])
+@pytest.mark.parametrize("seed", range(3))
+def test_round_of_scans_equals_round_of_sequential_sweeps(phase, seed):
+    """One round of the cluster route on an (H, W) slice: rows forward and
+    back as warp scans (runs of ceil(W / 32)), then columns down and up as
+    two-level scans (8 bands, 4 lanes per band segment), each sweep from the
+    state the sweep before it left, equals the same four sequential sweeps
+    of the JAX package."""
+    h, mask, seeds, alt, dist, label = _lines(seed, n_lines=37, n=70)
+    row_cuts = list(range(3, 70, 3))
+    col_cuts = _band_cuts(37, 8, 4)
+    j = lambda a: jnp.asarray(a)  # noqa: E731
+    sweeps = [(1, False, row_cuts), (1, True, row_cuts), (0, False, col_cuts), (0, True, col_cuts)]
+
+    def t(a, axis):
+        return np.ascontiguousarray(a.T) if axis == 0 else a
+
+    if phase == "altitude":
+        got = want = alt
+        for axis, rev, cuts in sweeps:
+            want = np.asarray(_sweep_altitude_seq(j(want), j(h), j(seeds > 0), j(mask), axis, rev))
+            got = t(_alt_sweep(t(h, axis), t(mask, axis), t(got, axis), rev, cuts), axis)
+        assert (want != alt).any()
+    else:
+        got = want = (dist, label)
+        for axis, rev, cuts in sweeps:
+            want = tuple(np.asarray(a) for a in _sweep_assign_seq(
+                j(want[0]), j(want[1]), j(alt), j(h), j(seeds > 0), j(mask), axis, rev))
+            got = tuple(t(a, axis) for a in _assign_sweep(
+                *(t(a, axis) for a in (h, mask, seeds, alt, got[0], got[1])), rev, cuts))
+        assert (want[1] != label).any()
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

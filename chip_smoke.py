@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--z 125] [--batch 8] [--seed 0]
+    python3 chip_smoke.py [--z 125] [--batch 8] [--seed 0] [--compare DIR] [--kernels-only]
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
 
@@ -22,8 +22,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      printed.  Kernels 4-5 (CC) on the same blocks thresholded (``vol < 0.5``)
      and their complement, the ragged block, a serpentine corridor and,
      for kernel 5, the (32, 640, 640) blocks of the second components run
-     and their complement: labels exactly.
-     Kernel and plain times at the workflows' batch shapes;
+     and their complement: labels exactly; kernel 4 on both routes (the
+     cluster route its size gives and the global route, the parent
+     design), and on (2, 700, 700) slices above its cluster route's size
+     rule.  Kernel and plain times at the workflows' batch shapes, kernel
+     4's routes in turns (parent, new, new, parent) with their rounds;
   3. the watershed workflow: a seeded synthetic boundary volume at CREMI
      sample A's shape (125, 1250, 1250), made the way ``bench.make_volume``
      makes it, written to n5 with raw chunks; ``build([WatershedWorkflow(...)])``
@@ -35,29 +38,37 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      versions on the card must equal it byte for byte;
   4. the thresholded-components workflow on the same volume
      (``threshold_mode="less"``: the cell interior), ``cuda`` target, twice:
-     blocks (32, 256, 256), whose slices take kernel 4, and blocks
-     (32, 640, 640), whose slices exceed the whole-slice limit and take
-     kernel 5.  The kernel's launch count must rise in its run; the output
-     must have scipy's 6-connected partition of ``vol < 0.5`` with ids
-     1..n, and every block's local labels (before the merge) must equal
-     scipy's labels of that block;
+     blocks (32, 256, 256), whose slices take kernel 4 (every launch down
+     its cluster route), and blocks (32, 640, 640), whose slices exceed the
+     whole-slice limit and take kernel 5.  The kernel's launch count must
+     rise in its run; the output must have scipy's 6-connected partition
+     of ``vol < 0.5`` with ids 1..n, and every block's local labels (before
+     the merge) must equal scipy's labels of that block;
   5. kernel 3 (tile-local flood altitudes) against its plain version on a
      halo'd (36, 272, 272) block at the pinned tile (64, 128) (ragged
      tiles), a divisible (32, 256, 256) stack and a serpentine, and the 3d
-     sweep flood against its plain version on two halo'd blocks, warm and
-     cold, and on a corridor snaking through (z, x): exactly.  Times,
-     bounds and fixpoint rounds at one halo'd block (the workflow's call);
+     flood against its plain version on two halo'd blocks, warm and
+     cold, and on a corridor snaking through (z, x): exactly, with the
+     rounds of both phases equal to those of the flood's schedule in plain
+     PyTorch (``flood_volume_scan``).  Times, bounds and rounds at one
+     halo'd block (the seeded workflow's call), warm and cold, and at a
+     batch of 8 (the 3d watershed's call), with the time split by phase and
+     axis (the kernel's stamps); with ``--compare DIR`` (a checkout of the
+     parent commit, say) that checkout's times on the same inputs, from a
+     child process in it, in turns (parent, new, new, parent), whose rounds
+     must be equal;
   6. ``ThresholdAndWatershedWorkflow`` on the same volume: seeds are the
      components of ``vol < 0.3`` (``"less"``), the watershed from seeds runs
      with its defaults (3d flood, sigma 2, halo [2, 8, 8]) on the ``cuda``
      target with ``CTT_FLOOD_TILE`` pinned to the kernel phase's tile.
-     Kernel 3's and the sweep flood's launch counts must rise; every seed
-     id must be kept, the output must cover the volume, two blocks re-run
-     through the plain versions and a second, unpinned run of the watershed
-     task must equal it byte for byte;
+     Kernel 3's and the 3d flood's launch counts must rise, kernel 4's all
+     down its cluster route; every seed id must be kept, the output must
+     cover the volume, two blocks re-run through the plain versions and a
+     second, unpinned run of the watershed task must equal it byte for
+     byte;
   7. ``WatershedWorkflow`` in the 3d mode (``apply_dt_2d`` and
      ``apply_ws_2d`` False, halo [2, 8, 8]: the CC re-close runs), the
-     sweep flood's launch count must rise, two blocks re-run through the
+     3d flood's launch count must rise, two blocks re-run through the
      plain versions must equal it;
   8. one JSON line listing the six kernels, then the result line.
 
@@ -439,7 +450,8 @@ def cc_kernel_phase(vol, dev, batch: int):
     Returns the per-kernel records of the kernels line."""
     from cluster_tools_tpu_torch.ops.cc import serpentine_mask
     from cluster_tools_tpu_torch.ops.cuda_cc import (
-        WHOLE_SLICE_MAX, cc_slices, cc_slices_plain, cc_tiles, cc_tiles_plain, default_tile,
+        WHOLE_SLICE_MAX, cc_route, cc_slices, cc_slices_plain, cc_tiles, cc_tiles_plain,
+        default_tile,
     )
 
     def blocks_of(block, corners):
@@ -474,44 +486,92 @@ def cc_kernel_phase(vol, dev, batch: int):
         "membrane": (~main, zb),
         "membrane wide": (~wide, wz),
     }
+    cases["above the size rule"] = ((vol[:2, :700, :700] < THRESHOLD).contiguous(), 2)
     for name, (m, depth) in cases.items():
-        runs = [("cc_tiles", cc_tiles, cc_tiles_plain, (default_tile(*m.shape[1:]),))]
+        runs = [("cc_tiles", cc_tiles, cc_tiles_plain, (default_tile(*m.shape[1:]),), False)]
         if m.shape[1] * m.shape[2] <= WHOLE_SLICE_MAX:
-            runs.insert(0, ("cc_slices", cc_slices, cc_slices_plain, ()))
-        for kname, kernel, plain, extra in runs:
-            got = kernel(m, *extra, depth=depth)
+            runs[:0] = [("cc_slices", cc_slices, cc_slices_plain, (), False),
+                        ("cc_slices", cc_slices, cc_slices_plain, (), True)]
+        elif name == "above the size rule":
+            runs = [("cc_slices", cc_slices, cc_slices_plain, (), False)]
+        for kname, kernel, plain, extra, parent in runs:
+            route = ""
+            if kname == "cc_slices":
+                route = "global" if parent else cc_route(*m.shape[1:])
+                before = dict(cc_slices.launches_by_route)
+                got = cc_slices(m, depth=depth, force_global=parent)
+                check_route(cc_slices, before, route, f"cc_slices {name}")
+                route = f" ({route} route)"
+            else:
+                got = kernel(m, *extra, depth=depth)
             want = plain(m, *extra, depth)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                raise AssertionError(f"{kname} {name}: labels differ from the plain version "
+                raise AssertionError(f"{kname} {name}{route}: labels differ from the plain version "
                                      f"({int((got != want).sum())} voxels)")
             pieces = int(torch.unique(got[got >= 0]).numel())
-            log(f"{kname} {name} {tuple(m.shape)}: equal to plain "
+            log(f"{kname} {name} {tuple(m.shape)}{route}: equal to plain "
                 f"({pieces} in-{'slice' if kname == 'cc_slices' else 'tile'} components)")
+    if cc_route(*main.shape[1:]) != "cluster":
+        raise AssertionError("the workflow's slices must take kernel 4's cluster route")
 
-    records = {}
-    for kname, kernel, plain, m, depth, extra, replaces in (
-        ("cc_slices", cc_slices, cc_slices_plain, main, zb, (), "cluster_tools_tpu/ops/pallas_cc.py:89"),
-        ("cc_tiles", cc_tiles, cc_tiles_plain, wide, wz, (default_tile(wy, wx),),
-         "cluster_tools_tpu/ops/pallas_cc.py:143"),
-    ):
-        n_rounds = m.shape[0] if kname == "cc_slices" else (
-            m.shape[0] * -(-wy // extra[0][0]) * -(-wx // extra[0][1]))
-        rounds = torch.zeros(n_rounds, dtype=torch.int32, device=dev)
-        ms = cuda_ms(lambda: kernel(m, *extra, depth=depth, rounds=rounds), 3)
-        plain_ms = cuda_ms(lambda: plain(m, *extra, depth), 1)
-        bound = 5 * m.numel() / HBM_BYTES_PER_S * 1e3  # bool mask in, int32 labels out
-        r = rounds.float()
-        log(f"{kname} {tuple(m.shape)}{' tile ' + str(extra[0]) if extra else ''}: "
-            f"{ms:.3f} ms/launch, plain {plain_ms:.1f} ms, bound {bound:.4f} ms (bytes); "
-            f"rounds per {'slice' if kname == 'cc_slices' else 'tile'} max {int(r.max())} "
-            f"mean {r.mean().item():.2f}")
-        records[kname] = dict(
-            name=kname, route="cuda", source="cluster_tools_tpu_torch/csrc/cc.cuh",
-            replaces=replaces, max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by="bytes", library_ms=None,
-        )
+    # kernel 4 at the workflow's batch: the cluster route and the parent
+    # design (the global route) in turns: parent, new, new, parent
+    n_sl = main.shape[0]
+    rounds = {d: torch.zeros(n_sl, dtype=torch.int32, device=dev) for d in ("parent", "new")}
+    times = {"parent": [], "new": []}
+    for design in ("parent", "new", "new", "parent"):
+        times[design].append(cuda_ms(lambda: cc_slices(
+            main, depth=zb, rounds=rounds[design], force_global=design == "parent"), 3))
+    ms, parent_ms = (sum(times[d]) / 2 for d in ("new", "parent"))
+    plain_ms = cuda_ms(lambda: cc_slices_plain(main, zb), 1)
+    bound = 5 * main.numel() / HBM_BYTES_PER_S * 1e3  # bool mask in, int32 labels out
+    rn, rp = (rounds[d].float() for d in ("new", "parent"))
+    log(f"cc_slices {tuple(main.shape)}: cluster route {ms:.3f} ms/launch "
+        f"({', '.join(f'{t:.3f}' for t in times['new'])}), parent design (global route) "
+        f"{parent_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in times['parent'])}), plain "
+        f"{plain_ms:.1f} ms, bound {bound:.4f} ms (bytes); rounds per slice mean/max cluster "
+        f"{rn.mean().item():.2f}/{int(rn.max())}, parent {rp.mean().item():.2f}/{int(rp.max())}")
+    log(cc_occupancy(n_sl, *main.shape[1:]))
+    records = {"cc_slices": dict(
+        name="cc_slices", route="cuda", source="cluster_tools_tpu_torch/csrc/cc_cluster.cuh",
+        replaces="cluster_tools_tpu/ops/pallas_cc.py:89", max_abs_err=0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None,
+    )}
+    tile = default_tile(wy, wx)
+    n_tiles = wide.shape[0] * -(-wy // tile[0]) * -(-wx // tile[1])
+    t_rounds = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: cc_tiles(wide, tile, depth=wz, rounds=t_rounds), 3)
+    plain_ms = cuda_ms(lambda: cc_tiles_plain(wide, tile, wz), 1)
+    bound = 5 * wide.numel() / HBM_BYTES_PER_S * 1e3
+    r = t_rounds.float()
+    log(f"cc_tiles {tuple(wide.shape)} tile {tile}: {ms:.3f} ms/launch, plain {plain_ms:.1f} ms, "
+        f"bound {bound:.4f} ms (bytes); rounds per tile max {int(r.max())} "
+        f"mean {r.mean().item():.2f}")
+    records["cc_tiles"] = dict(
+        name="cc_tiles", route="cuda", source="cluster_tools_tpu_torch/csrc/cc.cuh",
+        replaces="cluster_tools_tpu/ops/pallas_cc.py:143", max_abs_err=0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None,
+    )
     return records
+
+
+def cc_occupancy(n_slices: int, h: int, w: int) -> str:
+    """Kernel 4's cluster route at (h, w) slices: shared memory per CTA and
+    the clusters the card runs at once (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from cluster_tools_tpu_torch.ops import _build
+
+    smem = _build.cluster_smem("cc", h, w)
+    f = _build.library("cc").ctt_cc_cluster_occupancy
+    f.argtypes = [ctypes.c_int] * 2
+    f.restype = ctypes.c_int
+    clusters = f(h, w)
+    if clusters <= 0:
+        raise AssertionError(f"ctt_cc_cluster_occupancy: no cluster fits the card (code {clusters})")
+    return (f"cc_slices cluster route at ({h}, {w}): clusters of 8 CTAs, {smem} B "
+            f"per CTA, {clusters} slices at once, {-(-n_slices // clusters)} waves of {n_slices}")
 
 
 def check_partition(out: np.ndarray, ref: np.ndarray, n_ref: int) -> int:
@@ -562,8 +622,7 @@ def components_phase(path: str, work: str, block, card: str, fg, ref, n_ref: int
         os.path.join(work, f"tmp_cc_{tag}"), config_dir, input_path=path, input_key="raw",
         output_path=path, output_key=f"cc_{tag}",
     )
-    cc_slices.launches = 0
-    cc_tiles.launches = 0
+    reset_counts(cc_slices, cc_tiles)
     t0 = time.perf_counter()
     if not build([wf]):
         raise AssertionError("components workflow build failed")
@@ -572,9 +631,12 @@ def components_phase(path: str, work: str, block, card: str, fg, ref, n_ref: int
     launches = {"cc_slices": cc_slices.launches, "cc_tiles": cc_tiles.launches}
     if launches[kernel] == 0:
         raise AssertionError(f"the components run at blocks {block} never launched {kernel}")
+    if cc_slices.launches_by_route["global"]:
+        raise AssertionError(f"components {tag}: kernel 4 took the global route "
+                             f"{cc_slices.launches_by_route}")
     vox = int(np.prod(ref.shape))
     log(f"components {tag}: {ref.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on {card}; "
-        f"launches {launches}")
+        f"launches {launches}, cc_slices by route {cc_slices.launches_by_route}")
     # per task, upstream first: seconds, and the cuda target's stage sums
     chain, node = [], wf.requires()[0]
     while node is not None:
@@ -697,13 +759,70 @@ def halo_block(vol, corner, dev):
     return gaussian(blk, 2.0), seeds[0], torch.ones(shape, dtype=torch.bool, device=dev)
 
 
-def flood3d_kernel_phase(vol, dev):
-    """Phase 5: kernel 3 and the 3d sweep flood against their plain versions
-    on the card.  Returns their records of the kernels line (without the
-    launch counts) and the rounds at the timed block."""
+def check_flood_rounds(name: str, args, stats: dict) -> tuple:
+    """The kernel's rounds of each phase (``stats``) must be those of its
+    schedule in plain PyTorch (``flood_volume_scan``, the JAX package's
+    counts) on the same inputs ``(h, s, m, warm)``.  Returns them."""
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_volume_scan
+
+    got = (stats["flood_alt_iters"], stats["flood_assign_iters"])
+    want = flood_volume_scan(*args[:3], warm=args[3])[2]
+    if got != want:
+        raise AssertionError(f"flood_volume {name}: rounds alt/assign {got}, the sequential "
+                             f"sweeps' {want}")
+    log(f"flood_volume {name}: equal to plain, rounds alt/assign {got[0]}/{got[1]} equal to "
+        f"the sequential sweeps'")
+    return got
+
+
+# Run in a child process from the root of another checkout: times that
+# checkout's flood_volume on the inputs saved in argv[1] as ``cuda_ms`` does
+# (one warm-up call, then 3 between CUDA events) and prints, per input, the
+# ms per call and the rounds of both phases as one JSON line.
+OTHER_TIMER = r"""
+import json, sys, torch
+from cluster_tools_tpu_torch.ops.cuda_flood import flood_volume
+out = {}
+for name, args in torch.load(sys.argv[1]).items():
+    h, s, m, w = (None if t is None else t.cuda() for t in args)
+    stats = {}
+    flood_volume(h, s, m, warm=w, stats=stats)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(3):
+        flood_volume(h, s, m, warm=w)
+    b.record()
+    torch.cuda.synchronize()
+    out[name] = {"ms": a.elapsed_time(b) / 3,
+                 "rounds": [stats["flood_alt_iters"], stats["flood_assign_iters"]]}
+print(json.dumps(out))
+"""
+
+
+def other_flood_volume(checkout: str, timed: dict) -> dict:
+    """``OTHER_TIMER`` on another checkout (the parent design, say)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save({k: tuple(None if t is None else t.cpu() for t in v) for k, v in timed.items()},
+                   path)
+        out = subprocess.run([sys.executable, "-c", OTHER_TIMER, path], cwd=checkout,
+                             capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        raise AssertionError(f"{checkout}: flood_volume failed:\n{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def flood3d_kernel_phase(vol, dev, compare=()):
+    """Phase 5: kernel 3 and the 3d flood against their plain versions on
+    the card, the flood's rounds against its schedule in plain PyTorch, and
+    its times (with those of the checkouts in ``compare``, the parent
+    commit's say).  Returns their records of the kernels line (without the
+    launch counts)."""
     from cluster_tools_tpu_torch.ops.cc import serpentine_mask
     from cluster_tools_tpu_torch.ops.cuda_flood import (
-        flood_tiles_warm, flood_tiles_warm_plain, flood_volume, flood_volume_plain,
+        FLOOD3D_LINES, FLOOD3D_PHASES, flood_tiles_warm, flood_tiles_warm_plain, flood_volume,
+        flood_volume_plain,
     )
     from cluster_tools_tpu_torch.ops.watershed import resolve_flood_tile
 
@@ -761,10 +880,11 @@ def flood3d_kernel_phase(vol, dev):
                                  f"({int((got != want).sum())} voxels)")
         if name.startswith("serpentine") and not bool((got[m] == 1).all()):
             raise AssertionError("flood_volume serpentine: corridor not flooded to its end")
-        log(f"flood_volume {name}: equal to plain, rounds alt/assign "
-            f"{stats['flood_alt_iters']}/{stats['flood_assign_iters']}")
+        check_flood_rounds(name, (h, s, m, w), stats)
 
-    # times at one halo'd block, the call the workflow makes per block
+    # times at one halo'd block (the seeded workflow's call, warm and cold)
+    # and at the 3d watershed's batch of 8 halo'd blocks (cold), the parent
+    # design's in turns where a checkout of it is given
     h1, s1, m1 = (t[None] for t in blocks[0])
     hs, ss, ms = (t.view((-1,) + hw) for t in (h1, s1, m1))
     n_tiles = hs.shape[0] * -(-hw[0] // tile[0]) * -(-hw[1] // tile[1])
@@ -772,24 +892,58 @@ def flood3d_kernel_phase(vol, dev):
     warm1 = flood_tiles_warm(hs, ss, ms, tile, rounds=t_rounds).view(h1.shape)
     k3_ms = cuda_ms(lambda: flood_tiles_warm(hs, ss, ms, tile), 5)
     k3_plain_ms = cuda_ms(lambda: flood_tiles_warm_plain(hs, ss, ms, tile), 1)
+    z_last, y_last, x_last = (v - b for v, b in zip(vol.shape, shape))
+    corners8 = [(z, y, x) for z in (0, z_last) for y in (0, y_last) for x in (0, x_last)]
+    h8, s8, m8 = (torch.stack(t) for t in zip(*(halo_block(vol, c, dev) for c in corners8)))
+    timed = {
+        f"{tuple(h1.shape)} warm": (h1, s1, m1, warm1),
+        f"{tuple(h1.shape)} cold": (h1, s1, m1, None),
+        f"{tuple(h8.shape)} cold": (h8, s8, m8, None),
+    }
     rounds = {}
-    for label, w in (("cold", None), ("warm", warm1)):
+    for name, args in timed.items():
         stats = {}
-        flood_volume(h1, s1, m1, warm=w, stats=stats)
-        rounds[label] = (stats["flood_alt_iters"], stats["flood_assign_iters"])
-    fv_ms = cuda_ms(lambda: flood_volume(h1, s1, m1, warm=warm1), 3)
-    fv_cold_ms = cuda_ms(lambda: flood_volume(h1, s1, m1), 3)
+        got = flood_volume(*args[:3], warm=args[3], stats=stats)
+        if not torch.equal(got, flood_volume_plain(*args[:3], warm=args[3])):
+            raise AssertionError(f"flood_volume {name}: differs from the plain version")
+        rounds[name] = check_flood_rounds(name, args, stats)
+    times = {name: {d: [] for d in ["new", *compare]} for name in timed}
+    for design in [*compare, "new", "new", *compare[::-1]]:
+        if design == "new":
+            for name, (h, s, m, w) in timed.items():
+                times[name]["new"].append(cuda_ms(lambda: flood_volume(h, s, m, warm=w), 3))
+            continue
+        for name, res in other_flood_volume(design, timed).items():
+            times[name][design].append(res["ms"])
+            if tuple(res["rounds"]) != rounds[name]:
+                raise AssertionError(f"flood_volume {name}: rounds {rounds[name]} differ from "
+                                     f"{design}'s {tuple(res['rounds'])}")
     fv_plain_ms = cuda_ms(lambda: flood_volume_plain(h1, s1, m1, warm=warm1), 1)
     vox = h1.numel()
     k3_bound = 13 * vox / HBM_BYTES_PER_S * 1e3  # f32 h, i32 seeds, byte mask in; f32 out
-    fv_bound = 17 * vox / HBM_BYTES_PER_S * 1e3  # the same plus f32 warm in; i32 labels out
     tr = t_rounds.float()
     log(f"flood_tiles_warm {tuple(hs.shape)} tile {tile}: {k3_ms:.3f} ms/launch, plain "
         f"{k3_plain_ms:.1f} ms, bound {k3_bound:.4f} ms (bytes); rounds per tile max "
         f"{int(tr.max())} mean {tr.mean().item():.2f}")
-    log(f"flood_volume {tuple(h1.shape)}: warm {fv_ms:.3f} ms/launch (rounds alt/assign "
-        f"{rounds['warm']}), cold {fv_cold_ms:.3f} ms (rounds {rounds['cold']}), plain "
-        f"{fv_plain_ms:.1f} ms, bound {fv_bound:.4f} ms (bytes)")
+    stamps = torch.zeros((1, len(FLOOD3D_PHASES) + len(FLOOD3D_LINES)), dtype=torch.int64,
+                         device=dev)
+    for name, t in times.items():
+        h, s, m, w = timed[name]
+        # f32 h, i32 seeds, byte mask (and f32 warm) in; i32 labels out
+        bound = (17 if w is not None else 13) * h.numel() / HBM_BYTES_PER_S * 1e3
+        others = "".join(
+            f"; {d}: {sum(v) / len(v):.3f} ms ({', '.join(f'{x:.3f}' for x in v)}), rounds equal"
+            for d, v in t.items() if d != "new")
+        log(f"flood_volume {name}: {sum(t['new']) / 2:.3f} ms/launch "
+            f"({', '.join(f'{x:.3f}' for x in t['new'])}){others}; bound {bound:.4f} ms (bytes)")
+        flood_volume(h, s, m, warm=w, stamps=stamps)
+        st = stamps[0].tolist()
+        split = {p: round(v / 1e3, 1) for p, v in zip(FLOOD3D_PHASES, st)}
+        lines = dict(zip(FLOOD3D_LINES, st[len(FLOOD3D_PHASES):]))
+        log(f"flood_volume {name}: us per phase {split}; lines swept in all rounds {lines}")
+    fv_ms = sum(times[f"{tuple(h1.shape)} warm"]["new"]) / 2
+    fv_bound = 17 * vox / HBM_BYTES_PER_S * 1e3  # the same plus f32 warm in; i32 labels out
+    log(f"flood_volume {tuple(h1.shape)} warm: plain {fv_plain_ms:.1f} ms")
     records = {
         "flood_tiles_warm": dict(
             name="flood_tiles_warm", route="cuda",
@@ -880,10 +1034,13 @@ def seeds_phase(vol_np, path: str, work: str, card: str):
             raise AssertionError(f"the seeds workflow never launched {name}")
     warm_rounds = (flood_volume.alt_rounds / flood_volume.launches,
                    flood_volume.assign_rounds / flood_volume.launches)
+    if cc_slices.launches_by_route["global"]:
+        raise AssertionError(f"seeds workflow: kernel 4 took the global route "
+                             f"{cc_slices.launches_by_route}")
     vox = int(np.prod(vol_np.shape))
     log(f"seeds workflow: {vol_np.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on {card}; "
-        f"launches {launches}; flood rounds per block alt/assign (warm) "
-        f"{warm_rounds[0]:.2f}/{warm_rounds[1]:.2f}")
+        f"launches {launches}, cc_slices by route {cc_slices.launches_by_route}; flood rounds "
+        f"per block alt/assign (warm) {warm_rounds[0]:.2f}/{warm_rounds[1]:.2f}")
     task_seconds(wf, "seeds workflow")
 
     f = file_reader(path, "r")
@@ -1012,6 +1169,12 @@ def main() -> int:
     ap.add_argument("--z", type=int, default=CREMI_A[0], help="volume depth (cut z only)")
     ap.add_argument("--batch", type=int, default=8, help="blocks per kernel-phase batch")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compare", action="append", default=[], metavar="DIR",
+                    help="another checkout, e.g. of the parent commit unpacked with git "
+                         "archive (repeatable): phase 5 times its 3d flood in turns with "
+                         "this tree's")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 5 (no workflow runs, no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1038,7 +1201,10 @@ def main() -> int:
         f"boundary fraction {float((vol >= THRESHOLD).float().mean()):.4f}")
     records = kernel_phase(vol, dev, args.batch)
     records.update(cc_kernel_phase(vol, dev, args.batch))
-    records.update(flood3d_kernel_phase(vol, dev))
+    records.update(flood3d_kernel_phase(vol, dev, args.compare))
+    if args.kernels_only:
+        log("kernels only: no workflow run")
+        return 0
     vol_np = vol.cpu().numpy()
     del vol
     torch.cuda.empty_cache()

@@ -31,6 +31,8 @@
 //    5 B/voxel (mask in, labels out); the time goes to the chains of L2
 //    accesses inside each line sweep, times the rounds.  Each sweep loads
 //    CTT_CC_UNROLL values of its line at once to keep that many in flight.
+//    This is kernel 4's global route: slices whose labels fit a cluster of
+//    8 CTAs take the cluster route (cc_cluster.cuh) instead.
 //  * kernel 5: one thread block per (slice, tile); the tile's labels live in
 //    shared memory (row stride tw + 1, so the row sweeps' threads fall on
 //    distinct banks), read once from the mask and written once to the

@@ -30,9 +30,7 @@
 
 #include <cuda_runtime.h>
 
-#define CTT_BIG 3.0e38f
-#define CTT_BIG_DIST 2147483646
-#define CTT_SENT 2147483646  // "no root" of kernel 2's maxima CC
+#include "defs.cuh"
 
 // Flag bits of kernels 1-2's flag bytes: foreground, flood mask, maximum;
 // the cluster routes keep phase 2's edge bits in bits 4..7 (scan.cuh).

@@ -1,7 +1,10 @@
 // C entry points of kernel 3 (tile-local altitude warm start) and the 3d
-// sweep flood, loaded with ctypes by cluster_tools_tpu_torch/ops/cuda_flood.py.
+// flood, loaded with ctypes by cluster_tools_tpu_torch/ops/cuda_flood.py.
 // See flood3d.cuh for the design.
 #include "flood3d.cuh"
+
+static std::atomic<unsigned long long> ctt_flood_tiles_smem_set{0};
+static std::atomic<unsigned long long> ctt_flood3d_smem_set[2] = {{0}, {0}};
 
 extern "C" int ctt_flood_tiles_warm(const float* hmap, const int* seeds,
                                     const unsigned char* mask, float* out,
@@ -10,85 +13,79 @@ extern "C" int ctt_flood_tiles_warm(const float* hmap, const int* seeds,
   if (n <= 0) return 0;
   const int gh = (h + th - 1) / th, gw = (w + tw - 1) / tw;
   const size_t smem = 2 * (size_t)th * (tw + 1) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ctt_flood_tiles_warm_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (smem > CTT_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = ctt_allow_smem_max((const void*)ctt_flood_tiles_warm_kernel,
+                                       &ctt_flood_tiles_smem_set);
+  if (err != cudaSuccess) return (int)err;
   ctt_flood_tiles_warm_kernel<<<(unsigned)((size_t)n * gh * gw), 128, smem,
                                 (cudaStream_t)stream>>>(
       hmap, seeds, mask, out, h, w, th, tw, gh, gw, rounds);
   return (int)cudaGetLastError();
 }
 
-// One phase of the 3d flood to its fixpoint: rounds of six sweeps (z, y, x,
-// each forward and backward) until a round changes nothing.  The flag is
-// read back once per round.  Returns a CUDA error code; *rounds receives the
-// round count (the last, unchanged round included).
-static int ctt_flood3d_phase(int phase, const float* hm, float* alt, int* dist,
-                             int* lab, int* flag, Ctt3dLines g, int b,
-                             cudaStream_t st, int* rounds) {
-  const long long nlines[3] = {(long long)b * g.H * g.W,
-                               (long long)b * g.Z * g.W,
-                               (long long)b * g.Z * g.H};
-  const int threads = 128;
-  int r = 0;
-  for (;;) {
-    cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int), st);
-    if (err != cudaSuccess) return (int)err;
-    for (int axis = 0; axis < 3; ++axis) {
-      const unsigned blocks = (unsigned)((nlines[axis] + threads - 1) / threads);
-      for (int rev = 0; rev < 2; ++rev) {
-        if (phase == 1)
-          ctt_alt_sweep3d_kernel<<<blocks, threads, 0, st>>>(
-              hm, alt, g, axis, rev, nlines[axis], flag);
-        else
-          ctt_assign_sweep3d_kernel<<<blocks, threads, 0, st>>>(
-              hm, alt, dist, lab, g, axis, rev, nlines[axis], flag);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-      }
-    }
-    int changed = 0;
-    err = cudaMemcpyAsync(&changed, flag, sizeof(int), cudaMemcpyDeviceToHost, st);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaStreamSynchronize(st);
-    if (err != cudaSuccess) return (int)err;
-    ++r;
-    if (!changed) break;
-  }
-  *rounds = r;
-  return 0;
+// Blocks per SM of the 3d flood for a batch of n voxels.  One block per SM
+// keeps a thread's state in 128 registers; two give twice the warps with
+// 64 registers and spills.  Measured on an H100 (PERF.md): one 36 x 272 x
+// 272 block (2.7 M voxels) runs faster with one, a batch of 8 (21 M) with
+// two; the cut lies between.
+static int ctt_flood3d_blocks(long long n) { return n < (8ll << 20) ? 1 : 2; }
+
+static const void* ctt_flood3d_fn(int blocks) {
+  return blocks == 1 ? (const void*)ctt_flood3d_kernel<1> : (const void*)ctt_flood3d_kernel<2>;
 }
 
-// The 3d seeded flood of a (b, z, h, w) batch.  hm, alt and dist are
-// scratch of the batch's size, lab receives the labels (0 off the mask),
-// flag is one device int, warm is null or the phase-1 warm altitudes.
+// Blocks of the 3d flood's cooperative grid on the current device for a
+// batch of n voxels: as many as are co-resident (one wave), or minus a
+// CUDA error code.
+extern "C" int ctt_flood3d_grid(long long n) {
+  const int blocks = ctt_flood3d_blocks(n);
+  const void* fn = ctt_flood3d_fn(blocks);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = ctt_allow_smem_max(fn, &ctt_flood3d_smem_set[blocks - 1]);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, CTT_F3_THREADS, CTT_F3_SMEM);
+  if (e != cudaSuccess) return -(int)e;
+  return per_sm * sms;
+}
+
+// The 3d seeded flood of a (b, z, h, w) batch (z * h * w < 2^31): one
+// cooperative launch, then one host sync to read the round counts.  hm,
+// alt, dist and eb are scratch of the batch's size, flags scratch of
+// b * (z * h + z * w + h * w) bytes, lab receives the labels
+// (0 off the mask), state is 3 device ints, warm is null or the phase-1 warm
+// altitudes, stamps null or CTT_F3_STAMPS device int64 (ctt_flood3d_kernel).
 // rounds (host, 2 ints) receives the rounds of each phase, or is null.
+// Returns a CUDA error code.
 extern "C" int ctt_flood3d(const float* hmap, const int* seeds,
                            const unsigned char* mask, const float* warm,
                            float* hm, float* alt, int* dist, int* lab,
-                           int* flag, int b, int z, int h, int w, int* rounds,
-                           void* stream) {
+                           unsigned char* eb, unsigned char* flags, int* state,
+                           long long* stamps, int b,
+                           int z, int h, int w, int* rounds, void* stream) {
   const long long n = (long long)b * z * h * w;
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const long long want = (n + 255) / 256;
-  const unsigned blocks = (unsigned)(want < 8192 ? want : 8192);
-  ctt_flood3d_init_kernel<<<blocks, 256, 0, st>>>(hmap, seeds, mask, warm, hm,
-                                                  alt, dist, lab, n);
-  cudaError_t err = cudaGetLastError();
+  const int grid = ctt_flood3d_grid(n);
+  if (grid <= 0) return grid < 0 ? -grid : (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaError_t err = cudaMemsetAsync(state, 0, 3 * sizeof(int), st);
+  if (err == cudaSuccess && stamps != nullptr)
+    err = cudaMemsetAsync(stamps, 0, CTT_F3_STAMPS * sizeof(long long), st);
   if (err != cudaSuccess) return (int)err;
-  Ctt3dLines g{z, h, w};
-  int r1 = 0, r2 = 0;
-  int rc = ctt_flood3d_phase(1, hm, alt, dist, lab, flag, g, b, st, &r1);
-  if (rc != 0) return rc;
-  rc = ctt_flood3d_phase(2, hm, alt, dist, lab, flag, g, b, st, &r2);
-  if (rc != 0) return rc;
+  Ctt3dGeom g{b, z, h, w};
+  void* args[] = {&hmap, &seeds, &mask, &warm, &hm,    &alt,    &dist,
+                  &lab,  &eb,    &flags, &state, &stamps, &g};
+  err = cudaLaunchCooperativeKernel(ctt_flood3d_fn(ctt_flood3d_blocks(n)), dim3(grid),
+                                    dim3(CTT_F3_THREADS), args, CTT_F3_SMEM, st);
+  if (err != cudaSuccess) return (int)err;
+  int r[2];
+  err = cudaMemcpyAsync(r, state + 1, sizeof(r), cudaMemcpyDeviceToHost, st);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(st);
+  if (err != cudaSuccess) return (int)err;
   if (rounds != nullptr) {
-    rounds[0] = r1;
-    rounds[1] = r2;
+    rounds[0] = r[0];
+    rounds[1] = r[1];
   }
   return 0;
 }

@@ -18,6 +18,7 @@
 // hop counts take the heights' place.
 #pragma once
 
+#include "flood.cuh"
 #include "scan.cuh"
 
 // Flood the band of one slice.  On entry `hm` holds the heights, `lab` the

@@ -1,7 +1,8 @@
 // Line sweeps as scans over a slice held in a thread-block cluster's shared
 // memory: the layout, the transfer families and the sweeps shared by the
-// cluster routes of kernel 1 (flood_cluster.cuh) and kernel 2
-// (dtws_cluster.cuh).
+// cluster routes of kernel 1 (flood_cluster.cuh), kernel 2
+// (dtws_cluster.cuh) and kernel 4 (cc_cluster.cuh); the 3d flood
+// (flood3d.cuh) scans its lines with the same transfer families.
 //
 // Layout.  One cluster of CTT_CLUSTER CTAs holds one H x W slice; CTA `rank`
 // owns the band of rows [rank*R, min(H, rank*R + R)), R = ceil(H / 8), each
@@ -19,7 +20,9 @@
 // for bit:
 //   CttAltOp   flood phase 1, c -> min(u, max(c, l)) over float altitudes
 //              (cluster_tools_tpu/ops/watershed.py::_sweep_altitude_assoc);
-//   CttCcOp    min-label CC, the same clamp over int labels;
+//   CttCcOp    min-label CC, the same clamp over int labels, CTT_SENT the
+//              constant of a non-member (kernel 2's maxima CC, kernel 4's
+//              background);
 //   CttAsgOp   flood phase 2, (hops, label) -> minlex((D, L), (d + s, l)) or
 //              the constant (D, L) (_sweep_assign_assoc).
 // A row sweep is one warp per row: each lane composes its run, a 5-step
@@ -38,7 +41,7 @@
 #include <climits>
 #include <cmath>
 
-#include "flood.cuh"
+#include "defs.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -92,6 +95,10 @@ __device__ inline T ctt_shfl_up(T v, int d, int width) {
   return __shfl_up_sync(0xffffffffu, v, d, width);
 }
 template <typename T>
+__device__ inline T ctt_shfl_down(T v, int d, int width) {
+  return __shfl_down_sync(0xffffffffu, v, d, width);
+}
+template <typename T>
 __device__ inline T ctt_shfl(T v, int src, int width) {
   return __shfl_sync(0xffffffffu, v, src, width);
 }
@@ -115,6 +122,9 @@ struct CttAltOp {
   __device__ static F shfl_up(F f, int d, int w) {
     return {ctt_shfl_up(f.u, d, w), ctt_shfl_up(f.l, d, w)};
   }
+  __device__ static F shfl_down(F f, int d, int w) {
+    return {ctt_shfl_down(f.u, d, w), ctt_shfl_down(f.l, d, w)};
+  }
   __device__ static V shfl_v(V v, int src, int w) { return ctt_shfl(v, src, w); }
   __device__ F load(int i) const { return {alt[i], hm[i]}; }
   __device__ V step(int i, F f, V c, int& changed) const {
@@ -127,8 +137,9 @@ struct CttAltOp {
   }
 };
 
-// Min-label CC of the maxima: a member holding root v is c -> min(v, c), a
-// non-member (root CTT_SENT) the constant CTT_SENT.
+// Min-label CC (kernel 2's maxima, kernel 4's slices): a member holding root
+// v is c -> min(v, c), a non-member (root CTT_SENT) the constant CTT_SENT,
+// which resets the carry as the sequential sweep does.
 struct CttCcOp {
   struct F { int u, l; };
   typedef int V;
@@ -188,6 +199,9 @@ struct CttAsgOp {
   __device__ static V init() { return {CTT_BIG_DIST, 0}; }
   __device__ static F shfl_up(F f, int d, int w) {
     return {ctt_shfl_up(f.d, d, w), ctt_shfl_up(f.l, d, w), ctt_shfl_up(f.s, d, w)};
+  }
+  __device__ static F shfl_down(F f, int d, int w) {
+    return {ctt_shfl_down(f.d, d, w), ctt_shfl_down(f.l, d, w), ctt_shfl_down(f.s, d, w)};
   }
   __device__ static V shfl_v(V x, int src, int w) {
     return {ctt_shfl(x.d, src, w), ctt_shfl(x.l, src, w)};
@@ -294,8 +308,6 @@ __device__ void ctt_col_sweep(const Op& op, cg::cluster_group& cl, const CttBand
   }
 }
 
-// Launch configuration of a cluster kernel over n slices: n clusters of
-// CTT_CLUSTER CTAs of CTT_CL_THREADS threads, `smem` bytes each.
 // Lets `kernel` take up to CTT_SMEM_MAX bytes of dynamic shared memory on the
 // current device; set once per device (a bit of `done` each).  The attribute
 // is the process's and the wrappers launch from several host threads with
@@ -313,11 +325,14 @@ inline cudaError_t ctt_allow_smem_max(const void* kernel,
   return e;
 }
 
+// Launch configuration of a cluster kernel over n slices: n clusters of
+// CTT_CLUSTER CTAs of `threads` threads, `smem` bytes each.
 inline cudaLaunchConfig_t ctt_cluster_config(int n, size_t smem, cudaStream_t stream,
-                                             cudaLaunchAttribute* attr) {
+                                             cudaLaunchAttribute* attr,
+                                             int threads = CTT_CL_THREADS) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)n * CTT_CLUSTER);
-  cfg.blockDim = dim3(CTT_CL_THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;

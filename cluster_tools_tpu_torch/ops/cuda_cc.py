@@ -9,7 +9,11 @@ slice (``cc_tiles``), background −1.  Slice s is depth z = s % ``depth`` of
 its block, so a (B·Z, H, W) batch gets the ids the JAX kernels give one
 (Z, H, W) volume; ``depth`` defaults to N (the stack is one block).  The
 merges of ``ops/cc.py`` (``merge_slice_labels``, ``merge_tiled_labels``)
-turn the output into volume components.
+turn the output into volume components.  Kernel 4 takes one of two routes,
+chosen by the slice's size before launch (``cc_route``): a thread-block
+cluster of 8 CTAs per slice with the slice's labels in shared memory and
+the line sweeps as warp scans (``csrc/cc_cluster.cuh``), or, for slices
+that do not fit, one thread block per slice over the output buffer.
 
 ``cc_slices_plain`` and ``cc_tiles_plain`` compute the same functions with
 PyTorch ops (min-label propagation plus pointer jumping, restricted to the
@@ -89,6 +93,15 @@ def cc_tiles_plain(
     return _plain(mask, depth, partition=part)
 
 
+def cc_route(h: int, w: int) -> str:
+    """Kernel 4's route for (h, w) slices, by size alone: ``"cluster"``
+    where the slice's labels fit the shared memory of a cluster's CTAs (the
+    rule is ``csrc/cc.cu::ctt_cc_cluster_smem``: 256 x 256 needs 40,576 of
+    232,448 B per CTA), else ``"global"``.  Asks the built kernel library,
+    so it needs ``nvcc``."""
+    return "cluster" if _build.cluster_smem("cc", h, w) else "global"
+
+
 def _launch_args(what: str, mask: torch.Tensor, rounds, n_rounds: int):
     if mask.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {mask.device}")
@@ -104,10 +117,13 @@ def cc_slices(
     mask: torch.Tensor,
     depth: Optional[int] = None,
     rounds: Optional[torch.Tensor] = None,
+    force_global: bool = False,
 ) -> torch.Tensor:
     """Per-slice CC of an (N, H, W) mask: kernel 4 for CUDA tensors,
-    ``cc_slices_plain`` for CPU tensors.  ``rounds`` (int32 (N,) on the card)
-    receives each slice's fixpoint rounds."""
+    ``cc_slices_plain`` for CPU tensors.  The kernel's route is
+    ``cc_route(H, W)`` (``force_global`` takes the global route, the parent
+    design, for comparisons), counted in ``launches_by_route``.  ``rounds``
+    (int32 (N,) on the card) receives each slice's fixpoint rounds."""
     depth = _check_stack("cc_slices", mask, depth)
     if mask.device.type == "cpu":
         return cc_slices_plain(mask, depth)
@@ -115,18 +131,21 @@ def cc_slices(
     mk, out, rounds_ptr = _launch_args("cc_slices", mask, rounds, n)
     if out.numel() == 0:
         return out
+    route = "global" if force_global else cc_route(h, w)
     fn = _build.library("cc").ctt_cc_slices
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int,
+                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(mask.device):
         rc = fn(_build.ptr(mk), _build.ptr(out), n, depth, h, w, rounds_ptr,
-                _build.stream_handle(mask.device))
-    _build.check(rc, "ctt_cc_slices")
-    _build.count_launch(cc_slices)
+                int(route == "cluster"), _build.stream_handle(mask.device))
+    _build.check(rc, f"ctt_cc_slices ({route} route)")
+    _build.count_launch(cc_slices, route=route)
     return out
 
 
 cc_slices.launches = 0
+cc_slices.launches_by_route = {"cluster": 0, "global": 0}
 
 
 def cc_tiles(

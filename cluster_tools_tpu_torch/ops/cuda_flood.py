@@ -12,8 +12,10 @@ over device scratch (``csrc/flood.cuh``).  ``flood_tiles_warm`` replaces
 in-plane (th, tw) tile of each slice (``csrc/flood3d.cuh``), ragged edge
 tiles cut to the slice.  ``flood_volume`` is the 3d flood of a (B, Z, H, W)
 batch of blocks over 6 neighbours, the counterpart of the JAX package's XLA
-``_flood_scan_impl`` (no Pallas kernel there): global directional sweeps
+``_flood_scan_impl`` (no Pallas kernel there): one cooperative kernel that
+runs the rounds of directional sweeps on the card, each sweep a scan
 (``csrc/flood3d.cuh``), optionally from kernel 3's warm altitudes.
+``flood_volume_scan`` is that schedule in PyTorch, with its round counts.
 
 The ``*_plain`` functions compute the same functions with PyTorch ops, the
 JAX package's fixpoints written as Jacobi neighbour relaxation.  Every
@@ -36,6 +38,11 @@ from .cuda_cc import SMEM_MAX
 BIG = 3.0e38
 BIG_DIST = 2**31 - 2
 FLOOD_STAMPS = 4  # kernel 1's phase stamps per slice: start, set-up, phase 1, phase 2
+# what the 3d flood's stamps hold (csrc/flood3d.cuh, CTT_F3_STAMPS): ns per
+# phase, then the lines swept in all rounds per phase and axis
+FLOOD3D_PHASES = ("set-up", "phase 1 z", "phase 1 y", "phase 1 x", "edge bits",
+                  "phase 2 z", "phase 2 y", "phase 2 x")
+FLOOD3D_LINES = ("phase 1 z", "phase 1 y", "phase 1 x", "phase 2 z", "phase 2 y", "phase 2 x")
 CLUSTER = 8  # CTAs per slice on the cluster routes of kernels 1 and 2
 
 
@@ -375,13 +382,17 @@ def flood_volume(
     mask: torch.Tensor,
     warm: Optional[torch.Tensor] = None,
     stats: Optional[dict] = None,
+    stamps: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """3d seeded flood of a (B, Z, H, W) batch: the CUDA sweeps for CUDA
+    """3d seeded flood of a (B, Z, H, W) batch: the CUDA kernel for CUDA
     tensors, ``flood_volume_plain`` for CPU tensors.  ``warm`` (float32, the
-    batch's shape) lowers the initial altitudes (kernel 3's output).
-    ``stats`` receives the rounds of each phase on the card
+    batch's shape) lowers the initial altitudes on the mask (kernel 3's
+    output).  ``stats`` receives the rounds of each phase on the card
     (``flood_alt_iters``, ``flood_assign_iters``, the JAX package's names);
-    the wrapper's ``alt_rounds`` / ``assign_rounds`` sum them over calls."""
+    the wrapper's ``alt_rounds`` / ``assign_rounds`` sum them over calls.
+    ``stamps`` (an int64 (1, 14) CUDA tensor) receives the card's ns spent
+    on each of ``FLOOD3D_PHASES``, then the lines swept in each of
+    ``FLOOD3D_LINES``."""
     if hmap.dim() != 4:
         raise ValueError(f"flood_volume takes (B, Z, H, W) tensors, got {tuple(hmap.shape)}")
     _check_same("flood_volume", hmap, seeds, mask, warm)
@@ -390,6 +401,8 @@ def flood_volume(
     if hmap.device.type != "cuda":
         raise ValueError(f"flood_volume: unsupported device {hmap.device}")
     b, z, h, w = hmap.shape
+    if z * h * w >= 2**31:
+        raise ValueError(f"flood_volume: blocks of {(z, h, w)} exceed int32 indices")
     dev = hmap.device
     lab = torch.empty((b, z, h, w), dtype=torch.int32, device=dev)
     if lab.numel() == 0:
@@ -401,15 +414,20 @@ def flood_volume(
     hm = torch.empty_like(hm_in)
     alt = torch.empty_like(hm_in)
     dist = torch.empty_like(lab)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    edges = torch.empty(lab.shape, dtype=torch.uint8, device=dev)
+    flags = torch.empty(b * (z * h + z * w + h * w), dtype=torch.uint8, device=dev)
+    state = torch.empty(3, dtype=torch.int32, device=dev)
+    _build.check_stamps("flood_volume", stamps, 1, len(FLOOD3D_PHASES) + len(FLOOD3D_LINES), dev)
     rounds = (ctypes.c_int * 2)()
     fn = _build.library("flood3d").ctt_flood3d
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(_build.ptr(hm_in), _build.ptr(sd), _build.ptr(mk),
                 _build.ptr(wm) if wm is not None else None, _build.ptr(hm),
-                _build.ptr(alt), _build.ptr(dist), _build.ptr(lab), _build.ptr(flag),
+                _build.ptr(alt), _build.ptr(dist), _build.ptr(lab), _build.ptr(edges),
+                _build.ptr(flags), _build.ptr(state),
+                _build.ptr(stamps) if stamps is not None else None,
                 b, z, h, w, ctypes.cast(rounds, ctypes.c_void_p), _build.stream_handle(dev))
     _build.check(rc, "ctt_flood3d")
     _build.count_launch(flood_volume, alt_rounds=rounds[0], assign_rounds=rounds[1])
@@ -421,3 +439,116 @@ def flood_volume(
 flood_volume.launches = 0
 flood_volume.alt_rounds = 0
 flood_volume.assign_rounds = 0
+
+
+# -- the 3d flood's schedule (csrc/flood3d.cuh) in PyTorch ----------------
+RUN_3D = 17  # elements of a line one lane holds (CTT_F3_RUN)
+WARPS_3D = 16  # warps per block of the 3d flood: runs of a y line
+
+
+def kernel_cuts(axis: int, n: int, rev: bool = False) -> Sequence[int]:
+    """Where the 3d flood's kernel cuts a line of ``n`` voxels along
+    ``axis`` (0: z, 1: y, 2: x) into lanes' runs, in sweep positions of the
+    forward or backward (``rev``) sweep.  A y line is spread over the 16
+    warps of a block, a z or x line over the fewest lanes (a power of two,
+    at most 32) whose runs of at most ``RUN_3D`` cover it; a longer line
+    goes in tiles of that many runs."""
+    lanes = WARPS_3D
+    if axis != 1:
+        lanes = 1
+        while lanes < 32 and lanes * RUN_3D < n:
+            lanes *= 2
+    tile = lanes * RUN_3D
+    cuts = set()
+    for t0 in range(0, n, tile):
+        run = -(-min(tile, n - t0) // lanes)
+        cuts.update(range(t0, min(t0 + tile, n), run))
+    cuts.discard(0)
+    return sorted(n - c for c in cuts) if rev else sorted(cuts)
+
+
+def volume_edges(alt: torch.Tensor, hmap: torch.Tensor, mask: torch.Tensor,
+                 seeds: torch.Tensor) -> torch.Tensor:
+    """Phase 2's edge byte of a (B, Z, H, W) batch: bit d (sweep d of a
+    round: z forward, z backward, y forward, y backward, x forward, x
+    backward) where the edge from the previous voxel of that sweep exists:
+    in the mask, not a seed, and A(p) == max(A(prev), h(p)), A(prev) = BIG
+    before a line's first voxel and off the mask."""
+    alt_m = torch.where(mask, alt, torch.full_like(alt, BIG))
+    bits = torch.zeros(alt.shape, dtype=torch.uint8, device=alt.device)
+    for d, off in enumerate(((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))):
+        ok = mask & (seeds <= 0) & (alt == torch.maximum(shift(alt_m, off, BIG), hmap))
+        bits |= ok.to(torch.uint8) << d
+    return bits
+
+
+def _sweep_lines(t: torch.Tensor, axis: int, rev: bool) -> torch.Tensor:
+    t = t.movedim(axis + 1, -1)
+    return t.flip(-1) if rev else t
+
+
+def _unsweep_lines(t: torch.Tensor, axis: int, rev: bool) -> torch.Tensor:
+    return (t.flip(-1) if rev else t).movedim(-1, axis + 1)
+
+
+def flood_volume_scan(
+    hmap: torch.Tensor,
+    seeds: torch.Tensor,
+    mask: torch.Tensor,
+    warm: Optional[torch.Tensor] = None,
+    cuts=kernel_cuts,
+):
+    """The 3d flood of a (B, Z, H, W) batch on the kernel's schedule: rounds
+    of the six sweeps (z, y, x, each forward then backward) until a round
+    changes nothing, each sweep run as ``scan_sweep`` on lines cut where
+    ``cuts(axis, n, rev)`` says, phase 2 from ``volume_edges``.  Returns the
+    int32 labels (0 off the mask), the altitudes and the rounds of each
+    phase: the counts the kernel must report."""
+    hmap = hmap.to(torch.float32)
+    mask = mask.bool()
+    seeds = torch.where(mask, seeds.to(torch.int32), 0)
+    is_seed = seeds > 0
+    big = torch.full_like(hmap, BIG)
+    alt = torch.where(is_seed, hmap, big)
+    if warm is not None:
+        alt = torch.where(mask, torch.minimum(alt, warm.to(torch.float32)), alt)
+    hm = torch.where(mask, hmap, torch.full_like(hmap, float("inf")))
+    n_of = hmap.shape[1:]
+
+    def sweep(d, transfers, compose, apply, identity, init):
+        axis, rev = d // 2, d % 2 == 1
+        f = tuple(_sweep_lines(t, axis, rev) for t in transfers)
+        line = f[0][..., 0]
+        out = scan_sweep(compose, apply, tuple(torch.full_like(line, v) for v in identity),
+                         f, tuple(torch.full_like(line, v) for v in init) if isinstance(init, tuple)
+                         else torch.full_like(line, init), cuts(axis, n_of[axis], rev))
+        if isinstance(out, tuple):
+            return tuple(_unsweep_lines(o, axis, rev) for o in out)
+        return _unsweep_lines(out, axis, rev)
+
+    r1 = 0
+    while True:
+        r1 += 1
+        changed = False
+        for d in range(6):
+            new = sweep(d, (alt, hm), clamp_compose, clamp_apply, (float("inf"), float("-inf")), BIG)
+            changed |= not torch.equal(new, alt)
+            alt = new
+        if not changed:
+            break
+
+    edges = volume_edges(alt, hmap, mask, seeds)
+    dist = torch.where(is_seed, 0, BIG_DIST).to(torch.int64)
+    label = seeds.to(torch.int64)
+    r2 = 0
+    while True:
+        r2 += 1
+        changed = False
+        for d in range(6):
+            f = assign_transfers(dist, label, (edges >> d) & 1 == 1)
+            nd, nl = sweep(d, f, assign_compose, assign_apply, (BIG_DIST, 0, 0), (BIG_DIST, 0))
+            changed |= not (torch.equal(nd, dist) and torch.equal(nl, label))
+            dist, label = nd, nl
+        if not changed:
+            break
+    return torch.where(mask, label, 0).to(torch.int32), alt, (r1, r2)

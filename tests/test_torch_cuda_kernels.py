@@ -10,7 +10,10 @@ it also runs on a machine that has only PyTorch:
 Contract: labels, seed roots and the height map equal the plain version bit
 for bit (both round every float operation the same way); the CC kernels'
 labels, kernel 3's warm altitudes and the 3d flood's labels equal their
-plain versions exactly (each fixpoint is unique)."""
+plain versions exactly (each fixpoint is unique); the 3d flood's round
+counts equal those of its schedule in PyTorch (``flood_volume_scan``, held
+against the JAX package's sequential sweeps on the CPU), and the cluster
+routes of kernels 1, 2 and 4 give the global routes' labels."""
 
 import numpy as np
 import pytest
@@ -24,7 +27,13 @@ from cluster_tools_tpu_torch import (
     build,
 )
 from cluster_tools_tpu_torch.ops.cc import connected_components, serpentine_mask
-from cluster_tools_tpu_torch.ops.cuda_cc import cc_slices, cc_slices_plain, cc_tiles, cc_tiles_plain
+from cluster_tools_tpu_torch.ops.cuda_cc import (
+    cc_route,
+    cc_slices,
+    cc_slices_plain,
+    cc_tiles,
+    cc_tiles_plain,
+)
 from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_route, dtws_slices, dtws_slices_plain
 from cluster_tools_tpu_torch.ops.cuda_flood import (
     flood_route,
@@ -34,6 +43,7 @@ from cluster_tools_tpu_torch.ops.cuda_flood import (
     flood_tiles_warm_plain,
     flood_volume,
     flood_volume_plain,
+    flood_volume_scan,
 )
 from cluster_tools_tpu_torch.ops.watershed import dt_watershed, seeded_watershed
 from cluster_tools_tpu_torch.runtime import config as cfg
@@ -424,6 +434,134 @@ def test_flood_volume_kernel_equals_plain(case, warm, cuda_device):
     assert stats["flood_alt_iters"] >= 1 and stats["flood_assign_iters"] >= 1
     if case == "serpentine":
         assert bool((got[m] == 1).all())
+
+
+def _random_batch(shape, seed, mask_frac=0.9):
+    rng = np.random.default_rng(seed)
+    hmap = _volume(shape, seed, (0, 1.0, 2.0, 2.0))
+    seeds = np.zeros(shape, np.int32)
+    for b in range(shape[0]):
+        idx = rng.choice(int(np.prod(shape[1:])), 12, replace=False)
+        seeds[b].flat[idx] = np.arange(1, 13) + 100 * b
+    mask = rng.random(shape) < mask_frac
+    return hmap, seeds, mask
+
+
+def _corridor(mask):
+    """A corridor mask with a seed at the first voxel of each block."""
+    seeds = np.zeros(mask.shape, np.int32)
+    for b in range(mask.shape[0]):
+        seeds[(b,) + tuple(int(i[0]) for i in np.nonzero(mask[b]))] = b + 1
+    return np.full(mask.shape, 0.5, np.float32), seeds, mask
+
+
+def _flood3d_round_case(case):
+    """(B, Z, H, W) cases of the 3d flood's schedule: corridors along each
+    axis pair (in-plane ones crossing the y sweep's 32-column strips and
+    row segments and the x sweep's lane runs), batches, one slice, ragged
+    and uniform masks."""
+    if case == "serpentine zx":
+        mask = np.zeros((1, 24, 3, 40), bool)
+        mask[0, :, 1, :] = serpentine_mask((24, 40))
+    elif case == "serpentine zy":
+        mask = np.zeros((1, 24, 40, 3), bool)
+        mask[0, :, :, 1] = serpentine_mask((24, 40))
+    elif case == "serpentine rows":  # along x, bends along y
+        mask = serpentine_mask((1, 2, 40, 70))
+    elif case == "serpentine columns":  # along y, bends along x across strips
+        mask = np.ascontiguousarray(np.swapaxes(serpentine_mask((1, 2, 70, 40)), -1, -2))
+    elif case == "batch of 8":
+        return _random_batch((8, 4, 40, 45), 21)
+    elif case == "batch of 2":
+        return _random_batch((2, 9, 37, 70), 22)
+    elif case == "one slice":
+        return _random_batch((2, 1, 50, 70), 23)
+    elif case == "ragged":
+        return _random_batch((1, 7, 37, 53), 24)
+    elif case == "two-block kernel":  # 8.4 M voxels: the kernel for large batches
+        hmap, _, mask = _random_batch((2, 64, 256, 256), 27)
+        rng = np.random.default_rng(27)  # dense seeds: few rounds, quick plain versions
+        seeds = np.where(rng.random(hmap.shape) < 0.3, rng.integers(1, 1000, hmap.shape), 0)
+        return hmap, seeds.astype(np.int32), mask
+    elif case.startswith("long"):  # lines over a tile of runs: the carry passed on
+        return _random_batch({"long z": (1, 560, 2, 3), "long y": (1, 2, 300, 40),
+                              "long x": (1, 2, 3, 560)}[case], 26)
+    else:
+        hmap, seeds, mask = _random_batch((2, 4, 33, 65), 25)
+        return hmap, seeds, np.full(mask.shape, case == "full")
+    return _corridor(mask)
+
+
+FLOOD3D_ROUND_CASES = ["serpentine zx", "serpentine zy", "serpentine rows", "serpentine columns",
+                       "batch of 8", "batch of 2", "one slice", "ragged", "long z", "long y",
+                       "long x", "two-block kernel", "empty", "full"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLOOD3D_ROUND_CASES)
+@pytest.mark.parametrize("warm", [False, True])
+def test_flood_volume_rounds_equal_schedule(case, warm, cuda_device):
+    """The kernel's labels equal the plain version's and its rounds of both
+    phases those of the sequential-sweep round loop (``flood_volume_scan``,
+    the same counts as the JAX package's)."""
+    h, s, m = (torch.from_numpy(a).to(cuda_device) for a in _flood3d_round_case(case))
+    w = None
+    if warm:
+        hw = h.shape[-2:]
+        w = flood_tiles_warm(h.reshape((-1,) + hw), s.reshape((-1,) + hw),
+                             m.reshape((-1,) + hw), (8, 16)).view(h.shape)
+    stats = {}
+    got = flood_volume(h, s, m, warm=w, stats=stats)
+    torch.testing.assert_close(got, flood_volume_plain(h, s, m, warm=w), rtol=0, atol=0)
+    want_l, _, rounds = flood_volume_scan(h, s, m, warm=w)
+    torch.testing.assert_close(got, want_l, rtol=0, atol=0)
+    assert (stats["flood_alt_iters"], stats["flood_assign_iters"]) == rounds
+    if case.startswith("serpentine"):
+        assert bool((got[m] == torch.arange(1, m.shape[0] + 1, device=cuda_device)
+                     .view(-1, 1, 1, 1).expand_as(got)[m]).all())
+        assert min(rounds) > 2
+    if case == "empty":
+        assert not bool(got.any())
+
+
+CC_CLUSTER_CASES = ["serpentine rows", "serpentine columns", "ragged", "empty", "full",
+                    "above the size rule"]
+
+
+def _cc_cluster_case(case):
+    if case.startswith("serpentine"):
+        return _band_serpentine(case.endswith("columns"))[None], 1
+    shape = {"ragged": (29, 226, 226), "above the size rule": (2, 700, 700)}.get(case, (4, 256, 256))
+    if case in ("empty", "full"):
+        return np.full(shape, case == "full"), 2
+    return np.random.default_rng(8).random(shape) < 0.6, shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CC_CLUSTER_CASES)
+def test_cc_slices_routes(case, cuda_device):
+    """Kernel 4 equals its plain version on both routes; slices that fit
+    take the cluster route (40,576 B per CTA at 256 x 256, the rule of
+    ``ctt_cc_cluster_smem``), and ``force_global`` the parent design."""
+    from cluster_tools_tpu_torch.ops import _build
+
+    mask_np, depth = _cc_cluster_case(case)
+    mask = torch.from_numpy(mask_np).to(cuda_device)
+    route = "global" if case == "above the size rule" else "cluster"
+    assert cc_route(*mask.shape[1:]) == route
+    assert _build.cluster_smem("cc", 256, 256) == 40576
+    want = cc_slices_plain(mask, depth)
+    rounds = torch.zeros(mask.shape[0], dtype=torch.int32, device=cuda_device)
+    before = dict(cc_slices.launches_by_route)
+    got = cc_slices(mask, depth=depth, rounds=rounds)
+    assert cc_slices.launches_by_route[route] == before[route] + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(rounds.min()) >= 1
+    if case.startswith("serpentine"):
+        assert bool((got[mask] == 0).all())
+    parent = cc_slices(mask, depth=depth, force_global=True)
+    assert cc_slices.launches_by_route["global"] == before["global"] + 1 + (route == "global")
+    torch.testing.assert_close(parent, want, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

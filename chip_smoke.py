@@ -26,7 +26,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      cluster route its size gives and the global route, the parent
      design), and on (2, 700, 700) slices above its cluster route's size
      rule.  Kernel and plain times at the workflows' batch shapes, kernel
-     4's routes in turns (parent, new, new, parent) with their rounds;
+     4's routes in turns (parent, new, new, parent) with their rounds; with
+     ``--compare DIR`` kernel 5 in turns with that checkout's on the
+     (32, 640, 640) blocks, whose labels must be equal, the rounds per tile
+     of both printed;
   3. the watershed workflow: a seeded synthetic boundary volume at CREMI
      sample A's shape (125, 1250, 1250), made the way ``bench.make_volume``
      makes it, written to n5 with raw chunks; ``build([WatershedWorkflow(...)])``
@@ -46,17 +49,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      the merge) must equal scipy's labels of that block;
   5. kernel 3 (tile-local flood altitudes) against its plain version on a
      halo'd (36, 272, 272) block at the pinned tile (64, 128) (ragged
-     tiles), a divisible (32, 256, 256) stack and a serpentine, and the 3d
-     flood against its plain version on two halo'd blocks, warm and
-     cold, and on a corridor snaking through (z, x): exactly, with the
-     rounds of both phases equal to those of the flood's schedule in plain
-     PyTorch (``flood_volume_scan``).  Times, bounds and rounds at one
-     halo'd block (the seeded workflow's call), warm and cold, and at a
-     batch of 8 (the 3d watershed's call), with the time split by phase and
-     axis (the kernel's stamps); with ``--compare DIR`` (a checkout of the
-     parent commit, say) that checkout's times on the same inputs, from a
-     child process in it, in turns (parent, new, new, parent), whose rounds
-     must be equal;
+     tiles), a divisible (32, 256, 256) stack and a serpentine, with its
+     rounds per tile equal to those of its schedule in plain PyTorch
+     (``flood_tiles_warm_scan``), and the 3d flood against its plain
+     version on two halo'd blocks, warm and cold, and on a corridor
+     snaking through (z, x): exactly, with the rounds of both phases equal
+     to those of the flood's schedule in plain PyTorch
+     (``flood_volume_scan``).  Times, bounds and rounds of kernel 3 at one
+     halo'd block and of the 3d flood at one halo'd block (the seeded
+     workflow's call), warm and cold, and at a batch of 8 (the 3d
+     watershed's call), with the time split by phase and axis (the
+     kernel's stamps); with ``--compare DIR`` (a checkout of the parent
+     commit, say) that checkout's kernel 3 and 3d flood on the same
+     inputs, from a child process in it, in turns with this tree's, whose
+     outputs and rounds (per tile for kernel 3) must be equal.  The turns
+     (``in_turns``) are: each such checkout and this tree in child
+     processes, all timed alike, then this tree in this process twice
+     (the kernels line's ms), then the children again in reverse;
   6. ``ThresholdAndWatershedWorkflow`` on the same volume: seeds are the
      components of ``vol < 0.3`` (``"less"``), the watershed from seeds runs
      with its defaults (3d flood, sigma 2, halo [2, 8, 8]) on the ``cuda``
@@ -205,6 +214,18 @@ def phase_split(stamps: torch.Tensor, names) -> dict:
     out = {n: (round(d[:, i].mean().item(), 1), round(d[:, i].max().item(), 1))
            for i, n in enumerate(names)}
     out["slice total"] = (round(total.mean().item(), 1), round(total.max().item(), 1))
+    return out
+
+
+def tile_split(stamps: torch.Tensor) -> dict:
+    """Per-phase microseconds (mean and max over tiles) from the tile
+    kernels' (tiles, len(TILE_PHASES)) stamps of ns per phase."""
+    from cluster_tools_tpu_torch.ops.tile_scan import TILE_PHASES
+
+    us = stamps.double() / 1e3
+    out = {n: (round(us[:, i].mean().item(), 2), round(us[:, i].max().item(), 2))
+           for i, n in enumerate(TILE_PHASES)}
+    out["tile total"] = (round(us.sum(1).mean().item(), 2), round(us.sum(1).max().item(), 2))
     return out
 
 
@@ -445,14 +466,16 @@ def kernel_phase(vol, dev, batch: int):
     }
 
 
-def cc_kernel_phase(vol, dev, batch: int):
-    """Phase 2, kernels 4-5: each against its plain version on the card.
-    Returns the per-kernel records of the kernels line."""
+def cc_kernel_phase(vol, dev, batch: int, compare=()):
+    """Phase 2, kernels 4-5: each against its plain version on the card,
+    kernel 5 timed in turns with the checkouts in ``compare``.  Returns the
+    per-kernel records of the kernels line."""
     from cluster_tools_tpu_torch.ops.cc import serpentine_mask
     from cluster_tools_tpu_torch.ops.cuda_cc import (
         WHOLE_SLICE_MAX, cc_route, cc_slices, cc_slices_plain, cc_tiles, cc_tiles_plain,
         default_tile,
     )
+    from cluster_tools_tpu_torch.ops.tile_scan import TILE_PHASES
 
     def blocks_of(block, corners):
         zb, yb, xb = block
@@ -538,16 +561,35 @@ def cc_kernel_phase(vol, dev, batch: int):
         replaces="cluster_tools_tpu/ops/pallas_cc.py:89", max_abs_err=0, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None,
     )}
+    # kernel 5 at the second components run's batch, in turns with the
+    # checkouts in ``compare`` (``in_turns``): labels equal
     tile = default_tile(wy, wx)
     n_tiles = wide.shape[0] * -(-wy // tile[0]) * -(-wx // tile[1])
     t_rounds = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    ms = cuda_ms(lambda: cc_tiles(wide, tile, depth=wz, rounds=t_rounds), 3)
+    labels = cc_tiles(wide, tile, depth=wz, rounds=t_rounds)
+    name = f"cc_tiles {tuple(wide.shape)}"
+    times, results = in_turns(
+        compare, {name: ("cc_tiles", (wide, tile), {"depth": wz}, n_tiles, 3)},
+        lambda _: cuda_ms(lambda: cc_tiles(wide, tile, depth=wz), 3))
+    t = times[name]
+    ms = sum(t["new"]) / 2
     plain_ms = cuda_ms(lambda: cc_tiles_plain(wide, tile, wz), 1)
     bound = 5 * wide.numel() / HBM_BYTES_PER_S * 1e3
     r = t_rounds.float()
-    log(f"cc_tiles {tuple(wide.shape)} tile {tile}: {ms:.3f} ms/launch, plain {plain_ms:.1f} ms, "
-        f"bound {bound:.4f} ms (bytes); rounds per tile max {int(r.max())} "
-        f"mean {r.mean().item():.2f}")
+    log(f"{name} tile {tile}: {ms:.4f} ms/launch ({', '.join(f'{x:.4f}' for x in t['new'])})"
+        f"{turns_text(t)}, plain {plain_ms:.1f} ms, bound {bound:.4f} ms (bytes); rounds per "
+        f"tile mean {r.mean().item():.2f} max {int(r.max())}")
+    st = torch.zeros((n_tiles, len(TILE_PHASES)), dtype=torch.int64, device=dev)
+    cc_tiles(wide, tile, depth=wz, stamps=st)
+    log(f"{name}: us per tile per phase (mean, max): {tile_split(st)}")
+    for design, res in results.items():
+        other, other_rounds = res[name]
+        if not torch.equal(other, labels.cpu()):
+            raise AssertionError(f"{name}: labels differ from {design}'s "
+                                 f"({int((other != labels.cpu()).sum())} voxels)")
+        ro = other_rounds.float()
+        log(f"{name}: labels equal to {design}'s; its rounds per tile mean "
+            f"{ro.mean().item():.2f} max {int(ro.max())}")
     records["cc_tiles"] = dict(
         name="cc_tiles", route="cuda", source="cluster_tools_tpu_torch/csrc/cc.cuh",
         replaces="cluster_tools_tpu/ops/pallas_cc.py:143", max_abs_err=0, ms=ms,
@@ -775,42 +817,98 @@ def check_flood_rounds(name: str, args, stats: dict) -> tuple:
     return got
 
 
-# Run in a child process from the root of another checkout: times that
-# checkout's flood_volume on the inputs saved in argv[1] as ``cuda_ms`` does
-# (one warm-up call, then 3 between CUDA events) and prints, per input, the
-# ms per call and the rounds of both phases as one JSON line.
+# Run in a child process from the root of a checkout: calls that
+# checkout's kernel wrappers on the inputs saved in argv[1], as ``cuda_ms``
+# times them (one call that also fills the rounds, then ``reps`` calls
+# between CUDA events) after 0.25 s of untimed calls, each waited for, that
+# bring the card's clocks up from the child's idle start; saves each output
+# and its
+# rounds to argv[2] and prints the ms per call of each input as one JSON
+# line.
 OTHER_TIMER = r"""
-import json, sys, torch
-from cluster_tools_tpu_torch.ops.cuda_flood import flood_volume
-out = {}
-for name, args in torch.load(sys.argv[1]).items():
-    h, s, m, w = (None if t is None else t.cuda() for t in args)
-    stats = {}
-    flood_volume(h, s, m, warm=w, stats=stats)
+import json, sys, time, torch
+from cluster_tools_tpu_torch.ops import cuda_cc, cuda_flood
+dev = lambda t: t.cuda() if isinstance(t, torch.Tensor) else t
+ms, saved = {}, {}
+for name, (fn, args, kw, n_rounds, reps) in torch.load(sys.argv[1]).items():
+    f = getattr(cuda_cc if fn.startswith("cc_") else cuda_flood, fn)
+    args = tuple(dev(t) for t in args)
+    kw = {k: dev(v) for k, v in kw.items()}
+    if n_rounds is None:
+        stats = {}
+        y = f(*args, **kw, stats=stats)
+        rounds = (stats["flood_alt_iters"], stats["flood_assign_iters"])
+    else:
+        r = torch.zeros(n_rounds, dtype=torch.int32, device="cuda")
+        y = f(*args, **kw, rounds=r)
+        rounds = r
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.25:
+        f(*args, **kw)
+        torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(3):
-        flood_volume(h, s, m, warm=w)
+    for _ in range(reps):
+        f(*args, **kw)
     b.record()
     torch.cuda.synchronize()
-    out[name] = {"ms": a.elapsed_time(b) / 3,
-                 "rounds": [stats["flood_alt_iters"], stats["flood_assign_iters"]]}
-print(json.dumps(out))
+    ms[name] = a.elapsed_time(b) / reps
+    saved[name] = (y.cpu(), rounds.cpu() if isinstance(rounds, torch.Tensor) else rounds)
+torch.save(saved, sys.argv[2])
+print(json.dumps(ms))
 """
 
 
-def other_flood_volume(checkout: str, timed: dict) -> dict:
-    """``OTHER_TIMER`` on another checkout (the parent design, say)."""
+def other_kernels(checkout: str, calls: dict):
+    """``OTHER_TIMER`` on another checkout (the parent design, say):
+    ``calls`` maps a name to (wrapper name, args, kwargs, rounds entries or
+    None for the 3d flood's stats, reps).  Returns the ms per call and the
+    (output, rounds) of each name."""
+    cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "inputs.pt")
-        torch.save({k: tuple(None if t is None else t.cpu() for t in v) for k, v in timed.items()},
-                   path)
-        out = subprocess.run([sys.executable, "-c", OTHER_TIMER, path], cwd=checkout,
+        path, out_path = os.path.join(tmp, "inputs.pt"), os.path.join(tmp, "outputs.pt")
+        torch.save({k: (fn, tuple(cpu(t) for t in args), {n: cpu(v) for n, v in kw.items()},
+                        n_rounds, reps)
+                    for k, (fn, args, kw, n_rounds, reps) in calls.items()}, path)
+        out = subprocess.run([sys.executable, "-c", OTHER_TIMER, path, out_path], cwd=checkout,
                              capture_output=True, text=True, timeout=900)
-    if out.returncode != 0:
-        raise AssertionError(f"{checkout}: flood_volume failed:\n{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+        if out.returncode != 0:
+            raise AssertionError(f"{checkout}: kernels failed:\n{out.stderr[-4000:]}")
+        return json.loads(out.stdout.strip().splitlines()[-1]), torch.load(out_path)
+
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+THIS_TREE = "this tree in a child"
+
+
+def in_turns(compare, calls: dict, new_ms) -> dict:
+    """Time ``calls`` in turns: each checkout in ``compare`` and this tree
+    in child processes, this tree in this process twice, the children again
+    in reverse (parent, this tree's child, new, new, this tree's child,
+    parent).  ``new_ms(name)`` times this tree's call in this process (the
+    kernels line's ms); the children, timed alike, compare the designs.
+    Returns each name's times per design and the (output, rounds) of each
+    child's first run."""
+    children = [*compare, THIS_TREE] if compare else []
+    times = {name: {d: [] for d in ["new", *children]} for name in calls}
+    results = {}
+    for design in [*children, "new", "new", *children[::-1]]:
+        if design == "new":
+            for name in calls:
+                times[name]["new"].append(new_ms(name))
+            continue
+        ms, res = other_kernels(HERE if design == THIS_TREE else design, calls)
+        results.setdefault(design, res)
+        for name, t in ms.items():
+            times[name][design].append(t)
+    return times, results
+
+
+def turns_text(t: dict) -> str:
+    """Mean and single times of every design but the new one."""
+    return "".join(f"; {d}: {sum(v) / len(v):.4f} ms ({', '.join(f'{x:.4f}' for x in v)})"
+                   for d, v in t.items() if d != "new")
 
 
 def flood3d_kernel_phase(vol, dev, compare=()):
@@ -821,9 +919,15 @@ def flood3d_kernel_phase(vol, dev, compare=()):
     launch counts)."""
     from cluster_tools_tpu_torch.ops.cc import serpentine_mask
     from cluster_tools_tpu_torch.ops.cuda_flood import (
-        FLOOD3D_LINES, FLOOD3D_PHASES, flood_tiles_warm, flood_tiles_warm_plain, flood_volume,
-        flood_volume_plain,
+        FLOOD3D_LINES, FLOOD3D_PHASES, flood_tiles_warm, flood_tiles_warm_plain,
+        flood_tiles_warm_scan, flood_volume, flood_volume_plain,
     )
+    from cluster_tools_tpu_torch.ops.tile_scan import TILE_PHASES
+
+    def flood_tiles_warm_rounds(h, s, m, tile):
+        n_tiles = h.shape[0] * -(-h.shape[1] // tile[0]) * -(-h.shape[2] // tile[1])
+        rounds = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+        return flood_tiles_warm(h, s, m, tile, rounds=rounds), rounds
     from cluster_tools_tpu_torch.ops.watershed import resolve_flood_tile
 
     os.environ["CTT_FLOOD_TILE"] = FLOOD_TILE
@@ -849,14 +953,19 @@ def flood3d_kernel_phase(vol, dev, compare=()):
         f"serpentine {tuple(serp.shape)}": (torch.full(serp.shape, 0.5, device=dev), serp_seeds, serp),
     }
     for name, (h, s, m) in cases.items():
-        got = flood_tiles_warm(h, s, m, tile)
+        got, got_rounds = flood_tiles_warm_rounds(h, s, m, tile)
         want = flood_tiles_warm_plain(h, s, m, tile)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"flood_tiles_warm {name}: differs from the plain version "
                                  f"({int((got != want).sum())} voxels)")
+        want_rounds = flood_tiles_warm_scan(h, s, m, tile)[1]
+        if not torch.equal(got_rounds, want_rounds):
+            raise AssertionError(f"flood_tiles_warm {name}: rounds per tile differ from the "
+                                 f"schedule's ({int((got_rounds != want_rounds).sum())} tiles)")
         log(f"flood_tiles_warm {name} tile {tile}: equal to plain "
-            f"({int((got < 1e38).sum())} voxels reached in their tiles)")
+            f"({int((got < 1e38).sum())} voxels reached in their tiles), rounds per tile equal "
+            f"to the schedule's (max {int(got_rounds.max())})")
 
     hw = shape[1:]
     warm2 = flood_tiles_warm(h2.view((-1,) + hw), s2.view((-1,) + hw), m2.view((-1,) + hw),
@@ -887,10 +996,8 @@ def flood3d_kernel_phase(vol, dev, compare=()):
     # design's in turns where a checkout of it is given
     h1, s1, m1 = (t[None] for t in blocks[0])
     hs, ss, ms = (t.view((-1,) + hw) for t in (h1, s1, m1))
-    n_tiles = hs.shape[0] * -(-hw[0] // tile[0]) * -(-hw[1] // tile[1])
-    t_rounds = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    warm1 = flood_tiles_warm(hs, ss, ms, tile, rounds=t_rounds).view(h1.shape)
-    k3_ms = cuda_ms(lambda: flood_tiles_warm(hs, ss, ms, tile), 5)
+    warm1, t_rounds = flood_tiles_warm_rounds(hs, ss, ms, tile)
+    warm1 = warm1.view(h1.shape)
     k3_plain_ms = cuda_ms(lambda: flood_tiles_warm_plain(hs, ss, ms, tile), 1)
     z_last, y_last, x_last = (v - b for v, b in zip(vol.shape, shape))
     corners8 = [(z, y, x) for z in (0, z_last) for y in (0, y_last) for x in (0, x_last)]
@@ -907,35 +1014,56 @@ def flood3d_kernel_phase(vol, dev, compare=()):
         if not torch.equal(got, flood_volume_plain(*args[:3], warm=args[3])):
             raise AssertionError(f"flood_volume {name}: differs from the plain version")
         rounds[name] = check_flood_rounds(name, args, stats)
-    times = {name: {d: [] for d in ["new", *compare]} for name in timed}
-    for design in [*compare, "new", "new", *compare[::-1]]:
-        if design == "new":
-            for name, (h, s, m, w) in timed.items():
-                times[name]["new"].append(cuda_ms(lambda: flood_volume(h, s, m, warm=w), 3))
-            continue
-        for name, res in other_flood_volume(design, timed).items():
-            times[name][design].append(res["ms"])
-            if tuple(res["rounds"]) != rounds[name]:
+    # kernel 3 and the 3d flood in turns with the checkouts in ``compare``
+    k3 = f"flood_tiles_warm {tuple(hs.shape)}"
+    calls = {name: ("flood_volume", args[:3], {"warm": args[3]}, None, 3)
+             for name, args in timed.items()}
+    calls[k3] = ("flood_tiles_warm", (hs, ss, ms, tile), {}, t_rounds.numel(), 5)
+
+    def new_ms(name):
+        if name == k3:
+            return cuda_ms(lambda: flood_tiles_warm(hs, ss, ms, tile), 5)
+        h, s, m, w = timed[name]
+        return cuda_ms(lambda: flood_volume(h, s, m, warm=w), 3)
+
+    times, results = in_turns(compare, calls, new_ms)
+    for design, res in results.items():
+        for name in timed:
+            if tuple(res[name][1]) != rounds[name]:
                 raise AssertionError(f"flood_volume {name}: rounds {rounds[name]} differ from "
-                                     f"{design}'s {tuple(res['rounds'])}")
+                                     f"{design}'s {tuple(res[name][1])}")
+        log(f"flood_volume: rounds equal to {design}'s on every timed input")
+        other, other_rounds = res[k3]
+        if not torch.equal(other, warm1.view(hs.shape).cpu()):
+            raise AssertionError(f"flood_tiles_warm: altitudes differ from {design}'s")
+        if not torch.equal(other_rounds, t_rounds.cpu()):
+            raise AssertionError(f"flood_tiles_warm: rounds per tile differ from {design}'s "
+                                 f"({int((other_rounds != t_rounds.cpu()).sum())} tiles)")
+        log(f"flood_tiles_warm {tuple(hs.shape)}: altitudes and rounds per tile equal to "
+            f"{design}'s")
+    times_k3 = times.pop(k3)
+    k3_ms = sum(times_k3["new"]) / 2
     fv_plain_ms = cuda_ms(lambda: flood_volume_plain(h1, s1, m1, warm=warm1), 1)
     vox = h1.numel()
     k3_bound = 13 * vox / HBM_BYTES_PER_S * 1e3  # f32 h, i32 seeds, byte mask in; f32 out
     tr = t_rounds.float()
-    log(f"flood_tiles_warm {tuple(hs.shape)} tile {tile}: {k3_ms:.3f} ms/launch, plain "
+    log(f"flood_tiles_warm {tuple(hs.shape)} tile {tile}: {k3_ms:.4f} ms/launch "
+        f"({', '.join(f'{x:.4f}' for x in times_k3['new'])}){turns_text(times_k3)}, plain "
         f"{k3_plain_ms:.1f} ms, bound {k3_bound:.4f} ms (bytes); rounds per tile max "
         f"{int(tr.max())} mean {tr.mean().item():.2f}")
+    st = torch.zeros((t_rounds.numel(), len(TILE_PHASES)), dtype=torch.int64, device=dev)
+    flood_tiles_warm(hs, ss, ms, tile, stamps=st)
+    log(f"flood_tiles_warm {tuple(hs.shape)}: us per tile per phase (mean, max): "
+        f"{tile_split(st)}")
     stamps = torch.zeros((1, len(FLOOD3D_PHASES) + len(FLOOD3D_LINES)), dtype=torch.int64,
                          device=dev)
     for name, t in times.items():
         h, s, m, w = timed[name]
         # f32 h, i32 seeds, byte mask (and f32 warm) in; i32 labels out
         bound = (17 if w is not None else 13) * h.numel() / HBM_BYTES_PER_S * 1e3
-        others = "".join(
-            f"; {d}: {sum(v) / len(v):.3f} ms ({', '.join(f'{x:.3f}' for x in v)}), rounds equal"
-            for d, v in t.items() if d != "new")
         log(f"flood_volume {name}: {sum(t['new']) / 2:.3f} ms/launch "
-            f"({', '.join(f'{x:.3f}' for x in t['new'])}){others}; bound {bound:.4f} ms (bytes)")
+            f"({', '.join(f'{x:.3f}' for x in t['new'])}){turns_text(t)}; bound {bound:.4f} ms "
+            f"(bytes)")
         flood_volume(h, s, m, warm=w, stamps=stamps)
         st = stamps[0].tolist()
         split = {p: round(v / 1e3, 1) for p, v in zip(FLOOD3D_PHASES, st)}
@@ -1171,8 +1299,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare", action="append", default=[], metavar="DIR",
                     help="another checkout, e.g. of the parent commit unpacked with git "
-                         "archive (repeatable): phase 5 times its 3d flood in turns with "
-                         "this tree's")
+                         "archive (repeatable): phase 2 times its kernel 5 and phase 5 its "
+                         "kernel 3 and 3d flood in turns with this tree's, each in a child "
+                         "process, this tree in one too")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 5 (no workflow runs, no result line)")
     args = ap.parse_args()
@@ -1200,7 +1329,7 @@ def main() -> int:
     log(f"setup: synthetic volume {shape} in {time.perf_counter() - t0:.1f} s, "
         f"boundary fraction {float((vol >= THRESHOLD).float().mean()):.4f}")
     records = kernel_phase(vol, dev, args.batch)
-    records.update(cc_kernel_phase(vol, dev, args.batch))
+    records.update(cc_kernel_phase(vol, dev, args.batch, args.compare))
     records.update(flood3d_kernel_phase(vol, dev, args.compare))
     if args.kernels_only:
         log("kernels only: no workflow run")

@@ -3,12 +3,13 @@
 // design.  Kernel 4 has two routes, chosen by the slice's size before
 // launch: the cluster kernel (cc_cluster.cuh; the slice in shared memory)
 // where ctt_cc_cluster_smem(h, w) is nonzero, else one thread block per
-// slice over the output buffer (cc.cuh).  The size rule lives here alone.
+// slice over the output buffer (cc.cuh).  The size rules of kernel 4's
+// routes and of kernel 5's tiles live here alone.
 #include "cc.cuh"
 #include "cc_cluster.cuh"
 
 static std::atomic<unsigned long long> ctt_cc_cluster_smem_set{0};
-static std::atomic<unsigned long long> ctt_cc_tiles_smem_set{0};
+static std::atomic<unsigned long long> ctt_cc_tiles_smem_set[2] = {{0}, {0}};
 
 // Bytes of shared memory per CTA of kernel 4's cluster route for (h, w)
 // slices, or 0 when the slice does not fit (or has 2^24 voxels or more:
@@ -56,18 +57,36 @@ extern "C" int ctt_cc_slices(const unsigned char* mask, int* out, int n,
   return (int)cudaGetLastError();
 }
 
+// Bytes of dynamic shared memory per CTA of kernel 5 for (th, tw) tiles, or
+// 0 when the tile does not fit.
+extern "C" long long ctt_cc_tiles_smem(int th, int tw) {
+  if (th <= 0 || tw <= 0) return 0;
+  const size_t smem = ctt_cc_tiles_bytes(th, tw);
+  return smem <= CTT_SMEM_MAX ? (long long)smem : 0;
+}
+
+// Kernel 5 over an (n, h, w) stack in (th, tw) tiles.  rounds (one int per
+// tile) and stamps (CTT_TILE_STAMPS int64 per tile: ns of the load, the row
+// and column phases and pointer jumps of all rounds, and the store) are
+// device buffers or null.  Returns a CUDA error code.
 extern "C" int ctt_cc_tiles(const unsigned char* mask, int* out, int n,
                             int depth, int h, int w, int th, int tw,
-                            int* rounds, void* stream) {
+                            int* rounds, long long* stamps, void* stream) {
   if (n <= 0) return 0;
   const int gh = (h + th - 1) / th, gw = (w + tw - 1) / tw;
-  const size_t smem = (size_t)th * (tw + 1) * sizeof(int);
-  if (smem > CTT_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = ctt_allow_smem_max((const void*)ctt_cc_tiles_kernel,
-                                       &ctt_cc_tiles_smem_set);
+  const size_t smem = (size_t)ctt_cc_tiles_smem(th, tw);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const bool timed = stamps != nullptr;
+  cudaError_t err = ctt_allow_smem_max(timed ? (const void*)ctt_cc_tiles_kernel<true>
+                                             : (const void*)ctt_cc_tiles_kernel<false>,
+                                       &ctt_cc_tiles_smem_set[timed]);
   if (err != cudaSuccess) return (int)err;
-  ctt_cc_tiles_kernel<<<(unsigned)((size_t)n * gh * gw), 128, smem,
-                        (cudaStream_t)stream>>>(mask, out, depth, h, w, th, tw,
-                                                gh, gw, rounds);
+  const dim3 grid((unsigned)((size_t)n * gh * gw));
+  if (timed)
+    ctt_cc_tiles_kernel<true><<<grid, CTT_K5_THREADS, smem, (cudaStream_t)stream>>>(
+        mask, out, depth, h, w, th, tw, gh, gw, rounds, stamps);
+  else
+    ctt_cc_tiles_kernel<false><<<grid, CTT_K5_THREADS, smem, (cudaStream_t)stream>>>(
+        mask, out, depth, h, w, th, tw, gh, gw, rounds, nullptr);
   return (int)cudaGetLastError();
 }

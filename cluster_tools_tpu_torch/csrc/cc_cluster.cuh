@@ -41,8 +41,6 @@ __device__ __forceinline__ int ctt_div(int a, int d, float inv) {
   return q;
 }
 
-#define CTT_CC_JUMPS 4  // pointer-jump targets a lane reads at once
-
 // grid = N * CTT_CLUSTER CTAs in clusters of CTT_CLUSTER, one cluster per
 // slice.  mask (N, H, W) bytes, out (N, H, W) int32, rounds (N,) or null.
 // Loops over the band run rows by warp and columns by lane.

@@ -1,25 +1,44 @@
 // C entry points of kernel 3 (tile-local altitude warm start) and the 3d
 // flood, loaded with ctypes by cluster_tools_tpu_torch/ops/cuda_flood.py.
-// See flood3d.cuh for the design.
+// See flood3d.cuh and tile_scan.cuh for the design.
 #include "flood3d.cuh"
 
-static std::atomic<unsigned long long> ctt_flood_tiles_smem_set{0};
+static std::atomic<unsigned long long> ctt_flood_tiles_smem_set[2] = {{0}, {0}};
 static std::atomic<unsigned long long> ctt_flood3d_smem_set[2] = {{0}, {0}};
 
+// Bytes of dynamic shared memory per CTA of kernel 3 for (th, tw) tiles, or
+// 0 when the tile does not fit: the size rule, here alone.
+extern "C" long long ctt_flood_tiles_smem(int th, int tw) {
+  if (th <= 0 || tw <= 0) return 0;
+  const size_t smem = ctt_flood_tiles_bytes(th, tw);
+  return smem <= CTT_SMEM_MAX ? (long long)smem : 0;
+}
+
+// Kernel 3 over an (n, h, w) stack in (th, tw) tiles.  rounds (one int per
+// tile) and stamps (CTT_TILE_STAMPS int64 per tile: ns of the load, the row
+// and column phases of all rounds and the store) are device buffers or
+// null.  Returns a CUDA error code.
 extern "C" int ctt_flood_tiles_warm(const float* hmap, const int* seeds,
                                     const unsigned char* mask, float* out,
                                     int n, int h, int w, int th, int tw,
-                                    int* rounds, void* stream) {
+                                    int* rounds, long long* stamps, void* stream) {
   if (n <= 0) return 0;
   const int gh = (h + th - 1) / th, gw = (w + tw - 1) / tw;
-  const size_t smem = 2 * (size_t)th * (tw + 1) * sizeof(float);
-  if (smem > CTT_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = ctt_allow_smem_max((const void*)ctt_flood_tiles_warm_kernel,
-                                       &ctt_flood_tiles_smem_set);
+  const size_t smem = (size_t)ctt_flood_tiles_smem(th, tw);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const bool timed = stamps != nullptr;
+  cudaError_t err = ctt_allow_smem_max(
+      timed ? (const void*)ctt_flood_tiles_warm_kernel<true>
+            : (const void*)ctt_flood_tiles_warm_kernel<false>,
+      &ctt_flood_tiles_smem_set[timed]);
   if (err != cudaSuccess) return (int)err;
-  ctt_flood_tiles_warm_kernel<<<(unsigned)((size_t)n * gh * gw), 128, smem,
-                                (cudaStream_t)stream>>>(
-      hmap, seeds, mask, out, h, w, th, tw, gh, gw, rounds);
+  const dim3 grid((unsigned)((size_t)n * gh * gw));
+  if (timed)
+    ctt_flood_tiles_warm_kernel<true><<<grid, CTT_K3_THREADS, smem, (cudaStream_t)stream>>>(
+        hmap, seeds, mask, out, h, w, th, tw, gh, gw, rounds, stamps);
+  else
+    ctt_flood_tiles_warm_kernel<false><<<grid, CTT_K3_THREADS, smem, (cudaStream_t)stream>>>(
+        hmap, seeds, mask, out, h, w, th, tw, gh, gw, rounds, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -24,14 +24,21 @@
 // are copies of height values or CTT_BIG, with no arithmetic: the kernels and
 // the plain versions agree exactly.
 //
-// Kernel 3: one thread block per (slice, th x tw tile).  The tile's h' and
-// A live in shared memory, row stride tw + 1 so that the row sweeps' threads
-// fall on distinct banks (8 B per voxel: 66 KB at 64 x 128); ragged edge
-// tiles are cut to the slice.  Four line sweeps (rows forward and backward,
-// columns down and up), one thread carrying the state along each line,
-// until a block-wide __syncthreads_or vote sees no change: no round cap.
-// Device traffic is 13 B per voxel (f32 h, i32 seeds, byte mask in; f32 A
-// out); the rounds run in shared memory.
+// Kernel 3: one CTA of CTT_K3_THREADS threads per (slice, th x tw tile),
+// the tile's h' and A in shared memory (tile_scan.cuh's layout, 8 B per
+// element: 69 KB at 64 x 128 with the lines' bookkeeping); ragged edge
+// tiles keep the full tile's cuts with identity transfers past the line's
+// end.  A round is the four Gauss-Seidel sweeps (rows forward and
+// backward, columns down and up) of the lines that can change, each a
+// scan of CttAltOp transfers (tile_scan.cuh: rows 8 lanes each, columns 4
+// at 64 x 128), then a __syncthreads_or vote: no round cap.  The scan is
+// exact and a skipped line would not change, so every round leaves what
+// the sequential sweeps leave and the rounds per tile are the sequential
+// schedule's.  Device traffic is 13 B per voxel (f32 h, i32 seeds, byte
+// mask in; f32 A out); the rounds run in shared memory, and what bounds a
+// tile is the warps' chains of dependent shuffles and shared-memory steps
+// per line, times the rounds (up to 10 at the seeded workflow's blocks),
+// for 540 tiles that fill the card about twice.
 //
 // The 3d flood: one cooperative kernel per call runs both phases to their
 // fixpoints (ctt_flood3d_kernel); the host syncs once, to read the round
@@ -77,6 +84,7 @@
 #include <cuda_runtime.h>
 
 #include "scan.cuh"
+#include "tile_scan.cuh"
 
 #define CTT_F3_THREADS 512                  // threads per block of the 3d flood
 #define CTT_F3_WARPS (CTT_F3_THREADS / 32)  // runs of a y strip's column
@@ -94,73 +102,64 @@ static_assert(32 % CTT_F3_WARPS == 0, "a y strip's column scan is a group of lan
 
 // -- kernel 3 -----------------------------------------------------------------
 
-// One phase-1 sweep of a shared-memory line; returns 1 when an altitude fell.
-__device__ inline int ctt_tile_alt_sweep(const float* hs, float* as, int start,
-                                         int step, int len) {
-  float carry = CTT_BIG;
-  int changed = 0;
-  for (int k = 0, p = start; k < len; ++k, p += step) {
-    float a = as[p];
-    const float cand = fmaxf(carry, hs[p]);
-    if (cand < a) {
-      a = cand;
-      as[p] = a;
-      changed = 1;
-    }
-    carry = a;
-  }
-  return changed;
+// Threads per CTA of kernel 3: at 116 registers a thread two CTAs run on an
+// SM (three would fit its shared memory at 64 x 128).
+#define CTT_K3_THREADS 256
+
+// Bytes of dynamic shared memory per CTA for (th, tw) tiles: h', A and the
+// lines' bookkeeping.
+__host__ __device__ inline size_t ctt_flood_tiles_bytes(int th, int tw) {
+  return (2 * ctt_tile_elems(th, tw) + ctt_tile_book_ints(th, tw)) * 4;
 }
 
 // grid = N * gh * gw (slice-major, then tile row, tile column); dynamic
-// shared memory 2 * th * (tw + 1) floats.  rounds (N * gh * gw,) or null.
-__global__ void ctt_flood_tiles_warm_kernel(
-    const float* __restrict__ hmap, const int* __restrict__ seeds,
-    const unsigned char* __restrict__ mask, float* __restrict__ out, int H,
-    int W, int th, int tw, int gh, int gw, int* rounds) {
-  extern __shared__ float smem[];
-  const int stride = tw + 1;
-  float* hs = smem;
-  float* as = smem + th * stride;
-  int t = blockIdx.x;
-  const int tx = t % gw;
-  t /= gw;
-  const int ty = t % gh;
-  const int s = t / gh;
-  const int r0 = ty * th, c0 = tx * tw;
-  const int hh = min(th, H - r0), ww = min(tw, W - c0);
-  const size_t off = (size_t)s * H * W;
-  const int n = hh * ww;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = i / ww, c = i - r * ww;
-    const size_t g = off + (size_t)(r0 + r) * W + c0 + c;
-    const bool m = mask[g] != 0;
-    const float h = hmap[g];
-    hs[r * stride + c] = m ? h : __int_as_float(0x7f800000);  // +inf off mask
-    as[r * stride + c] = (m && seeds[g] > 0) ? h : CTT_BIG;
-  }
+// shared memory ctt_flood_tiles_bytes(th, tw).  rounds (N * gh * gw,) or
+// null; stamps (N * gh * gw, CTT_TILE_STAMPS) where STAMPS.  Loops over the
+// tile run rows by warp and columns by lane.
+template <bool STAMPS>
+__global__ void __launch_bounds__(CTT_K3_THREADS)
+    ctt_flood_tiles_warm_kernel(const float* __restrict__ hmap, const int* __restrict__ seeds,
+                                const unsigned char* __restrict__ mask, float* __restrict__ out,
+                                int H, int W, int th, int tw, int gh, int gw, int* rounds,
+                                long long* stamps) {
+  extern __shared__ __align__(16) float ctt_k3_smem[];
+  CttTileTimer<STAMPS> timer(STAMPS ? stamps + (size_t)blockIdx.x * CTT_TILE_STAMPS : nullptr);
+  const int S = ctt_band_stride(tw);
+  float* alt = ctt_k3_smem;
+  float* hm = ctt_k3_smem + ctt_tile_elems(th, tw);
+  int* book = reinterpret_cast<int*>(hm + ctt_tile_elems(th, tw));
+  const CttTile g = ctt_tile_of(H, W, th, tw, gh, gw);
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const size_t off = (size_t)g.s * H * W + (size_t)g.r0 * W + g.c0;
+  for (int r = threadIdx.x >> 5; r < g.hh; r += nw)
+#pragma unroll 4
+    for (int c = lane; c < g.ww; c += 32) {
+      const size_t i = off + (size_t)r * W + c;
+      const bool m = mask[i] != 0;
+      const float h = hmap[i];
+      hm[r * S + ctt_swz(c)] = m ? h : INFINITY;  // off the mask: the constant BIG
+      alt[r * S + ctt_swz(c)] = m && seeds[i] > 0 ? h : CTT_BIG;
+    }
+  for (int i = threadIdx.x; i < (int)ctt_tile_book_ints(th, tw); i += blockDim.x) book[i] = 0;
   __syncthreads();
+  timer.lap(0);
+  const CttAltOp op{alt, hm};
   int rr = 0;
   for (;;) {
     int changed = 0;
-    for (int line = threadIdx.x; line < hh; line += blockDim.x)
-      changed |= ctt_tile_alt_sweep(hs, as, line * stride, 1, ww);
+    ctt_tile_axis<CttAltOp, true>(op, book, S, th, tw, g.hh, g.ww, rr, changed);
     __syncthreads();
-    for (int line = threadIdx.x; line < hh; line += blockDim.x)
-      changed |= ctt_tile_alt_sweep(hs, as, line * stride + ww - 1, -1, ww);
-    __syncthreads();
-    for (int line = threadIdx.x; line < ww; line += blockDim.x)
-      changed |= ctt_tile_alt_sweep(hs, as, line, stride, hh);
-    __syncthreads();
-    for (int line = threadIdx.x; line < ww; line += blockDim.x)
-      changed |= ctt_tile_alt_sweep(hs, as, (hh - 1) * stride + line, -stride, hh);
+    timer.lap(1);
+    ctt_tile_axis<CttAltOp, false>(op, book, S, th, tw, g.hh, g.ww, rr, changed);
     ++rr;
-    if (!__syncthreads_or(changed)) break;
+    const int more = __syncthreads_or(changed);
+    timer.lap(2);
+    if (!more) break;
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = i / ww, c = i - r * ww;
-    out[off + (size_t)(r0 + r) * W + c0 + c] = as[r * stride + c];
-  }
+  for (int r = threadIdx.x >> 5; r < g.hh; r += nw)
+#pragma unroll 4
+    for (int c = lane; c < g.ww; c += 32) out[off + (size_t)r * W + c] = alt[r * S + ctt_swz(c)];
+  timer.lap(4);
   if (rounds != nullptr && threadIdx.x == 0) rounds[blockIdx.x] = rr;
 }
 
@@ -312,27 +311,6 @@ struct Ctt3dRun {
   }
 };
 
-// Exclusive scan of the runs' transfers over groups of `width` lanes in
-// sweep order: lane order forward (rev 0), reversed lane order backward.
-template <class Op>
-__device__ __forceinline__ typename Op::F ctt_f3_scan(typename Op::F x, int q, int width,
-                                                      int rev) {
-  for (int d = 1; d < width; d <<= 1) {
-    const typename Op::F o = rev ? Op::shfl_down(x, d, width) : Op::shfl_up(x, d, width);
-    if (rev ? q + d < width : q >= d) x = Op::compose(o, x);
-  }
-  const typename Op::F e = rev ? Op::shfl_down(x, 1, width) : Op::shfl_up(x, 1, width);
-  return (rev ? q == width - 1 : q == 0) ? Op::identity() : e;
-}
-
-// Lanes per line of an axis of `len` elements: a power of two with
-// lanes * CTT_F3_RUN >= len where 32 lanes suffice.
-__device__ __forceinline__ int ctt_f3_lanes(int len) {
-  int g = 1;
-  while (g < 32 && g * CTT_F3_RUN < len) g <<= 1;
-  return g;
-}
-
 // The x sweep's staged transfers between a tile of a contiguous line
 // (elements [0, tl) from `base`) and the slots of its G lanes, the group's
 // first slot `g0`, runs of E: lane q moves elements q, q + G, ... so that
@@ -376,7 +354,7 @@ __device__ __forceinline__ void ctt_f3_lane_axis(const X& x, const Ctt3dSmem& sm
                                                  unsigned char* flag, Base base, Marks marks,
                                                  int* count, int& changed) {
   typedef typename X::Op Op;
-  const int G = ctt_f3_lanes(len), lane = threadIdx.x & 31, q = lane & (G - 1);
+  const int G = ctt_group_lanes(len, CTT_F3_RUN), lane = threadIdx.x & 31, q = lane & (G - 1);
   const int g0 = (threadIdx.x & ~31) + (lane & ~(G - 1));  // the group's first slot
   const int per = 32 / G, T = G * CTT_F3_RUN, nt = (len + T - 1) / T;
   const bool staged = stride == 1;
@@ -411,7 +389,7 @@ __device__ __forceinline__ void ctt_f3_lane_axis(const X& x, const Ctt3dSmem& sm
             run.load(x, rb, stride);
           }
         }
-        c = run.walk(rev, Op::apply(ctt_f3_scan<Op>(run.fold(rev), q, G, rev), c));
+        c = run.walk(rev, Op::apply(ctt_group_exclusive<Op>(run.fold(rev), q, G, rev), c));
         c = Op::shfl_v(c, rev ? 0 : G - 1, G);  // the carry out of the tile
         if (nt > 1 || rev == 1) {
           changed |= run.dirty != 0;
@@ -471,7 +449,7 @@ __device__ __forceinline__ void ctt_f3_y_axis(const X& x, const Ctt3dGeom& g,
         // is in, holding the run that is (t % WARPS)-th in sweep order
         const int q = threadIdx.x % CTT_F3_WARPS, col = threadIdx.x / CTT_F3_WARPS;
         const int r = rev ? CTT_F3_WARPS - 1 - q : q;
-        const F exc = ctt_f3_scan<Op>(sm[r * 33 + col], q, CTT_F3_WARPS, 0);
+        const F exc = ctt_group_exclusive<Op>(sm[r * 33 + col], q, CTT_F3_WARPS, 0);
         __syncthreads();
         sm[r * 33 + col] = exc;
         __syncthreads();

@@ -2,7 +2,8 @@
 // memory: the layout, the transfer families and the sweeps shared by the
 // cluster routes of kernel 1 (flood_cluster.cuh), kernel 2
 // (dtws_cluster.cuh) and kernel 4 (cc_cluster.cuh); the 3d flood
-// (flood3d.cuh) scans its lines with the same transfer families.
+// (flood3d.cuh) and the tile kernels 3 and 5 (tile_scan.cuh) scan their
+// lines with the same transfer families.
 //
 // Layout.  One cluster of CTT_CLUSTER CTAs holds one H x W slice; CTA `rank`
 // owns the band of rows [rank*R, min(H, rank*R + R)), R = ceil(H / 8), each
@@ -127,6 +128,7 @@ struct CttAltOp {
   }
   __device__ static V shfl_v(V v, int src, int w) { return ctt_shfl(v, src, w); }
   __device__ F load(int i) const { return {alt[i], hm[i]}; }
+  __device__ void store(int i, V v) const { alt[i] = v; }
   __device__ V step(int i, F f, V c, int& changed) const {
     const float v = apply(f, c);
     if (v < f.u) {
@@ -151,11 +153,15 @@ struct CttCcOp {
   __device__ static F shfl_up(F f, int d, int w) {
     return {ctt_shfl_up(f.u, d, w), ctt_shfl_up(f.l, d, w)};
   }
+  __device__ static F shfl_down(F f, int d, int w) {
+    return {ctt_shfl_down(f.u, d, w), ctt_shfl_down(f.l, d, w)};
+  }
   __device__ static V shfl_v(V x, int src, int w) { return ctt_shfl(x, src, w); }
   __device__ F load(int i) const {
     const int x = v[i];
     return {x, x == CTT_SENT ? CTT_SENT : INT_MIN};
   }
+  __device__ void store(int i, V x) const { v[i] = x; }
   __device__ V step(int i, F f, V c, int& changed) const {
     const int x = apply(f, c);
     if (x < f.u) {
@@ -236,6 +242,30 @@ template <class Op>
 __device__ inline typename Op::F ctt_exclusive(typename Op::F inc, int q, int width) {
   const typename Op::F e = Op::shfl_up(inc, 1, width);
   return q == 0 ? Op::identity() : e;
+}
+
+// Exclusive scan of the runs' transfers over groups of `width` lanes in
+// sweep order: lane order forward (rev 0), reversed lane order backward;
+// the identity for the group's first lane in that order.  The 3d flood and
+// the tile kernels (tile_scan.cuh) scan with it.  Every lane of the warp
+// must call it.
+template <class Op>
+__device__ __forceinline__ typename Op::F ctt_group_exclusive(typename Op::F x, int q, int width,
+                                                              int rev) {
+  for (int d = 1; d < width; d <<= 1) {
+    const typename Op::F o = rev ? Op::shfl_down(x, d, width) : Op::shfl_up(x, d, width);
+    if (rev ? q + d < width : q >= d) x = Op::compose(o, x);
+  }
+  const typename Op::F e = rev ? Op::shfl_down(x, 1, width) : Op::shfl_up(x, 1, width);
+  return (rev ? q == width - 1 : q == 0) ? Op::identity() : e;
+}
+
+// Lanes per line of `len` elements in runs of at most `run`: the fewest, a
+// power of two at most 32, whose runs cover the line.
+__host__ __device__ __forceinline__ int ctt_group_lanes(int len, int run) {
+  int g = 1;
+  while (g < 32 && g * run < len) g <<= 1;
+  return g;
 }
 
 // Row sweep of every row of the band, forward (dir 0) or backward (dir 1):

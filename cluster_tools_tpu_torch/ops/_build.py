@@ -12,6 +12,7 @@ and flags, so an unchanged kernel is built once.  ``build_all`` starts one
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -103,15 +104,23 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def cluster_smem(name: str, *args: int) -> int:
-    """Shared memory per CTA of the cluster route of ``csrc/<name>.cu``
-    (``ctt_<name>_cluster_smem``) for slices of the given size, 0 where the
-    slice takes the global route: the size rule, kept in the kernel's source
-    alone.  Builds the library at first use."""
-    fn = getattr(library(name), f"ctt_{name}_cluster_smem")
+@functools.lru_cache(maxsize=None)
+def smem(name: str, rule: str, *args: int) -> int:
+    """Bytes of shared memory per CTA that the size rule ``rule`` of
+    ``csrc/<name>.cu`` gives for the arguments, 0 where they do not fit: the
+    rule is kept in the kernel's source alone.  Builds the library at first
+    use; each answer is asked once per process."""
+    fn = getattr(library(name), rule)
     fn.argtypes = [ctypes.c_int] * len(args)
     fn.restype = ctypes.c_longlong
     return int(fn(*args))
+
+
+def cluster_smem(name: str, *args: int) -> int:
+    """Shared memory per CTA of the cluster route of ``csrc/<name>.cu``
+    (``ctt_<name>_cluster_smem``) for slices of the given size, 0 where the
+    slice takes the global route."""
+    return smem(name, f"ctt_{name}_cluster_smem", *args)
 
 
 def count_launch(wrapper, route=None, **sums) -> None:

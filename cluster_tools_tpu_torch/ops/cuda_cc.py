@@ -14,6 +14,9 @@ chosen by the slice's size before launch (``cc_route``): a thread-block
 cluster of 8 CTAs per slice with the slice's labels in shared memory and
 the line sweeps as warp scans (``csrc/cc_cluster.cuh``), or, for slices
 that do not fit, one thread block per slice over the output buffer.
+Kernel 5 holds each tile in one CTA's shared memory, its sweeps warp scans
+(``csrc/tile_scan.cuh``) and its labels tile keys ``r << k | c`` during the
+rounds; ``cc_tiles_scan`` is that schedule in PyTorch.
 
 ``cc_slices_plain`` and ``cc_tiles_plain`` compute the same functions with
 PyTorch ops (min-label propagation plus pointer jumping, restricted to the
@@ -30,14 +33,16 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .scan import clamp_apply, clamp_compose
+from .tile_scan import TILE_PHASES, tile_rounds, tiles_of, untile
 
 # the JAX package's whole-slice limit (pallas_cc.py:248: ~8 full-slice int32
 # buffers in a 12 MB VMEM budget); larger slices take the tiled kernel
 WHOLE_SLICE_MAX = 12 * 1024 * 1024 // (4 * 8)
-# kernel 5's tile: 64 x 129 int32 (row stride tw + 1) = 33 KB of shared
-# memory, six thread blocks per SM
+# kernel 5's tile: 64 x 133 int32 (row stride tw + tw/32 made odd) and the
+# lines' bookkeeping, 35 KB of shared memory
 TILE = (64, 128)
-SMEM_MAX = 232448  # bytes of shared memory one H100 thread block may use
+SENT = 2**31 - 2  # kernel 5's background label during the rounds (CTT_SENT)
 
 
 def default_tile(h: int, w: int) -> Tuple[int, int]:
@@ -153,30 +158,35 @@ def cc_tiles(
     tile: Tuple[int, int],
     depth: Optional[int] = None,
     rounds: Optional[torch.Tensor] = None,
+    stamps: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-tile CC of an (N, H, W) mask: kernel 5 for CUDA tensors,
     ``cc_tiles_plain`` for CPU tensors.  ``rounds`` (int32, one entry per
-    (slice, tile)) receives each tile's fixpoint rounds."""
+    (slice, tile)) receives each tile's fixpoint rounds; ``stamps`` (int64
+    (tiles, len(tile_scan.TILE_PHASES)) on the card) the card's ns of each
+    tile in each phase."""
     depth = _check_stack("cc_tiles", mask, depth)
     th, tw = int(tile[0]), int(tile[1])
     if th <= 0 or tw <= 0:
         raise ValueError(f"cc_tiles: bad tile {tile}")
     if mask.device.type == "cpu":
         return cc_tiles_plain(mask, (th, tw), depth)
-    if th * (tw + 1) * 4 > SMEM_MAX:
-        raise ValueError(f"cc_tiles: tile {tile} exceeds a thread block's shared memory")
     n, h, w = mask.shape
     n_tiles = n * -(-h // th) * -(-w // tw)
     mk, out, rounds_ptr = _launch_args("cc_tiles", mask, rounds, n_tiles)
+    _build.check_stamps("cc_tiles", stamps, n_tiles, len(TILE_PHASES), mask.device)
+    if not _build.smem("cc", "ctt_cc_tiles_smem", th, tw):
+        raise ValueError(f"cc_tiles: tile {tile} exceeds a thread block's shared memory")
     if out.numel() == 0:
         return out
     if n_tiles >= 2**31:
         raise ValueError(f"cc_tiles: {n_tiles} tiles exceed one launch")
     fn = _build.library("cc").ctt_cc_tiles
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     with torch.cuda.device(mask.device):
         rc = fn(_build.ptr(mk), _build.ptr(out), n, depth, h, w, th, tw, rounds_ptr,
+                _build.ptr(stamps) if stamps is not None else None,
                 _build.stream_handle(mask.device))
     _build.check(rc, "ctt_cc_tiles")
     _build.count_launch(cc_tiles)
@@ -184,3 +194,58 @@ def cc_tiles(
 
 
 cc_tiles.launches = 0
+
+
+def tile_key_bits(tw: int) -> int:
+    """Bits of the column in kernel 5's tile keys ``r << k | c``: the fewest
+    k with 2**k >= tw."""
+    return max(int(tw) - 1, 0).bit_length()
+
+
+def tile_key_ids(keys: torch.Tensor, shape, tile: Tuple[int, int], depth: int) -> torch.Tensor:
+    """Block-flat ids of kernel 5's tile keys: ``keys`` (T, th, tw) in the
+    tile order of ``tile_scan.tiles_of`` over an (N, H, W) ``shape``, each
+    key ``r << k | c`` of a voxel of its tile (``SENT`` on the background,
+    which becomes −1).  The kernel's store: base + (r0 + r)·W + c0 + c."""
+    n, h, w = shape
+    th, tw = tile
+    gh, gw = -(-h // th), -(-w // tw)
+    k = tile_key_bits(tw)
+    t = torch.arange(keys.shape[0], device=keys.device)
+    s, ty, tx = t // (gh * gw), t // gw % gh, t % gw
+    base = ((s % depth) * h * w + ty * th * w + tx * tw).view(-1, 1, 1)
+    ids = base + (keys >> k) * w + (keys & ((1 << k) - 1))
+    return torch.where(keys == SENT, -1, ids)
+
+
+def cc_tiles_scan(
+    mask: torch.Tensor, tile: Tuple[int, int], depth: Optional[int] = None
+) -> torch.Tensor:
+    """Kernel 5 on its schedule (``csrc/tile_scan.cuh``, ``csrc/cc.cuh``):
+    labels as tile keys ``r << k | c`` (``SENT`` on the background), each
+    round the four sweeps of ``tile_scan.tile_rounds`` with the min-label
+    clamp transfers, then the pointer jump through the keys (here from the
+    round's state at once, in the kernel in place: the rounds may differ,
+    the fixpoint does not), until no tile changes; then each key decoded
+    to its block-flat id (``tile_key_ids``).  Returns
+    ``cc_tiles_plain``'s labels.  A test model; the main path never calls
+    it."""
+    depth = _check_stack("cc_tiles", mask, depth)
+    th, tw = int(tile[0]), int(tile[1])
+    k = tile_key_bits(tw)
+    dev = mask.device
+    real = tiles_of(torch.ones(mask.shape, dtype=torch.bool, device=dev), (th, tw), False)
+    fg = tiles_of(mask.bool(), (th, tw), False)
+    key = (torch.arange(th, device=dev)[:, None] << k) | torch.arange(tw, device=dev)[None, :]
+    lab = torch.where(fg, key, SENT)
+    imax, imin = 2**31 - 1, -(2**31)
+
+    def jump(lab):
+        flat = lab.flatten(1)
+        at = torch.where(flat == SENT, 0, (flat >> k) * tw + (flat & ((1 << k) - 1)))
+        to = torch.where(flat == SENT, SENT, torch.gather(flat, 1, at))
+        return torch.minimum(flat, to).view(lab.shape)
+
+    lab, _ = tile_rounds(lab, real, (), lambda a: (a, torch.where(a == SENT, SENT, imin)),
+                         clamp_compose, clamp_apply, (imax, imin), SENT, after=jump)
+    return untile(tile_key_ids(lab, mask.shape, (th, tw), depth), mask.shape).to(torch.int32)

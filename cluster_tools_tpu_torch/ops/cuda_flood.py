@@ -9,8 +9,10 @@ memory and the line sweeps as warp scans (``csrc/flood_cluster.cuh``), or,
 for slices whose state does not fit the cluster, one thread block per slice
 over device scratch (``csrc/flood.cuh``).  ``flood_tiles_warm`` replaces
 ``pallas_flood.py::flood_tiles_warm``: the phase-1 altitude fixpoint of each
-in-plane (th, tw) tile of each slice (``csrc/flood3d.cuh``), ragged edge
-tiles cut to the slice.  ``flood_volume`` is the 3d flood of a (B, Z, H, W)
+in-plane (th, tw) tile of each slice (``csrc/flood3d.cuh``, its sweeps warp
+scans of ``csrc/tile_scan.cuh``), ragged edge tiles cut to the slice;
+``flood_tiles_warm_scan`` is its schedule in PyTorch, with its rounds.
+``flood_volume`` is the 3d flood of a (B, Z, H, W)
 batch of blocks over 6 neighbours, the counterpart of the JAX package's XLA
 ``_flood_scan_impl`` (no Pallas kernel there): one cooperative kernel that
 runs the rounds of directional sweeps on the card, each sweep a scan
@@ -33,7 +35,8 @@ import torch
 
 from . import _build
 from .cc import shift
-from .cuda_cc import SMEM_MAX
+from .scan import clamp_apply, clamp_compose, scan_sweep
+from .tile_scan import TILE_PHASES, tile_rounds, tiles_of, untile
 
 BIG = 3.0e38
 BIG_DIST = 2**31 - 2
@@ -132,12 +135,10 @@ def flood_volume_plain(
     return _flood_plain(hmap, seeds, mask, _OFFSETS_3D, warm)
 
 
-# -- the cluster route's scan algebra (csrc/scan.cuh) in PyTorch ----------
-# A sweep along a line is a chain of per-voxel transfers of the incoming
-# carry.  These functions build, compose and apply them elementwise over
-# tensors of lines the way the kernel's lanes do; the tests hold them
-# against the JAX package's sequential sweeps.  Transfers are tuples of
-# tensors; ``compose(f, g)`` is f first, then g.
+# -- the flood's transfers (csrc/scan.cuh) in PyTorch ----------------------
+# Built over tensors of lines for ``scan.scan_sweep``: the clamp family
+# (``scan.clamp_compose`` / ``clamp_apply``) for phase 1, the keyed family
+# below for phase 2.
 
 
 def alt_transfers(alt: torch.Tensor, hmap: torch.Tensor, mask: torch.Tensor):
@@ -145,14 +146,6 @@ def alt_transfers(alt: torch.Tensor, hmap: torch.Tensor, mask: torch.Tensor):
     voxel off the mask (A = BIG) is the constant BIG and a seed (A = h) the
     constant A: c -> min(u, max(c, l))."""
     return alt, torch.where(mask, hmap, torch.full_like(hmap, float("inf")))
-
-
-def clamp_compose(f, g):
-    return torch.minimum(g[0], torch.maximum(f[0], g[1])), torch.maximum(f[1], g[1])
-
-
-def clamp_apply(f, c):
-    return torch.minimum(f[0], torch.maximum(c, f[1]))
 
 
 def assign_edges(alt: torch.Tensor, hmap: torch.Tensor, mask: torch.Tensor,
@@ -193,40 +186,6 @@ def assign_apply(f, c):
     ad, al = _key_add(c[0], c[1], f[2])
     take = (f[2] >= 0) & _key_less(ad, al, f[0], f[1])
     return torch.where(take, ad, f[0]), torch.where(take, al, f[1])
-
-
-def scan_sweep(compose, apply, identity, transfers, init, cuts: Sequence[int]):
-    """One forward sweep along the last axis, run as the kernel runs it: the
-    line cut at ``cuts`` into runs (a lane's run, a band's segment), each
-    run's transfers composed in order, an inclusive Hillis-Steele scan over
-    the runs (the shuffle scan), each run's exclusive prefix applied to
-    ``init``, then each run walked voxel by voxel.  Returns each voxel's
-    outgoing carry (its new value), stacked along the last axis."""
-    n = transfers[0].shape[-1]
-    bounds = [0, *sorted(cuts), n]
-
-    def at(k):
-        return tuple(t[..., k] for t in transfers)
-
-    inc = []
-    for a, b in zip(bounds[:-1], bounds[1:]):
-        acc = identity
-        for k in range(a, b):
-            acc = compose(acc, at(k))
-        inc.append(acc)
-    d = 1
-    while d < len(inc):
-        inc = [compose(inc[i - d], inc[i]) if i >= d else inc[i] for i in range(len(inc))]
-        d *= 2
-    outs = []
-    for r, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
-        c = init if r == 0 else apply(inc[r - 1], init)
-        for k in range(a, b):
-            c = apply(at(k), c)
-            outs.append(c)
-    if isinstance(outs[0], tuple):
-        return tuple(torch.stack(v, -1) for v in zip(*outs))
-    return torch.stack(outs, -1)
 
 
 def _clip_tile(tile_hw: Sequence[int], h: int, w: int) -> Tuple[int, int]:
@@ -335,11 +294,13 @@ def flood_tiles_warm(
     mask: torch.Tensor,
     tile_hw: Sequence[int],
     rounds: Optional[torch.Tensor] = None,
+    stamps: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Kernel 3: tile-local altitude warm start of an (N, H, W) stack for
     CUDA tensors, ``flood_tiles_warm_plain`` for CPU tensors.  ``rounds``
     (int32, one entry per (slice, tile), on the card) receives each tile's
-    fixpoint rounds."""
+    fixpoint rounds; ``stamps`` (int64 (tiles, len(TILE_PHASES)) on the
+    card) the card's ns of each tile in each of ``TILE_PHASES``."""
     if hmap.dim() != 3:
         raise ValueError(f"flood_tiles_warm takes (N, H, W) tensors, got {tuple(hmap.shape)}")
     _check_same("flood_tiles_warm", hmap, seeds, mask)
@@ -349,12 +310,13 @@ def flood_tiles_warm(
         return flood_tiles_warm_plain(hmap, seeds, mask, (th, tw))
     if hmap.device.type != "cuda":
         raise ValueError(f"flood_tiles_warm: unsupported device {hmap.device}")
-    if 2 * th * (tw + 1) * 4 > SMEM_MAX:
+    if not _build.smem("flood3d", "ctt_flood_tiles_smem", th, tw):
         raise ValueError(f"flood_tiles_warm: tile {(th, tw)} exceeds a thread block's shared memory")
     n_tiles = n * -(-h // th) * -(-w // tw)
     if rounds is not None and (rounds.shape != (n_tiles,) or rounds.dtype != torch.int32
                                or rounds.device != hmap.device):
         raise ValueError(f"flood_tiles_warm: rounds must be an int32 ({n_tiles},) tensor on the device")
+    _build.check_stamps("flood_tiles_warm", stamps, n_tiles, len(TILE_PHASES), hmap.device)
     out = torch.empty((n, h, w), dtype=torch.float32, device=hmap.device)
     if out.numel() == 0:
         return out
@@ -362,11 +324,12 @@ def flood_tiles_warm(
     sd = seeds.to(torch.int32).contiguous()
     mk = mask.to(torch.bool).contiguous()
     fn = _build.library("flood3d").ctt_flood_tiles_warm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     with torch.cuda.device(hmap.device):
         rc = fn(_build.ptr(hm), _build.ptr(sd), _build.ptr(mk), _build.ptr(out),
                 n, h, w, th, tw, _build.ptr(rounds) if rounds is not None else None,
+                _build.ptr(stamps) if stamps is not None else None,
                 _build.stream_handle(hmap.device))
     _build.check(rc, "ctt_flood_tiles_warm")
     _build.count_launch(flood_tiles_warm)
@@ -552,3 +515,26 @@ def flood_volume_scan(
         if not changed:
             break
     return torch.where(mask, label, 0).to(torch.int32), alt, (r1, r2)
+
+
+def flood_tiles_warm_scan(
+    hmap: torch.Tensor, seeds: torch.Tensor, mask: torch.Tensor, tile_hw: Sequence[int]
+):
+    """Kernel 3 on its schedule (``csrc/tile_scan.cuh``): every (th, tw) tile
+    of every slice relaxed by ``tile_rounds`` with the flood's phase-1
+    transfers (A, h'), h' = +inf off the mask, until the tile's round
+    changes nothing.
+    Returns the altitudes (``flood_tiles_warm_plain``'s) and the int32
+    rounds per (slice, tile), in the kernel's order: the counts kernel 3
+    must report.  A test model; the main path never calls it."""
+    n, h, w = hmap.shape
+    tile = _clip_tile(tile_hw, h, w)
+    mask = mask.bool()
+    hmap = hmap.to(torch.float32)
+    inf = float("inf")
+    real = tiles_of(torch.ones_like(mask), tile, False)
+    hm = tiles_of(torch.where(mask, hmap, torch.full_like(hmap, inf)), tile, -inf)
+    alt = tiles_of(torch.where((seeds > 0) & mask, hmap, torch.full_like(hmap, BIG)), tile, inf)
+    alt, rounds = tile_rounds(alt, real, (hm,), lambda a, h: (a, h), clamp_compose, clamp_apply,
+                              (inf, -inf), BIG)
+    return untile(alt, (n, h, w)), rounds

@@ -41,6 +41,7 @@ from cluster_tools_tpu_torch.ops.cuda_flood import (
     flood_slices_plain,
     flood_tiles_warm,
     flood_tiles_warm_plain,
+    flood_tiles_warm_scan,
     flood_volume,
     flood_volume_plain,
     flood_volume_scan,
@@ -263,6 +264,14 @@ def test_kernel_wrappers_reject_bad_input(cuda_device):
                   rounds=torch.zeros(3, dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError):
         cc_tiles(torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device), (256, 256))
+    with pytest.raises(ValueError):
+        cc_tiles(torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device), (4, 4),
+                 stamps=torch.zeros(2, 4, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError):
+        flood_tiles_warm(torch.zeros(2, 4, 4, device=cuda_device),
+                         torch.zeros(2, 4, 4, dtype=torch.int32, device=cuda_device),
+                         torch.ones(2, 4, 4, dtype=torch.bool, device=cuda_device), (4, 4),
+                         stamps=torch.zeros(2, 5, dtype=torch.int32, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -289,6 +298,10 @@ def test_workflow_on_card_equals_cpu(tmp_path, halo, cuda_device):
 
 
 def _cc_case(case):
+    if case == "tall":
+        return np.random.default_rng(4).random((2, 600, 70)) < 0.6
+    if case == "long":
+        return np.random.default_rng(5).random((2, 24, 1100)) < 0.6
     if case == "random":
         return np.random.default_rng(2).random((6, 37, 53)) < 0.6
     if case == "sparse":
@@ -317,14 +330,42 @@ def test_cc_slices_kernel_equals_plain(case, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CC_CASES)
-@pytest.mark.parametrize("tile", [(64, 128), (5, 7), (16, 16)])
+@pytest.mark.parametrize("case", CC_CASES + ["tall", "long"])
+@pytest.mark.parametrize("tile", [(64, 128), (5, 7), (16, 16), (32, 320), (192, 32), (8, 640),
+                                  (640, 8)])
 def test_cc_tiles_kernel_equals_plain(case, tile, cuda_device):
+    """Tiles wider or taller than 128; lines over 512 ("tall" is 600 high,
+    "long" 1100 wide, at tiles (640, 8) and (8, 640)) are swept in
+    segments."""
     mask = torch.from_numpy(_cc_case(case)).to(cuda_device)
     before = cc_tiles.launches
     got = cc_tiles(mask, tile, depth=2)
     assert cc_tiles.launches == before + 1
     torch.testing.assert_close(got, cc_tiles_plain(mask, tile, 2), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_tile_kernel_stamps(cuda_device):
+    """Kernels 3 and 5 report each tile's ns per phase (``TILE_PHASES``,
+    the card's clock): summed over the tiles, load, rows, columns and
+    store take time; kernel 3 has no jump."""
+    from cluster_tools_tpu_torch.ops.tile_scan import TILE_PHASES
+
+    m = torch.from_numpy(_cc_case("sparse")).to(cuda_device)
+    tiles = m.shape[0] * 2 * 3
+    st = torch.zeros((tiles, len(TILE_PHASES)), dtype=torch.int64, device=cuda_device)
+    got = cc_tiles(m, (64, 128), depth=2, stamps=st)
+    torch.testing.assert_close(got, cc_tiles_plain(m, (64, 128), 2), rtol=0, atol=0)
+    assert bool((st >= 0).all()) and bool((st.sum(0) > 0).all())
+    h = torch.rand(m.shape, device=cuda_device)
+    s = torch.zeros(m.shape, dtype=torch.int32, device=cuda_device)
+    s[:, ::16, ::16] = 1
+    st.zero_()
+    got = flood_tiles_warm(h, s, m, (64, 128), stamps=st)
+    torch.testing.assert_close(got, flood_tiles_warm_plain(h, s, m, (64, 128)), rtol=0, atol=0)
+    jump = TILE_PHASES.index("jump")
+    assert bool((st[:, jump] == 0).all()) and bool((st >= 0).all())
+    assert bool((torch.cat([st[:, :jump], st[:, jump + 1:]], 1).sum(0) > 0).all())
 
 
 @pytest.mark.cuda
@@ -390,6 +431,12 @@ def _flood3d_case(case):
         hmap = np.full(mask.shape, 0.5, np.float32)
         seeds = np.zeros(mask.shape, np.int32)
         seeds[0, 0, 1, 0] = 1
+    elif case == "large":  # slices over 512 along both axes
+        hmap = _volume((1, 2, 600, 700), 9, (0, 1.0, 2.0, 2.0))
+        seeds = np.zeros(hmap.shape, np.int32)
+        idx = np.random.default_rng(9).choice(hmap.size, 40, replace=False)
+        seeds.flat[idx] = np.arange(1, 41)
+        mask = hmap < 0.7
     else:  # in-plane serpentine in every slice, one seed per slice
         mask = serpentine_mask((2, 4, 32, 64))
         hmap = np.full(mask.shape, 0.5, np.float32)
@@ -402,9 +449,13 @@ FLOOD3D_CASES = ["random", "serpentine", "serpentine_slices"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FLOOD3D_CASES)
-@pytest.mark.parametrize("tile", [(64, 128), (5, 7), (16, 16)])
+@pytest.mark.parametrize("case", FLOOD3D_CASES + ["large"])
+@pytest.mark.parametrize("tile", [(64, 128), (5, 7), (16, 16), (32, 320), (192, 32), (8, 640),
+                                  (640, 8)])
 def test_flood_tiles_warm_kernel_equals_plain(case, tile, cuda_device):
+    """Altitudes of the plain version, and the rounds per tile of the
+    kernel's schedule in PyTorch (``flood_tiles_warm_scan``); "large"
+    slices (600 x 700) sweep lines over 512 in segments."""
     h, s, m = (torch.from_numpy(a).to(cuda_device) for a in _flood3d_case(case))
     h, s, m = (t.reshape((-1,) + t.shape[-2:]) for t in (h, s, m))
     n_tiles = h.shape[0] * -(-h.shape[1] // min(tile[0], h.shape[1])) * -(-h.shape[2] // min(tile[1], h.shape[2]))
@@ -414,6 +465,7 @@ def test_flood_tiles_warm_kernel_equals_plain(case, tile, cuda_device):
     assert flood_tiles_warm.launches == before + 1
     torch.testing.assert_close(got, flood_tiles_warm_plain(h, s, m, tile), rtol=0, atol=0)
     assert int(rounds.min()) >= 1
+    torch.testing.assert_close(rounds, flood_tiles_warm_scan(h, s, m, tile)[1], rtol=0, atol=0)
 
 
 @pytest.mark.cuda

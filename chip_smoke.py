@@ -46,7 +46,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      whole-slice limit and take kernel 5.  The kernel's launch count must
      rise in its run; the output must have scipy's 6-connected partition
      of ``vol < 0.5`` with ids 1..n, and every block's local labels (before
-     the merge) must equal scipy's labels of that block;
+     the merge) must equal scipy's labels of that block.  The (32, 256,
+     256) run is repeated with the decoded-chunk cache off
+     (``set_chunk_cache_budget(0)``): its output must equal the default
+     budget's byte for byte, and both runs' block-face seconds are printed;
   5. kernel 3 (tile-local flood altitudes) against its plain version on a
      halo'd (36, 272, 272) block at the pinned tile (64, 128) (ragged
      tiles), a divisible (32, 256, 256) stack and a serpentine, with its
@@ -79,7 +82,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      ``apply_ws_2d`` False, halo [2, 8, 8]: the CC re-close runs), the
      3d flood's launch count must rise, two blocks re-run through the
      plain versions must equal it;
-  8. one JSON line listing the six kernels, then the result line.
+  8. ``MulticutSegmentationWorkflow`` on the ``cuda`` target, blocks (32,
+     256, 256), n_scales 1, the default 2d watershed config, twice: run 1
+     computes the watershed (kernels 2 and 1 must launch) and host edge
+     features, run 2 reuses it (``skip_ws``) with ``device_accumulation``
+     (the RAG accumulator in PyTorch on the card must launch, its
+     ``max_edges_per_block`` sized from run 1's edge counts).  Gates: the
+     native solvers built; run 1's watershed equals phase 3's byte for
+     byte; each segmentation is its (fragment, segment) table applied to
+     the watershed, with between 1 and the fragment count segments; the
+     accumulator on the card equals the host features on four blocks within
+     the reference's tolerances.  Printed: walls, voxels/s, seconds per
+     task, chunk-cache hits and misses, the multicut energy of each run,
+     Rand and VoI between the runs, and the accumulator's ms per block
+     against its byte bound;
+  9. one JSON line with the accumulator (``device_functions``), one listing
+     the six kernels, then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -1292,6 +1310,312 @@ def ws3d_phase(vol_np, path: str, work: str, card: str):
     return wall, vox / wall
 
 
+def chunk_files(root: str) -> dict:
+    """Every chunk file of a dataset directory (its metadata excluded) by
+    relative path, with its bytes: gzip is deterministic, so two datasets
+    hold equal arrays exactly when these are equal."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name in ("attributes.json", ".zarray", ".zattrs"):
+                continue
+            full = os.path.join(dirpath, name)
+            with open(full, "rb") as f:
+                out[os.path.relpath(full, root)] = f.read()
+    return out
+
+
+def status_seconds(tmp_folder: str, identifier: str) -> float:
+    """A task's seconds from its status file: the runtime of a single-shot
+    task, the summed attempt walls of a block task."""
+    with open(os.path.join(tmp_folder, "status", f"{identifier}.status.json")) as f:
+        status = json.load(f)
+    return status.get("runtime_s", sum(status.get("block_runtimes", [])))
+
+
+def cache_budget_phase(path: str, work: str, block) -> None:
+    """Phase 4, the decoded-chunk cache's gate: the components run at
+    ``block`` again with the cache off (budget 0).  Its output must equal the
+    run at the default budget byte for byte; the block faces' seconds of
+    both runs are printed."""
+    from cluster_tools_tpu_torch import ThresholdedComponentsWorkflow, build
+    from cluster_tools_tpu_torch.utils import store
+
+    tag = "x".join(str(b) for b in block)
+    tmp = os.path.join(work, f"tmp_cc_{tag}_budget0")
+    wf = ThresholdedComponentsWorkflow(
+        tmp, os.path.join(work, f"configs_cc_{tag}"), input_path=path, input_key="raw",
+        output_path=path, output_key=f"cc_{tag}_budget0",
+    )
+    prev = store.set_chunk_cache_budget(0)
+    t0 = time.perf_counter()
+    try:
+        if not build([wf]):
+            raise AssertionError("components workflow at cache budget 0 failed")
+    finally:
+        store.set_chunk_cache_budget(prev)
+    wall = time.perf_counter() - t0
+    if chunk_files(os.path.join(path, f"cc_{tag}_budget0")) != chunk_files(
+            os.path.join(path, f"cc_{tag}")):
+        raise AssertionError(f"components {tag}: the output at cache budget 0 differs")
+    faces = status_seconds(os.path.join(work, f"tmp_cc_{tag}"), "block_faces")
+    faces0 = status_seconds(tmp, "block_faces")
+    log(f"components {tag} chunk cache: block_faces {faces0:.3f} s at budget 0, "
+        f"{faces:.3f} s at the default {prev / 2**20:.0f} MiB; the run at budget 0 "
+        f"{wall:.2f} s, output byte-identical")
+
+
+def rand_voi(pairs: np.ndarray, sizes: np.ndarray) -> dict:
+    """Rand index and variation of information (split, merge) between two
+    labellings given as (label a, label b) rows with their voxel counts
+    (rows may repeat a pair)."""
+    pairs, cell = np.unique(pairs, axis=0, return_inverse=True)
+    sizes = np.bincount(cell.reshape(-1), weights=sizes)
+    n = float(sizes.sum())
+    _, ia = np.unique(pairs[:, 0], return_inverse=True)
+    _, ib = np.unique(pairs[:, 1], return_inverse=True)
+    a = np.bincount(ia.reshape(-1), weights=sizes)
+    b = np.bincount(ib.reshape(-1), weights=sizes)
+
+    def pairs_in(x):
+        return float((x * (x - 1)).sum()) / 2
+
+    total = n * (n - 1) / 2
+    rand = (total + 2 * pairs_in(sizes) - pairs_in(a) - pairs_in(b)) / total
+    p = sizes / n
+    h_a_given_b = 0.0 - float((p * np.log(sizes / b[ib.reshape(-1)])).sum())
+    h_b_given_a = 0.0 - float((p * np.log(sizes / a[ia.reshape(-1)])).sum())
+    return {"rand_index": rand, "voi_split": h_b_given_a, "voi_merge": h_a_given_b}
+
+
+def check_segmentations(path: str, ws_key: str, runs: dict, blocking) -> dict:
+    """Gate 2 of phase 8, in one pass over the blocks: each run's
+    segmentation must be its (fragment, segment) table applied to the
+    watershed — every fragment in the table, each mapped to one segment,
+    background kept — with between 1 and the fragment count segments.
+    Returns the contingency of the runs' segmentations, counted over the
+    fragments with their voxel counts."""
+    from cluster_tools_tpu_torch.utils import file_reader
+
+    f = file_reader(path, "r")
+    ws_ds = f[ws_key]
+    unit = int(np.prod(blocking.block_shape))
+    tags = list(runs)
+    frag_ids, frag_sizes, n_zero = [], [], 0
+    for bid in range(blocking.n_blocks):
+        bb = blocking.block(bid).slicing
+        ws = ws_ds[bb]
+        local = np.where(ws > 0, ws - np.uint64(bid * unit), 0).astype(np.int64)
+        if local.max() > unit:
+            raise AssertionError(f"block {bid}: watershed ids outside its offset range")
+        counts = np.bincount(local.reshape(-1), minlength=unit + 1)
+        n_zero += int(counts[0])
+        present = np.nonzero(counts[1:])[0] + 1
+        frag_ids.append(present.astype(np.uint64) + np.uint64(bid * unit))
+        frag_sizes.append(counts[present])
+        for tag in tags:
+            table = runs[tag]["table"]
+            lo, hi = np.searchsorted(table[:, 0], [bid * unit + 1, (bid + 1) * unit + 1])
+            lut = np.zeros(unit + 1, dtype=np.uint64)
+            has = np.zeros(unit + 1, dtype=bool)
+            ids = (table[lo:hi, 0] - np.uint64(bid * unit)).astype(np.int64)
+            lut[ids] = table[lo:hi, 1]
+            has[ids] = True
+            has[0] = True
+            if not has[local].all():
+                raise AssertionError(f"{tag}: block {bid} has fragments missing from the table")
+            if not np.array_equal(f[runs[tag]["key"]][bb], lut[local]):
+                raise AssertionError(f"{tag}: block {bid} is not the table applied to the watershed")
+    frag_ids = np.concatenate(frag_ids)
+    frag_sizes = np.concatenate(frag_sizes)
+    segs = []
+    for tag in tags:
+        table = runs[tag]["table"]
+        if not np.array_equal(np.sort(table[:, 0]), np.sort(frag_ids)):
+            raise AssertionError(f"{tag}: the table's fragments are not the watershed's")
+        seg = table[np.searchsorted(table[:, 0], frag_ids), 1]
+        n_seg = len(np.unique(seg))
+        if not 1 < n_seg < frag_ids.size:
+            raise AssertionError(f"{tag}: {n_seg} segments of {frag_ids.size} fragments")
+        runs[tag]["n_segments"] = n_seg
+        segs.append(seg)
+    pairs = np.stack(segs, axis=1)
+    if n_zero:
+        pairs = np.concatenate([pairs, np.zeros((1, len(tags)), pairs.dtype)])
+        frag_sizes = np.concatenate([frag_sizes, [n_zero]])
+    return {"n_fragments": int(frag_ids.size), "pairs": pairs, "sizes": frag_sizes.astype(np.float64)}
+
+
+def accumulator_check(path: str, ws_key: str, blocking, max_edges: int, card: str) -> dict:
+    """Gate 3 of phase 8: the device RAG accumulator on the card against the
+    host ``boundary_edge_features`` on four blocks (edges, counts and
+    histograms equal; min, max and quantiles to 1e-6; mean rtol 1e-4, atol
+    1e-5; variance rtol 1e-3, atol 1e-4 — the reference's tolerances), then
+    its time per block: the device function alone (``cuda_ms``), the host
+    wrapper with its compaction and copies, and the host path."""
+    from cluster_tools_tpu_torch.ops import rag
+    from cluster_tools_tpu_torch.tasks.graph import read_block_with_upper_halo
+    from cluster_tools_tpu_torch.utils import file_reader
+
+    f = file_reader(path, "r")
+    n = blocking.n_blocks
+    check_ids = sorted({0, n // 3, 2 * n // 3, n - 1})
+    record = None
+    for bid in check_ids:
+        block = blocking.block(bid)
+        seg = read_block_with_upper_halo(f[ws_key], blocking, bid).astype(np.uint64)
+        end = tuple(min(e + 1, s) for e, s in zip(block.end, blocking.shape))
+        data = f["raw"][tuple(slice(b, e) for b, e in zip(block.begin, end))].astype(np.float64)
+        t0 = time.perf_counter()
+        want = rag.boundary_edge_features(seg, data, hist_bins=rag.HIST_BINS, owner_shape=block.shape)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got = rag.boundary_edge_features_gpu(
+            seg, data, hist_bins=rag.HIST_BINS, owner_shape=block.shape, max_edges=max_edges,
+        )
+        wrapper_ms = (time.perf_counter() - t0) * 1e3
+        (ge, gf, gh), (we, wf, wh) = got, want
+        if not (np.array_equal(ge, we) and np.array_equal(gh, wh)
+                and np.array_equal(gf[:, 9], wf[:, 9])):
+            raise AssertionError(f"accumulator block {bid}: edges, histograms or counts differ")
+        err = np.abs(gf - wf).max(axis=0, initial=0.0)
+        close = (err[2:9] <= 1e-6).all() and np.allclose(
+            gf[:, 0], wf[:, 0], rtol=1e-4, atol=1e-5) and np.allclose(
+            gf[:, 1], wf[:, 1], rtol=1e-3, atol=1e-4)
+        if not close:
+            raise AssertionError(f"accumulator block {bid}: features beyond the tolerances, "
+                                 f"max abs err per column {err}")
+        log(f"accumulator block {bid} {tuple(seg.shape)}: {ge.shape[0]} edges equal to the host "
+            f"path's, max abs err per column {np.array2string(err, precision=3)}; "
+            f"host {host_ms:.1f} ms, wrapper on the card {wrapper_ms:.1f} ms")
+        if record is None and block.shape == tuple(blocking.block_shape):
+            uniq, inv = np.unique(seg, return_inverse=True)
+            compact = (inv.reshape(seg.shape) + (0 if uniq[0] == 0 else 1)).astype(np.int32)
+            cap = rag.sample_capacity(rag.count_boundary_samples(compact))
+            lab_d = torch.from_numpy(compact).cuda()
+            val_d = torch.from_numpy(data.astype(np.float32)).cuda()
+            ms = cuda_ms(lambda: rag.boundary_edge_features_device(
+                lab_d, val_d, max_edges=max_edges, owner_shape=block.shape, max_samples=cap), 20)
+            edges = int(ge.shape[0])
+            # reads an i32 label and an f32 value per voxel; writes the
+            # per-edge outputs: u, v (i32), 10 f32 features, 64 i64 bins
+            nbytes = seg.size * 8 + edges * (2 * 4 + 10 * 4 + rag.HIST_BINS * 8)
+            record = {"name": "boundary_edge_features_device", "block": bid,
+                      "shape": list(seg.shape), "edges": edges, "ms": ms,
+                      "wrapper_ms": wrapper_ms, "host_ms": host_ms,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log(f"accumulator on {card}: {record}")
+    return record
+
+
+def multicut_phase(vol_np, path: str, work: str, card: str) -> dict:
+    """Phase 8: ``MulticutSegmentationWorkflow`` at the volume's full size on
+    the ``cuda`` target, blocks (32, 256, 256), n_scales 1, the default 2d
+    watershed config.  Run 1 computes the watershed (kernels 2 and 1 on the
+    card) and the host features; run 2 reuses run 1's watershed
+    (``skip_ws``) with ``device_accumulation``.  Gates: the native solvers
+    built; run 1's watershed equals phase 3's byte for byte; each run's
+    segmentation is its table applied to the watershed, with between 1 and
+    the fragment count segments; the device accumulator launched in run 2
+    and equal to the host path on four blocks within the reference's
+    tolerances."""
+    from cluster_tools_tpu_torch import MulticutSegmentationWorkflow, build, native
+    from cluster_tools_tpu_torch.ops import rag
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
+    from cluster_tools_tpu_torch.ops.multicut import multicut_energy
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks.features import FEATURE_IDS_KEY
+    from cluster_tools_tpu_torch.tasks.multicut import ASSIGNMENTS_NAME
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedTask
+    from cluster_tools_tpu_torch.utils import file_reader, store
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"the native solvers did not build: {native.load_error}")
+    log(f"multicut: native solvers {native.library_path()} ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    blocking = Blocking(vol_np.shape, BLOCK)
+    vox = int(np.prod(vol_np.shape))
+
+    def run(tag: str, features: dict, skip_ws: bool) -> dict:
+        config_dir = os.path.join(work, f"configs_mc_{tag}")
+        cfg.write_global_config(config_dir, {
+            "block_shape": list(BLOCK), "target": "cuda", "device": "cuda",
+            "max_jobs": min(8, os.cpu_count() or 1),
+        })
+        cfg.write_config(config_dir, "watershed", WatershedTask.default_task_config())
+        cfg.write_config(config_dir, "block_edge_features", features)
+        tmp = os.path.join(work, f"tmp_mc_{tag}")
+        wf = MulticutSegmentationWorkflow(
+            tmp, config_dir, input_path=path, input_key="raw", ws_path=path, ws_key="mc_ws",
+            output_path=path, output_key=f"mc_seg_{tag}", skip_ws=skip_ws,
+        )
+        before = store.chunk_cache_counts()
+        t0 = time.perf_counter()
+        if not build([wf]):
+            raise AssertionError(f"multicut {tag} build failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = store.chunk_cache_counts()
+        cache = {k: after[k] - before[k] for k in after}
+        log(f"multicut {tag}: {vol_np.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on "
+            f"{card}; chunk cache at {store.chunk_cache_budget() / 2**20:.0f} MiB: {cache}")
+        task_seconds(wf, f"multicut {tag}")
+        return {"tmp": tmp, "key": f"mc_seg_{tag}", "wall": wall, "cache": cache,
+                "table": np.load(os.path.join(tmp, ASSIGNMENTS_NAME))}
+
+    reset_counts(dtws_slices, flood_slices)
+    host = run("host", {}, skip_ws=False)
+    launches = {"dtws_slices": dtws_slices.launches, "flood_slices": flood_slices.launches}
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"multicut run 1 never launched {name}")
+    log(f"multicut host: kernel launches {launches}, by route dtws "
+        f"{dtws_slices.launches_by_route}, flood {flood_slices.launches_by_route}")
+    if chunk_files(os.path.join(path, "mc_ws")) != chunk_files(os.path.join(path, "ws")):
+        raise AssertionError("multicut run 1's watershed differs from phase 3's")
+    log("multicut host: watershed byte-identical to phase 3's")
+
+    ids = file_reader(os.path.join(host["tmp"], "data.zarr"), "r")[FEATURE_IDS_KEY]
+    most = max(ids.read_chunk((bid,)).size for bid in range(blocking.n_blocks))
+    max_edges = -(-int(most * 1.25) // 1024) * 1024
+    log(f"multicut: at most {most} edges per block in the host run; the device run's "
+        f"max_edges_per_block {max_edges}")
+    reset_counts(rag.boundary_edge_features_device)
+    dev = run("device", {"device_accumulation": True, "max_edges_per_block": max_edges},
+              skip_ws=True)
+    acc_launches = rag.boundary_edge_features_device.launches
+    if acc_launches == 0:
+        raise AssertionError("multicut run 2 never launched the device accumulator")
+    log(f"multicut device: accumulator launches {acc_launches} ({blocking.n_blocks} blocks)")
+
+    t0 = time.perf_counter()
+    runs = {"host": host, "device": dev}
+    cont = check_segmentations(path, "mc_ws", runs, blocking)
+    scores = rand_voi(cont["pairs"], cont["sizes"])
+    energies, attractive = {}, {}
+    scratch = file_reader(os.path.join(host["tmp"], "data.zarr"), "r")
+    nodes, edges = scratch["graph/nodes"][:], scratch["graph/edges"][:]
+    for tag, r in runs.items():
+        if not np.array_equal(r["table"][:, 0], nodes):
+            raise AssertionError(f"{tag}: the table's rows are not the graph's nodes")
+        costs = np.load(os.path.join(r["tmp"], "costs.npy"))
+        energies[tag] = multicut_energy(edges, costs, r["table"][:, 1].astype(np.int64))
+        attractive[tag] = float((costs > 0).mean())
+    log(f"multicut: {cont['n_fragments']} fragments, {edges.shape[0]} edges; segments "
+        f"host {host['n_segments']}, device {dev['n_segments']}; each segmentation is its "
+        f"table applied to the watershed (checked in {time.perf_counter() - t0:.1f} s)")
+    log(f"multicut energies (sum of cut costs): host {energies['host']:.6g}, device "
+        f"{energies['device']:.6g}; share of attractive edges (cost > 0): {attractive}; "
+        f"between the runs: {scores}")
+    record = accumulator_check(path, "mc_ws", blocking, max_edges, card)
+    record["launches"] = acc_launches
+    return {"launches": launches, "walls": {k: r["wall"] for k, r in runs.items()},
+            "accumulator": record}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--z", type=int, default=CREMI_A[0], help="volume depth (cut z only)")
@@ -1310,6 +1634,7 @@ def main() -> int:
         return 1
     from cluster_tools_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
@@ -1331,6 +1656,7 @@ def main() -> int:
     records = kernel_phase(vol, dev, args.batch)
     records.update(cc_kernel_phase(vol, dev, args.batch, args.compare))
     records.update(flood3d_kernel_phase(vol, dev, args.compare))
+    log(f"phases 1-5 done at {time.perf_counter() - t_start:.1f} s")
     if args.kernels_only:
         log("kernels only: no workflow run")
         return 0
@@ -1358,10 +1684,16 @@ def main() -> int:
                 path, work, block, card, fg, ref, n_ref, kernel)
             launches[kernel] = cc_launches[kernel]
             rates[block] = (cc_wall, cc_rate)
+        del ref, fg
+        cache_budget_phase(path, work, BLOCK)
+        log(f"phases 3-4 done at {time.perf_counter() - t_start:.1f} s")
         seed_launches, seeds_wall, seeds_rate = seeds_phase(vol_np, path, work, card)
         for name in ("flood_tiles_warm", "flood_volume"):
             launches[name] = seed_launches[name]
         ws3d_wall, ws3d_rate = ws3d_phase(vol_np, path, work, card)
+        log(f"phases 6-7 done at {time.perf_counter() - t_start:.1f} s")
+        mc = multicut_phase(vol_np, path, work, card)
+        log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     for name, rec in records.items():
         rec["launches"] = launches[name]
         log(f"kernel {name}: {rec['launches']} launches in its workflow run, {rec['ms']:.3f} ms "
@@ -1374,6 +1706,11 @@ def main() -> int:
     log(f"{card}: ThresholdAndWatershedWorkflow {vol_np.shape} {seeds_rate:.6g} voxels/s "
         f"({seeds_wall:.3f} s)")
     log(f"{card}: WatershedWorkflow 3d {vol_np.shape} {ws3d_rate:.6g} voxels/s ({ws3d_wall:.3f} s)")
+    for tag, wall in mc["walls"].items():
+        log(f"{card}: MulticutSegmentationWorkflow {tag} {vol_np.shape} "
+            f"{int(np.prod(vol_np.shape)) / wall:.6g} voxels/s ({wall:.3f} s)")
+    log(f"multicut run 1 kernel launches {mc['launches']}")
+    log(json.dumps({"device_functions": [mc["accumulator"]]}))
     log(json.dumps({"kernels": [records[k] for k in (
         "flood_slices", "dtws_slices", "flood_tiles_warm", "cc_slices", "cc_tiles",
         "flood_volume")]}))

@@ -3,10 +3,13 @@
 A second package beside the JAX one, which stays the reference.  Ported so
 far: the per-block DT-watershed behind ``WatershedWorkflow`` (default
 branch, every mode), the block pipeline of ``ThresholdedComponentsWorkflow``
-and ``ThresholdAndWatershedWorkflow`` with the 3d seeded flood; all five TPU
-kernels are hand-written CUDA for Hopper (``csrc/``), built with ``nvcc`` at
-first use.  Entry points compute on the card unless the global config
-asks for ``"device": "cpu"``.
+and ``ThresholdAndWatershedWorkflow`` with the 3d seeded flood, and
+``MulticutSegmentationWorkflow`` (watershed → RAG graph → edge features →
+costs → hierarchical GAEC multicut → write); all five TPU kernels are
+hand-written CUDA for Hopper (``csrc/``), built with ``nvcc`` at first use,
+the multicut solvers C++ built with ``g++`` at first use (``native/``).
+Entry points compute on the card unless the global config asks for
+``"device": "cpu"``.
 """
 
 from .runtime import config
@@ -15,9 +18,10 @@ from .workflows.thresholded_components import (
     ThresholdAndWatershedWorkflow,
     ThresholdedComponentsWorkflow,
 )
+from .workflows.multicut import MulticutSegmentationWorkflow
 from .workflows.watershed import WatershedWorkflow
 
 __all__ = [
-    "config", "build", "WorkflowBase", "ThresholdAndWatershedWorkflow",
-    "ThresholdedComponentsWorkflow", "WatershedWorkflow",
+    "config", "build", "WorkflowBase", "MulticutSegmentationWorkflow",
+    "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "WatershedWorkflow",
 ]

@@ -159,6 +159,11 @@ class BlockTask(Task):
     def finalize(self, blocking: Blocking, config: Dict[str, Any], block_ids: List[int]) -> None:
         pass
 
+    def get_block_shape(self, gconf: Dict[str, Any]) -> List[int]:
+        """The task's block shape: the global one, or a multiple of it (the
+        scale pyramid of the graph and multicut tasks)."""
+        return list(gconf["block_shape"])
+
     def get_block_list(self, blocking: Blocking, gconf: Dict[str, Any]) -> List[int]:
         return blocks_in_volume(
             blocking.shape, blocking.block_shape, gconf.get("roi_begin"),
@@ -173,7 +178,7 @@ class BlockTask(Task):
         gconf = self.global_config()
         config = {**gconf, **self.get_task_config()}
         resolve_device(config)  # no card where one is asked for: raise here
-        blocking = Blocking(tuple(self.get_shape()), list(gconf["block_shape"]))
+        blocking = Blocking(tuple(self.get_shape()), self.get_block_shape(gconf))
         block_ids = self.get_block_list(blocking, gconf)
         target = self.output()
         status = target.read()

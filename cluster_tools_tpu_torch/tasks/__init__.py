@@ -1,3 +1,7 @@
+from .costs import ProbsToCostsTask
+from .features import BlockEdgeFeaturesTask, MergeEdgeFeaturesTask
+from .graph import InitialSubGraphsTask, MapEdgeIdsTask, MergeScaleSubGraphsTask, MergeSubGraphsTask
+from .multicut import ReduceProblemTask, SolveGlobalTask, SolveSubproblemsTask
 from .thresholded_components import (
     BlockComponentsTask,
     BlockFacesTask,
@@ -8,6 +12,9 @@ from .watershed import MAX_IDS_KEY, WatershedFromSeedsTask, WatershedTask, kerne
 from .write import WriteTask
 
 __all__ = [
-    "BlockComponentsTask", "BlockFacesTask", "MAX_IDS_KEY", "MergeAssignmentsTask",
-    "MergeOffsetsTask", "WatershedFromSeedsTask", "WatershedTask", "WriteTask", "kernel_params",
+    "BlockComponentsTask", "BlockEdgeFeaturesTask", "BlockFacesTask", "InitialSubGraphsTask",
+    "MAX_IDS_KEY", "MapEdgeIdsTask", "MergeAssignmentsTask", "MergeEdgeFeaturesTask",
+    "MergeOffsetsTask", "MergeScaleSubGraphsTask", "MergeSubGraphsTask", "ProbsToCostsTask",
+    "ReduceProblemTask", "SolveGlobalTask", "SolveSubproblemsTask", "WatershedFromSeedsTask",
+    "WatershedTask", "WriteTask", "kernel_params",
 ]

@@ -104,12 +104,14 @@ def read_threads(config) -> int:
     return max(int(config.get("read_threads", DEFAULT_READ_THREADS)), 1)
 
 
-def resolve_n_blocks(config_dir, path: str, key: str) -> int:
-    """Block count of a dataset under the global block shape, at run time
-    (the dataset may not exist when the DAG is built); leading channel axes
-    are dropped, as ``VolumeTask.get_shape`` does."""
+def resolve_n_blocks(config_dir, path: str, key: str, scale: int = 0) -> int:
+    """Block count of a dataset under the global block shape times
+    ``2**scale``, at run time (the dataset may not exist when the DAG is
+    built); leading channel axes are dropped, as ``VolumeTask.get_shape``
+    does."""
     shape = store.file_reader(path, "r")[key].shape[-3:]
-    return Blocking(shape, cfg.global_config(config_dir)["block_shape"]).n_blocks
+    block_shape = [bs * 2**scale for bs in cfg.global_config(config_dir)["block_shape"]]
+    return Blocking(shape, block_shape).n_blocks
 
 
 class VolumeSimpleTask(SimpleTask):

@@ -10,12 +10,16 @@ either package is read by the other:
   * region read/write (read-modify-write on partially covered chunks),
     ``read_chunk`` / ``write_chunk``;
   * ``RaggedDataset``: one ``.npy`` array per grid position (the per-block
-    side outputs such as the watershed's max ids).
+    side outputs such as the watershed's max ids);
+  * JSON attributes (``.zattrs`` / n5 ``attributes.json``) as ``ds.attrs``;
+  * a process-global LRU of decoded chunks (``CTT_CHUNK_CACHE_MB``, default
+    64, 0 disables; ``set_chunk_cache_budget``), so the chunks that halo'd
+    block reads share are decoded once.
 
 Gzip is deterministic (level 1, mtime 0), so equal arrays give equal chunk
-bytes.  Blosc, hdf5, the object-store backend and the decoded-chunk cache are
-not ported yet (ROADMAP Queue A); opening a dataset that needs them raises.
-Parallel writers must write disjoint chunk-aligned regions.
+bytes.  Blosc, hdf5 and the object-store backend are not ported yet (ROADMAP
+Queue A 12(b)); opening a dataset that needs them raises.  Parallel writers
+must write disjoint chunk-aligned regions.
 """
 
 from __future__ import annotations
@@ -28,14 +32,19 @@ import shutil
 import struct
 import threading
 import zlib
+from collections import OrderedDict
 from itertools import product
-from typing import Any, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .blocking import _ceil_div
 
-__all__ = ["file_reader", "File", "Group", "Dataset", "RaggedDataset", "atomic_write_bytes"]
+__all__ = [
+    "file_reader", "File", "Group", "Dataset", "RaggedDataset", "Attributes",
+    "atomic_write_bytes", "set_chunk_cache_budget", "chunk_cache_budget",
+    "chunk_cache_counts",
+]
 
 
 def atomic_write_bytes(path: str, payload: bytes) -> None:
@@ -68,6 +77,133 @@ def _gzip_compress(raw: bytes) -> bytes:
     return gzip.compress(raw, 1, mtime=0)
 
 
+class _DecodedChunkCache:
+    """Process-global LRU of decoded (full chunk shape) chunks.
+
+    Halo'd block reads decode every shared chunk up to 2^ndim times; the
+    cache makes each decode happen once.  Entries are keyed by the chunk
+    file path and carry the file's ``(st_ino, st_mtime_ns, st_size)``
+    signature: a mismatch (another process rewrote the chunk —
+    ``os.replace`` changes the inode) is a miss, so freshness across
+    processes degrades to a re-decode, never to stale data.  Writers in this
+    process invalidate explicitly (``write_chunk``).  Cached arrays are
+    read-only and shared; readers that hand out data copy it
+    (``Dataset.read_chunk``, ``Dataset.__getitem__``).  ``hits`` and
+    ``misses`` count the lookups of the cache's life.
+    """
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = max_bytes
+        self.hits = 0
+        self.misses = 0
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[str, Tuple[Any, np.ndarray]]" = OrderedDict()
+        self._bytes = 0
+
+    def get(self, path: str, sig) -> Optional[np.ndarray]:
+        with self._lock:
+            entry = self._entries.get(path)
+            if entry is None or entry[0] != sig:
+                self.misses += 1
+                return None
+            self._entries.move_to_end(path)
+            self.hits += 1
+            return entry[1]
+
+    def put(self, path: str, sig, arr: np.ndarray) -> None:
+        if arr.nbytes > self.max_bytes:
+            return
+        with self._lock:
+            old = self._entries.pop(path, None)
+            if old is not None:
+                self._bytes -= old[1].nbytes
+            self._entries[path] = (sig, arr)
+            self._bytes += arr.nbytes
+            while self._bytes > self.max_bytes and self._entries:
+                _, (_, evicted) = self._entries.popitem(last=False)
+                self._bytes -= evicted.nbytes
+
+    def invalidate(self, path: str) -> None:
+        with self._lock:
+            old = self._entries.pop(path, None)
+            if old is not None:
+                self._bytes -= old[1].nbytes
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
+
+
+def _chunk_cache_budget_bytes() -> int:
+    """``CTT_CHUNK_CACHE_MB`` (default 64, 0 disables); a malformed value
+    degrades to the default."""
+    raw = os.environ.get("CTT_CHUNK_CACHE_MB")
+    try:
+        mb = float(raw) if raw is not None else 64.0
+    except (TypeError, ValueError):
+        mb = 64.0
+    return max(int(mb * 1024 * 1024), 0)
+
+
+_CHUNK_CACHE = _DecodedChunkCache(_chunk_cache_budget_bytes())
+
+
+def set_chunk_cache_budget(max_bytes: Optional[int]) -> int:
+    """Set the decoded-chunk LRU's byte budget in this process (0 disables
+    it, ``None`` restores the ``CTT_CHUNK_CACHE_MB`` value) and return the
+    previous one; any change drops the cached entries."""
+    prev = _CHUNK_CACHE.max_bytes
+    _CHUNK_CACHE.max_bytes = (
+        _chunk_cache_budget_bytes() if max_bytes is None else max(int(max_bytes), 0)
+    )
+    _CHUNK_CACHE.clear()
+    return prev
+
+
+def chunk_cache_budget() -> int:
+    """The decoded-chunk LRU's byte budget (0: disabled)."""
+    return _CHUNK_CACHE.max_bytes
+
+
+def chunk_cache_counts() -> Dict[str, int]:
+    """Hits and misses of the decoded-chunk LRU in this process so far."""
+    with _CHUNK_CACHE._lock:
+        return {"hits": _CHUNK_CACHE.hits, "misses": _CHUNK_CACHE.misses}
+
+
+class Attributes:
+    """JSON-file attribute mapping (``.zattrs``, or n5's ``attributes.json``
+    with the format's own keys hidden)."""
+
+    _N5_RESERVED = ("dimensions", "blockSize", "dataType", "compression", "n5")
+
+    def __init__(self, path: str, reserved: Sequence[str] = ()):
+        self._path = path
+        self._reserved = tuple(reserved)
+
+    def _load(self) -> Dict[str, Any]:
+        try:
+            return _read_json(self._path)
+        except FileNotFoundError:
+            return {}
+
+    def __getitem__(self, key: str) -> Any:
+        if key in self._reserved:
+            raise KeyError(key)
+        return self._load()[key]
+
+    def __setitem__(self, key: str, value: Any) -> None:
+        if key in self._reserved:
+            raise KeyError(f"attribute key {key!r} is reserved")
+        obj = self._load()
+        obj[key] = value
+        _write_json(self._path, obj)
+
+    def __contains__(self, key: str) -> bool:
+        return key not in self._reserved and key in self._load()
+
+
 def _unsupported_codec(what: str, path: str):
     return NotImplementedError(
         f"{what} in {path}: the PyTorch port's store reads raw, zlib and gzip "
@@ -78,6 +214,8 @@ def _unsupported_codec(what: str, path: str):
 class _ZarrFormat:
     array_meta = ".zarray"
     group_meta = ".zgroup"
+    attrs_file = ".zattrs"
+    attrs_reserved: Tuple[str, ...] = ()
 
     @staticmethod
     def chunk_key(grid_pos, separator: str = ".") -> str:
@@ -153,6 +291,8 @@ class _ZarrFormat:
 class _N5Format:
     array_meta = "attributes.json"
     group_meta = "attributes.json"
+    attrs_file = "attributes.json"
+    attrs_reserved = Attributes._N5_RESERVED
 
     _DTYPES = {
         "uint8": "|u1", "uint16": ">u2", "uint32": ">u4", "uint64": ">u8",
@@ -255,6 +395,7 @@ class Dataset:
         self.compression = spec["compression"]
         self.fill_value = spec["fill_value"]
         self._separator = spec["separator"]
+        self.attrs = Attributes(os.path.join(path, fmt.attrs_file), fmt.attrs_reserved)
 
     @property
     def ndim(self) -> int:
@@ -270,16 +411,36 @@ class Dataset:
         )
 
     def _decoded_chunk(self, grid_pos) -> Optional[np.ndarray]:
-        """One chunk at full chunk shape (edge chunks zero-padded), or None."""
+        """One chunk at full chunk shape (edge chunks zero-padded), read-only,
+        through the decoded-chunk LRU; None if the chunk is unwritten.  A
+        rewrite between the signature probe and the read can at worst cache
+        fresh content under the old signature, which the next probe turns
+        into a miss."""
+        p = self._chunk_path(grid_pos)
+        sig = None
+        if _CHUNK_CACHE.max_bytes > 0:
+            try:
+                st = os.stat(p)
+            except FileNotFoundError:
+                return None
+            sig = (st.st_ino, st.st_mtime_ns, st.st_size)
+            hit = _CHUNK_CACHE.get(p, sig)
+            if hit is not None:
+                return hit
         try:
-            with open(self._chunk_path(grid_pos), "rb") as f:
+            with open(p, "rb") as f:
                 payload = f.read()
         except FileNotFoundError:
             return None
-        return self._fmt.decode_chunk(payload, self.chunks, self.dtype, self.compression)
+        full = self._fmt.decode_chunk(payload, self.chunks, self.dtype, self.compression)
+        full.setflags(write=False)  # shared across cache readers
+        if sig is not None:
+            _CHUNK_CACHE.put(p, sig, full)
+        return full
 
     def read_chunk(self, grid_pos) -> Optional[np.ndarray]:
-        """One chunk cropped to the volume, or None if unwritten."""
+        """One chunk cropped to the volume (a writable copy: the decoded
+        chunk may be the cache's), or None if unwritten."""
         full = self._decoded_chunk(grid_pos)
         if full is None:
             return None
@@ -296,9 +457,12 @@ class Dataset:
             )
         p = self._chunk_path(grid_pos)
         os.makedirs(os.path.dirname(p), exist_ok=True)
-        atomic_write_bytes(p, self._fmt.encode_chunk(
-            np.asarray(data, dtype=self.dtype), self.chunks, self.compression
-        ))
+        try:
+            atomic_write_bytes(p, self._fmt.encode_chunk(
+                np.asarray(data, dtype=self.dtype), self.chunks, self.compression
+            ))
+        finally:
+            _CHUNK_CACHE.invalidate(p)
 
     def _normalize_bb(self, bb):
         if not isinstance(bb, tuple):
@@ -519,7 +683,8 @@ class Group:
 
 
 class File(Group):
-    """Root of a zarr/n5 container."""
+    """Root of a zarr/n5 container (a context manager with nothing to
+    close, as the JAX package's)."""
 
     def __init__(self, path: str, mode: str = "a"):
         fmt = _format_for(path)
@@ -527,6 +692,12 @@ class File(Group):
             raise FileNotFoundError(path)
         super().__init__(path, fmt, readonly=(mode == "r"))
         self.mode = mode
+
+    def __enter__(self) -> "File":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
 
 
 def file_reader(path: str, mode: str = "a") -> File:

@@ -1,4 +1,15 @@
+from .multicut import (
+    EdgeFeaturesWorkflow,
+    GraphWorkflow,
+    MulticutSegmentationWorkflow,
+    MulticutWorkflow,
+    ProblemWorkflow,
+)
 from .thresholded_components import ThresholdAndWatershedWorkflow, ThresholdedComponentsWorkflow
 from .watershed import WatershedWorkflow
 
-__all__ = ["ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "WatershedWorkflow"]
+__all__ = [
+    "EdgeFeaturesWorkflow", "GraphWorkflow", "MulticutSegmentationWorkflow", "MulticutWorkflow",
+    "ProblemWorkflow", "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow",
+    "WatershedWorkflow",
+]

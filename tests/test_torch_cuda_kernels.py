@@ -671,3 +671,55 @@ def test_seeds_workflow_on_card_equals_cpu(tmp_path, cuda_device, monkeypatch):
     out = file_reader(path, "r")
     for key in ("seg_{}_seeds", "seg_{}"):
         np.testing.assert_array_equal(out[key.format("cuda")][:], out[key.format("cpu")][:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,owner", [((12, 40, 40), None), ((9, 33, 33), (8, 32, 32))])
+def test_rag_accumulator_on_card_equals_cpu(shape, owner, cuda_device):
+    """The device RAG accumulator (plain PyTorch) on the card against the
+    same function on CPU tensors: edges, counts, histograms, minima, maxima
+    and quantiles equal; the float32 moments (atomic sums on the card) to
+    the reference's tolerances.  One call on the card counts one launch."""
+    from cluster_tools_tpu_torch.ops import rag
+
+    rng = np.random.default_rng(11)
+    labels = rng.integers(0, 30, shape).astype(np.uint64) * np.uint64(1000)
+    values = rng.random(shape).astype(np.float32)
+    before = rag.boundary_edge_features_device.launches
+    got = rag.boundary_edge_features_gpu(
+        labels, values, hist_bins=rag.HIST_BINS, owner_shape=owner, device=cuda_device
+    )
+    assert rag.boundary_edge_features_device.launches == before + 1
+    want = rag.boundary_edge_features_gpu(
+        labels, values, hist_bins=rag.HIST_BINS, owner_shape=owner, device="cpu"
+    )
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[1][:, 2:], want[1][:, 2:])
+    np.testing.assert_allclose(got[1][:, 0], want[1][:, 0], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got[1][:, 1], want[1][:, 1], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_multicut_workflow_on_card_equals_cpu(tmp_path, cuda_device):
+    """``MulticutSegmentationWorkflow`` on the card (the 2d watershed's
+    kernels, host features) writes what it writes on the CPU."""
+    from cluster_tools_tpu_torch import MulticutSegmentationWorkflow
+
+    path = str(tmp_path / "d.n5")
+    raw = _volume((24, 48, 48), 5, (1.0, 2.0, 2.0))
+    file_reader(path).create_dataset("bnd", data=raw, chunks=(12, 24, 24), compression="raw")
+    for device in ("cuda", "cpu"):
+        config_dir = str(tmp_path / f"configs_{device}")
+        cfg.write_global_config(config_dir, {
+            "block_shape": [12, 24, 24], "target": "cuda", "device": device,
+            "device_batch_size": 4,
+        })
+        cfg.write_config(config_dir, "watershed", {"threshold": 0.5})
+        assert build([MulticutSegmentationWorkflow(
+            str(tmp_path / f"tmp_{device}"), config_dir, input_path=path, input_key="bnd",
+            ws_path=path, ws_key=f"ws_{device}", output_path=path, output_key=f"seg_{device}",
+        )])
+    out = file_reader(path, "r")
+    np.testing.assert_array_equal(out["ws_cuda"][:], out["ws_cpu"][:])
+    np.testing.assert_array_equal(out["seg_cuda"][:], out["seg_cpu"][:])

@@ -35,6 +35,10 @@ def test_port_imports_no_jax(entry):
             from cluster_tools_tpu_torch import ThresholdAndWatershedWorkflow
             from cluster_tools_tpu_torch.ops.cuda_flood import flood_tiles_warm, flood_volume
             from cluster_tools_tpu_torch.tasks import WatershedFromSeedsTask
+            from cluster_tools_tpu_torch import MulticutSegmentationWorkflow, native
+            from cluster_tools_tpu_torch.ops.rag import boundary_edge_features_gpu
+            from cluster_tools_tpu_torch.ops.multicut import solve_multicut
+            assert native.available(), native.load_error
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
                 importlib.import_module(m.name)
         """
@@ -57,6 +61,16 @@ def test_port_imports_no_jax(entry):
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+def test_native_solvers_are_the_ports_own():
+    """The solver library is built from the port's copy of the source, into
+    the repository's build directory, not from or into the JAX package."""
+    from cluster_tools_tpu_torch import native
+
+    assert os.path.dirname(native.SOURCE) == os.path.join(REPO, "cluster_tools_tpu_torch", "native")
+    assert native.library_path().startswith(os.path.join(REPO, "build", "native") + os.sep)
+    assert native.available(), native.load_error
 
 
 def test_cuda_device_without_card_raises(monkeypatch):
@@ -89,6 +103,27 @@ def test_workflow_defaults_to_card_and_raises_without_one(tmp_path, monkeypatch,
     wf = workflow(
         str(tmp_path / "tmp"), config_dir, input_path=path, input_key="bnd",
         output_path=path, output_key="ws",
+    )
+    with pytest.raises(Exception, match="no CUDA device"):
+        build([wf])
+    assert not wf.complete()
+
+
+@pytest.mark.parametrize("target", ["local", "cuda"])
+def test_multicut_workflow_defaults_to_card_and_raises_without_one(tmp_path, monkeypatch, target):
+    from cluster_tools_tpu_torch import MulticutSegmentationWorkflow
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "d.n5")
+    file_reader(path).create_dataset(
+        "bnd", data=np.random.default_rng(0).random((8, 16, 16)).astype("float32"),
+        chunks=(8, 16, 16),
+    )
+    config_dir = str(tmp_path / "configs")
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16], "target": target})
+    wf = MulticutSegmentationWorkflow(
+        str(tmp_path / "tmp"), config_dir, input_path=path, input_key="bnd",
+        ws_path=path, ws_key="ws", output_path=path, output_key="seg",
     )
     with pytest.raises(Exception, match="no CUDA device"):
         build([wf])

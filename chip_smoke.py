@@ -96,7 +96,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      task, chunk-cache hits and misses, the multicut energy of each run,
      Rand and VoI between the runs, and the accumulator's ms per block
      against its byte bound;
-  9. one JSON line with the accumulator (``device_functions``), one listing
+  9. ``WatershedWorkflow(agglomeration=True)``, the default watershed and
+     agglomerate configs, ``max_jobs`` 8: kernels 2 and 1 must launch, all
+     on the cluster route, and the native solvers must have built; the
+     fragments (``<key>_frag``) must equal phase 3's watershed byte for
+     byte, the output must merge them within each block's offset range
+     with their coverage, and two blocks re-run with the Python solver
+     must equal it.  Printed: wall, voxels/s, seconds per task, fragment
+     and segment counts, and the share of the two blocks' edges under the
+     threshold;
+ 10. ``WatershedWorkflow(two_pass=True)`` in the 2d mode (NMS on, the task
+     default) with halo [2, 8, 8], twice: at the default
+     ``pipeline_depth`` with the kernels (kernel 1 must launch, all on the
+     cluster route, kernel 2 must not), then at ``pipeline_depth`` 1
+     through the plain versions; the outputs must be equal byte for byte.
+     The flood runs per slice, so labels continue across the in-plane
+     block faces only: agreement over the y and x faces above 0.25, phase
+     3's single pass 0 on every axis (each axis' agreement is printed).
+     Printed: walls, voxels/s, seconds per pass and stage;
+ 11. ``AgglomerativeClusteringWorkflow`` over phase 8's watershed, in phase
+     8 run 1's tmp folder: its graph and feature tasks must be skipped
+     (status files untouched); the output must be its table applied to
+     the watershed, with between 1 and the fragment count segments;
+ 12. one JSON line with the accumulator (``device_functions``), one listing
      the six kernels, then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
@@ -1563,8 +1585,8 @@ def multicut_phase(vol_np, path: str, work: str, card: str) -> dict:
         log(f"multicut {tag}: {vol_np.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on "
             f"{card}; chunk cache at {store.chunk_cache_budget() / 2**20:.0f} MiB: {cache}")
         task_seconds(wf, f"multicut {tag}")
-        return {"tmp": tmp, "key": f"mc_seg_{tag}", "wall": wall, "cache": cache,
-                "table": np.load(os.path.join(tmp, ASSIGNMENTS_NAME))}
+        return {"tmp": tmp, "config_dir": config_dir, "key": f"mc_seg_{tag}", "wall": wall,
+                "cache": cache, "table": np.load(os.path.join(tmp, ASSIGNMENTS_NAME))}
 
     reset_counts(dtws_slices, flood_slices)
     host = run("host", {}, skip_ws=False)
@@ -1613,7 +1635,264 @@ def multicut_phase(vol_np, path: str, work: str, card: str) -> dict:
     record = accumulator_check(path, "mc_ws", blocking, max_edges, card)
     record["launches"] = acc_launches
     return {"launches": launches, "walls": {k: r["wall"] for k, r in runs.items()},
-            "accumulator": record}
+            "accumulator": record, "tmp": host["tmp"], "config_dir": host["config_dir"]}
+
+
+def merge_check(path: str, frag_key: str, out_key: str, blocking) -> dict:
+    """Phase 9's gate, in one pass over the blocks: ``out_key`` must merge
+    ``frag_key``'s fragments within each block — every fragment mapped to
+    one id, that id inside the block's offset range, background kept
+    (``(out > 0) == (frag > 0)``).  Returns the fragment and segment
+    counts."""
+    from cluster_tools_tpu_torch.utils import file_reader
+
+    f = file_reader(path, "r")
+    unit = int(np.prod(blocking.block_shape))
+    n_frag = n_seg = 0
+    for bid in range(blocking.n_blocks):
+        bb = blocking.block(bid).slicing
+        base = np.uint64(bid * unit)
+        frag, out = f[frag_key][bb], f[out_key][bb]
+        if not np.array_equal(frag > 0, out > 0):
+            raise AssertionError(f"agglomeration block {bid}: coverage differs from the fragments'")
+        fl = np.where(frag > 0, frag - base, 0).astype(np.int64)
+        ol = np.where(out > 0, out - base, 0).astype(np.int64)
+        if fl.max() > unit or ol.max() > unit or (out[out > 0] <= base).any():
+            raise AssertionError(f"agglomeration block {bid}: ids outside its offset range")
+        lut = np.zeros(unit + 1, dtype=np.int64)
+        lut[fl] = ol
+        if not np.array_equal(lut[fl], ol):
+            raise AssertionError(f"agglomeration block {bid}: a fragment maps to two ids")
+        present = np.bincount(fl.reshape(-1), minlength=unit + 1)[1:] > 0
+        n_frag += int(present.sum())
+        n_seg += len(np.unique(lut[1:][present]))
+    return {"n_fragments": n_frag, "n_segments": n_seg}
+
+
+def agglomeration_phase(vol_np, path: str, work: str, card: str):
+    """Phase 9: ``WatershedWorkflow(agglomeration=True)`` with the default
+    watershed and agglomerate configs, ``max_jobs`` 8.  Gates: kernels 2
+    and 1 launched, all on the cluster route; the native solvers built;
+    ``agglo_frag`` equal to phase 3's watershed byte for byte; the output a
+    per-block merge of the fragments; two blocks re-run with the Python
+    solver equal to the workflow's output."""
+    import functools
+
+    from cluster_tools_tpu_torch import WatershedWorkflow, build, native
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
+    from cluster_tools_tpu_torch.ops.multicut import agglomerative_clustering
+    from cluster_tools_tpu_torch.ops.rag import boundary_edge_features
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks import watershed as ws_tasks
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    if not native.available():
+        raise AssertionError(f"the native solvers did not build: {native.load_error}")
+    config_dir = os.path.join(work, "configs_agglo")
+    cfg.write_global_config(config_dir, {
+        "block_shape": list(BLOCK), "target": "cuda", "device": "cuda",
+        "max_jobs": min(8, os.cpu_count() or 1),
+    })
+    cfg.write_config(config_dir, "watershed", ws_tasks.WatershedTask.default_task_config())
+    agglo_conf = ws_tasks.AgglomerateTask.default_task_config()
+    cfg.write_config(config_dir, "agglomerate", agglo_conf)
+    wf = WatershedWorkflow(
+        os.path.join(work, "tmp_agglo"), config_dir, input_path=path, input_key="raw",
+        output_path=path, output_key="agglo", agglomeration=True,
+    )
+    reset_counts(dtws_slices, flood_slices)
+    t0 = time.perf_counter()
+    if not build([wf]):
+        raise AssertionError("agglomeration workflow build failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"dtws_slices": dtws_slices.launches, "flood_slices": flood_slices.launches}
+    for name, wrapper in (("dtws_slices", dtws_slices), ("flood_slices", flood_slices)):
+        if wrapper.launches == 0:
+            raise AssertionError(f"the agglomeration run never launched {name}")
+        if wrapper.launches_by_route["cluster"] != wrapper.launches:
+            raise AssertionError(f"{name}: launches off the cluster route {wrapper.launches_by_route}")
+    vox = int(np.prod(vol_np.shape))
+    log(f"agglomeration: {vol_np.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on {card}; "
+        f"launches {launches}, all down the cluster route")
+    task_seconds(wf, "agglomeration")
+    if chunk_files(os.path.join(path, "agglo_frag")) != chunk_files(os.path.join(path, "ws")):
+        raise AssertionError("the agglomeration's fragments differ from phase 3's watershed")
+    blocking = Blocking(vol_np.shape, BLOCK)
+    t0 = time.perf_counter()
+    counts = merge_check(path, "agglo_frag", "agglo", blocking)
+    log(f"agglomeration: fragments byte-identical to phase 3's watershed; {counts['n_fragments']} "
+        f"fragments merged into {counts['n_segments']} segments, each inside its block's offset "
+        f"range, coverage kept (checked in {time.perf_counter() - t0:.1f} s)")
+
+    # two blocks again through the Python solver; the edges' weights
+    agglo = wf.requires()[0]
+    config = {**agglo.global_config(), **agglo.get_task_config()}
+    python = ws_tasks.AgglomerateTask(
+        agglo.tmp_folder, config_dir, input_path=path, input_key="raw", labels_path=path,
+        labels_key="agglo_frag", output_path=path, output_key="agglo_python",
+    )
+    python.prepare(blocking, config)
+    check_ids = [0, blocking.n_blocks - 1]
+    saved = ws_tasks.agglomerative_clustering
+    ws_tasks.agglomerative_clustering = functools.partial(agglomerative_clustering, use_native=False)
+    try:
+        t0 = time.perf_counter()
+        for bid in check_ids:
+            python.process_block(bid, blocking, config)
+        py_s = (time.perf_counter() - t0) / len(check_ids)
+    finally:
+        ws_tasks.agglomerative_clustering = saved
+    f = file_reader(path, "r")
+    under = total = 0
+    for bid in check_ids:
+        bb = blocking.block(bid).slicing
+        if not np.array_equal(f["agglo_python"][bb], f["agglo"][bb]):
+            raise AssertionError(f"agglomeration block {bid}: the Python solver differs from the native")
+        frag = f["agglo_frag"][bb].astype(np.uint64)
+        _, feats = boundary_edge_features(frag, f["raw"][bb].astype(np.float64))
+        under += int((feats[:, 0] < agglo_conf["threshold"]).sum())
+        total += feats.shape[0]
+    log(f"agglomeration blocks {check_ids}: the Python solver's merge equal to the native one's "
+        f"({py_s:.2f} s per block); {under} of their {total} edges ({under / max(total, 1):.4f}) "
+        f"under the threshold {agglo_conf['threshold']}")
+    return launches, wall, vox / wall
+
+
+def face_agreement(ws, axes) -> float:
+    """Share of labelled voxel pairs across the block faces normal to
+    ``axes`` that carry one id (a segment continued across the face)."""
+    agree = total = 0
+    for axis in axes:
+        for pos in range(BLOCK[axis], ws.shape[axis], BLOCK[axis]):
+            a, b = np.take(ws, pos - 1, axis), np.take(ws, pos, axis)
+            sel = (a > 0) & (b > 0)
+            total += int(sel.sum())
+            agree += int((a[sel] == b[sel]).sum())
+    return agree / max(total, 1)
+
+
+def two_pass_phase(vol_np, path: str, work: str, card: str):
+    """Phase 10: ``WatershedWorkflow(two_pass=True)`` in the 2d mode (the
+    task's defaults: NMS on) with halo [2, 8, 8], at the default
+    ``pipeline_depth`` with the kernels, then at ``pipeline_depth`` 1 with
+    the plain versions.  Gates: kernel 1 launched in the first run, kernel
+    2 not; both outputs equal byte for byte; labels continue across the
+    in-plane block faces (agreement over the y and x faces above 0.25;
+    phase 3's single pass 0 on every axis)."""
+    from cluster_tools_tpu_torch import WatershedWorkflow, build
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks.watershed import TwoPassWatershedTask
+    from cluster_tools_tpu_torch.utils import file_reader
+
+    vox = int(np.prod(vol_np.shape))
+
+    def run(tag: str, gconf: dict):
+        config_dir = os.path.join(work, f"configs_tp_{tag}")
+        cfg.write_global_config(config_dir, {
+            "block_shape": list(BLOCK), "target": "cuda", "device": "cuda", **gconf,
+        })
+        cfg.write_config(config_dir, "two_pass_watershed", {
+            **TwoPassWatershedTask.default_task_config(), "halo": list(HALO),
+        })
+        wf = WatershedWorkflow(
+            os.path.join(work, f"tmp_tp_{tag}"), config_dir, input_path=path, input_key="raw",
+            output_path=path, output_key=f"tp_{tag}", two_pass=True,
+        )
+        t0 = time.perf_counter()
+        if not build([wf]):
+            raise AssertionError(f"two-pass {tag} build failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"two-pass {tag}: {vol_np.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on {card}")
+        task_seconds(wf, f"two-pass {tag}")
+        return wall
+
+    reset_counts(dtws_slices, flood_slices)
+    wall = run("kernels", {})
+    launches = {"dtws_slices": dtws_slices.launches, "flood_slices": flood_slices.launches}
+    if flood_slices.launches == 0 or dtws_slices.launches:
+        raise AssertionError(f"two-pass: kernel 1 must launch and kernel 2 must not: {launches}")
+    if flood_slices.launches_by_route["cluster"] != flood_slices.launches:
+        raise AssertionError(f"two-pass: flood_slices off the cluster route "
+                             f"{flood_slices.launches_by_route}")
+    log(f"two-pass kernels: launches {launches}, flood_slices all down the cluster route")
+    with plain_kernels():
+        plain_wall = run("plain", {"pipeline_depth": 1})
+    if chunk_files(os.path.join(path, "tp_kernels")) != chunk_files(os.path.join(path, "tp_plain")):
+        raise AssertionError("two-pass: the kernel run differs from the plain run at pipeline_depth 1")
+    f = file_reader(path, "r")
+    two, one = f["tp_kernels"][:], f["ws"][:]
+    if (two[vol_np >= THRESHOLD] != 0).any():
+        raise AssertionError("two-pass: labels outside the foreground")
+    agree = {name: [face_agreement(ws, [axis]) for axis in range(3)]
+             for name, ws in (("two-pass", two), ("single pass", one))}
+    in_plane = face_agreement(two, [1, 2])
+    log(f"two-pass: byte-identical to the plain run at pipeline_depth 1 ({plain_wall:.2f} s); "
+        f"cross-face agreement (z, y, x) two-pass {agree['two-pass']} (y and x faces together "
+        f"{in_plane:.4f}), phase 3's single pass {agree['single pass']}")
+    # pass 1 zeroes the distances at written voxels (the reference's 2d
+    # mode), so own seeds next to a face compete with the continued labels
+    if not in_plane > 0.25:
+        raise AssertionError("two-pass: labels do not continue across the in-plane block faces")
+    if any(agree["single pass"]):
+        raise AssertionError("single pass: an id crosses a block face")
+    return launches, wall, vox / wall
+
+
+def clustering_phase(vol_np, path: str, work: str, card: str, mc: dict):
+    """Phase 11: ``AgglomerativeClusteringWorkflow`` over phase 8's
+    watershed, in phase 8 run 1's tmp folder and config dir: its graph and
+    feature tasks are complete and must be skipped (their status files
+    untouched).  Gate: the output is its table applied to the watershed,
+    with between 1 and the fragment count segments, coverage kept."""
+    from cluster_tools_tpu_torch import AgglomerativeClusteringWorkflow, build
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks.agglomerative_clustering import (
+        AGGLO_ASSIGNMENTS_NAME, AgglomerativeClusteringTask,
+    )
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    tmp, config_dir = mc["tmp"], mc["config_dir"]
+    cfg.write_config(config_dir, "agglomerative_clustering",
+                     AgglomerativeClusteringTask.default_task_config())
+    reused = ["initial_sub_graphs", "merge_sub_graphs", "map_edge_ids", "block_edge_features",
+              "merge_edge_features"]
+
+    def stamps():
+        return {n: os.stat(os.path.join(tmp, "status", f"{n}.status.json")).st_mtime_ns
+                for n in reused}
+
+    before = stamps()
+    wf = AgglomerativeClusteringWorkflow(
+        tmp, config_dir, input_path=path, input_key="raw", ws_path=path, ws_key="mc_ws",
+        output_path=path, output_key="ac_seg",
+    )
+    t0 = time.perf_counter()
+    if not build([wf]):
+        raise AssertionError("agglomerative clustering build failed")
+    wall = time.perf_counter() - t0
+    if stamps() != before:
+        raise AssertionError("agglomerative clustering re-ran a graph or feature task")
+    vox = int(np.prod(vol_np.shape))
+    log(f"agglomerative clustering: {vol_np.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on "
+        f"{card}; graph and feature tasks of phase 8 run 1 reused (status files untouched)")
+    for name in ("agglomerative_clustering", "write_agglomerative_clustering"):
+        with open(os.path.join(tmp, "status", f"{name}.status.json")) as fh:
+            split = {t["label"]: round(t["seconds"], 3) for t in json.load(fh)["timings"]}
+        log(f"agglomerative clustering task {name}: {status_seconds(tmp, name):.3f} s {split}")
+    t0 = time.perf_counter()
+    runs = {"agglomerative clustering": {
+        "key": "ac_seg", "table": np.load(os.path.join(tmp, AGGLO_ASSIGNMENTS_NAME))}}
+    cont = check_segmentations(path, "mc_ws", runs, Blocking(vol_np.shape, BLOCK))
+    log(f"agglomerative clustering: {runs['agglomerative clustering']['n_segments']} segments of "
+        f"{cont['n_fragments']} fragments; the output is its table applied to the watershed, "
+        f"coverage kept (checked in {time.perf_counter() - t0:.1f} s)")
+    return wall, vox / wall
 
 
 def main() -> int:
@@ -1694,6 +1973,10 @@ def main() -> int:
         log(f"phases 6-7 done at {time.perf_counter() - t_start:.1f} s")
         mc = multicut_phase(vol_np, path, work, card)
         log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+        agglo_launches, agglo_wall, agglo_rate = agglomeration_phase(vol_np, path, work, card)
+        tp_launches, tp_wall, tp_rate = two_pass_phase(vol_np, path, work, card)
+        ac_wall, ac_rate = clustering_phase(vol_np, path, work, card, mc)
+        log(f"phases 9-11 done at {time.perf_counter() - t_start:.1f} s")
     for name, rec in records.items():
         rec["launches"] = launches[name]
         log(f"kernel {name}: {rec['launches']} launches in its workflow run, {rec['ms']:.3f} ms "
@@ -1710,6 +1993,12 @@ def main() -> int:
         log(f"{card}: MulticutSegmentationWorkflow {tag} {vol_np.shape} "
             f"{int(np.prod(vol_np.shape)) / wall:.6g} voxels/s ({wall:.3f} s)")
     log(f"multicut run 1 kernel launches {mc['launches']}")
+    log(f"{card}: WatershedWorkflow agglomeration {vol_np.shape} {agglo_rate:.6g} voxels/s "
+        f"({agglo_wall:.3f} s); kernel launches {agglo_launches}")
+    log(f"{card}: WatershedWorkflow two-pass {vol_np.shape} {tp_rate:.6g} voxels/s "
+        f"({tp_wall:.3f} s); kernel launches {tp_launches}")
+    log(f"{card}: AgglomerativeClusteringWorkflow {vol_np.shape} {ac_rate:.6g} voxels/s "
+        f"({ac_wall:.3f} s, graph and features reused)")
     log(json.dumps({"device_functions": [mc["accumulator"]]}))
     log(json.dumps({"kernels": [records[k] for k in (
         "flood_slices", "dtws_slices", "flood_tiles_warm", "cc_slices", "cc_tiles",

@@ -5,7 +5,8 @@ far: the per-block DT-watershed behind ``WatershedWorkflow`` (default
 branch, every mode), the block pipeline of ``ThresholdedComponentsWorkflow``
 and ``ThresholdAndWatershedWorkflow`` with the 3d seeded flood, and
 ``MulticutSegmentationWorkflow`` (watershed → RAG graph → edge features →
-costs → hierarchical GAEC multicut → write); all five TPU kernels are
+costs → hierarchical GAEC multicut → write), the two-pass and agglomerating
+branches of ``WatershedWorkflow`` and ``AgglomerativeClusteringWorkflow``; all five TPU kernels are
 hand-written CUDA for Hopper (``csrc/``), built with ``nvcc`` at first use,
 the multicut solvers C++ built with ``g++`` at first use (``native/``).
 Entry points compute on the card unless the global config asks for
@@ -18,10 +19,12 @@ from .workflows.thresholded_components import (
     ThresholdAndWatershedWorkflow,
     ThresholdedComponentsWorkflow,
 )
+from .workflows.agglomerative_clustering import AgglomerativeClusteringWorkflow
 from .workflows.multicut import MulticutSegmentationWorkflow
 from .workflows.watershed import WatershedWorkflow
 
 __all__ = [
-    "config", "build", "WorkflowBase", "MulticutSegmentationWorkflow",
+    "config", "build", "WorkflowBase", "AgglomerativeClusteringWorkflow",
+    "MulticutSegmentationWorkflow",
     "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "WatershedWorkflow",
 ]

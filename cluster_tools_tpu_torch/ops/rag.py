@@ -58,7 +58,14 @@ def block_edges(labels: np.ndarray, ignore_zero: bool = True) -> np.ndarray:
             pairs.append(np.stack([np.minimum(a, b), np.maximum(a, b)], axis=1))
     if not pairs:
         return np.zeros((0, 2), dtype=labels.dtype)
-    return np.unique(np.concatenate(pairs, axis=0), axis=0)
+    # the rows' unique, in their lexicographic order, as a 1d unique of one
+    # integer key per row: ``np.unique(axis=0)`` sorts row records under the
+    # interpreter lock, which serialises the block threads
+    pairs = np.concatenate(pairs, axis=0)
+    ids, inv = np.unique(pairs, return_inverse=True)
+    inv = inv.reshape(pairs.shape).astype(np.int64)
+    key = np.unique(inv[:, 0] * ids.size + inv[:, 1])
+    return np.stack([ids[key // ids.size], ids[key % ids.size]], axis=1)
 
 
 def _owner_mask(shape, owner_shape) -> Optional[np.ndarray]:

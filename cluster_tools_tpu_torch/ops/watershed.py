@@ -14,7 +14,9 @@ flood_slices``); a 3d flood to the global sweeps (``cuda_flood.
 flood_volume``), warm-started by kernel 3 (``cuda_flood.flood_tiles_warm``)
 when a flood tile resolves (``resolve_flood_tile``).  On the CPU each runs
 its plain PyTorch version.  The production 2d mode of ``dt_watershed`` runs
-as kernel 2 (``cuda_dtws``).  Tensors carry a leading batch axis of blocks
+as kernel 2 (``cuda_dtws``).  ``two_pass_flood`` is pass 2 of the
+checkerboard two-pass watershed: the same steps, seeded from the labels
+pass 1 wrote into the halo as well.  Tensors carry a leading batch axis of blocks
 (B, Z, H, W) where the JAX package used ``vmap``.
 """
 
@@ -162,9 +164,9 @@ def seeded_watershed(
     ``coarse_tile`` or ``CTT_FLOOD_TILE`` (same labels, fewer global
     rounds).  Returns int32 labels."""
     if connectivity != 1:
-        raise NotImplementedError("flood connectivity > 1 is not ported yet (ROADMAP Queue A 5)")
+        raise NotImplementedError("flood connectivity > 1 is not ported yet (ROADMAP Queue A 5(d))")
     if max_iter:
-        raise NotImplementedError("a capped flood (max_iter > 0) is not ported yet (ROADMAP Queue A 5)")
+        raise NotImplementedError("a capped flood (max_iter > 0) is not ported yet (ROADMAP Queue A 5(d))")
     if mask is None:
         mask = torch.ones(hmap.shape, dtype=torch.bool, device=hmap.device)
     shape = hmap.shape
@@ -191,11 +193,14 @@ def apply_size_filter(
     mask: Optional[torch.Tensor] = None,
     connectivity: int = 1,
     per_slice: bool = False,
+    protect_upto=None,
 ) -> torch.Tensor:
     """Per block of one (Z, H, W) block or a (B, Z, H, W) batch: zero the
     segments with fewer than ``size_filter`` voxels and re-flood the freed
     voxels from the survivors.  ``num_segments`` bounds the label values
-    (exclusive)."""
+    (exclusive).  Labels ≤ ``protect_upto`` (a scalar, or a (B,) tensor of
+    one bound per block) are never filtered: the two-pass watershed's
+    continuations of written neighbour labels."""
     lab = labels.reshape((-1,) + tuple(labels.shape[-3:]))
     b = lab.shape[0]
     flat = lab.reshape(b, -1).to(torch.int64)
@@ -203,6 +208,9 @@ def apply_size_filter(
     counts = torch.bincount((flat + base).reshape(-1), minlength=b * num_segments)
     counts = counts[: b * num_segments].view(b, num_segments)
     too_small = torch.gather(counts, 1, torch.clamp(flat, max=num_segments - 1)) < size_filter
+    if protect_upto is not None:
+        protect = torch.as_tensor(protect_upto, device=labels.device).reshape(-1, 1)
+        too_small = too_small & (flat > protect)
     kept = torch.where(too_small, 0, flat).view(labels.shape).to(torch.int32)
     return seeded_watershed(hmap, kept, mask, connectivity=connectivity, per_slice=per_slice)
 
@@ -267,6 +275,74 @@ def dt_watershed(
     if single:
         return labels[0], n[0]
     return labels, n
+
+
+def two_pass_flood(
+    input_: torch.Tensor,
+    written: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
+    threshold: float = 0.25,
+    apply_dt_2d: bool = True,
+    apply_ws_2d: bool = True,
+    pixel_pitch=None,
+    sigma_seeds: float = 2.0,
+    sigma_weights: float = 2.0,
+    alpha: float = 0.8,
+    size_filter: int = 25,
+    invert_input: bool = False,
+    non_maximum_suppression: bool = False,
+    num_segments: Optional[int] = None,
+):
+    """Pass 2 of the checkerboard two-pass watershed for a (Z, H, W) block
+    or a (B, Z, H, W) batch, on the tensors' device.
+
+    ``written`` holds the labels pass 1 wrote into the halo, compacted per
+    block to 1..k (0 = unwritten).  Threshold → distance transform (in the
+    2d mode zeroed at written voxels, so no own maximum lands there) →
+    seeds, shifted above k → height map → seeded flood from the written
+    labels and the own seeds (kernel 1 per slice, or the 3d flood) → size
+    filter, which never removes labels ≤ k.  Returns ``(int32 labels, k)``,
+    k per block for a batch.  ``num_segments`` bounds the label values
+    (exclusive); the default ``2·N + 2`` always holds."""
+    if pixel_pitch is not None and apply_dt_2d:
+        raise ValueError("pixel_pitch requires apply_dt_2d=False")
+    single = input_.dim() == 3
+
+    def batched(t):
+        return None if t is None else (t[None] if single else t)
+
+    x, w, m, v = (batched(t) for t in (input_, written, mask, valid))
+    x = x.to(torch.float32)
+    w = w.to(torch.int32)
+    if invert_input:
+        x = 1.0 - x
+    fg = x < torch.tensor(threshold, dtype=torch.float32, device=x.device)
+    if m is not None:
+        fg = fg & m.bool()
+    dt = distance_transform_2d_stack(fg) if apply_dt_2d else distance_transform(fg, pixel_pitch)
+    k = w.reshape(w.shape[0], -1).amax(1)
+    if apply_ws_2d:
+        dt = torch.where(w > 0, torch.zeros((), dtype=dt.dtype, device=dt.device), dt)
+    own, _ = dt_seeds(
+        dt, sigma_seeds, per_slice=apply_ws_2d, nms=non_maximum_suppression,
+        pixel_pitch=pixel_pitch,
+    )
+    own = own.to(torch.int32)
+    seeds = torch.where(w > 0, w, torch.where(own > 0, own + k.view(-1, 1, 1, 1), 0))
+    hmap = make_hmap(x, dt, alpha, sigma_weights, per_slice=apply_ws_2d)
+    flood_mask = fg if v is None else fg & v.bool()
+    labels = seeded_watershed(hmap, seeds, flood_mask, per_slice=apply_ws_2d)
+    if size_filter > 0:
+        if num_segments is None:
+            num_segments = 2 * int(np.prod(x.shape[1:])) + 2
+        labels = apply_size_filter(
+            labels, hmap, size_filter, num_segments, flood_mask,
+            per_slice=apply_ws_2d, protect_upto=k,
+        )
+    if single:
+        return labels[0], k[0]
+    return labels, k
 
 
 def num_segments_of(block_shape) -> int:

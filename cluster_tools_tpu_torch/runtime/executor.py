@@ -11,8 +11,12 @@ Port of ``cluster_tools_tpu/runtime/executor.py``:
     protocol run a three-stage pipeline: a read pool prefetches batch i+1,
     the calling thread runs every ``compute_batch`` in order, a write pool
     drains batch i-1 — each stage holds at most ``pipeline_depth`` batches.
-    A batch that fails degrades to per-block ``process_block`` calls.
-    Tasks without the split protocol run as on ``local``.
+    A task whose blocks read what other blocks of the same run write
+    (``pipeline_safe = False``: the two-pass watershed's pass 2) runs one
+    batch at a time instead, read → compute → write, and on ``local`` one
+    block at a time.  A batch that fails degrades to per-block
+    ``process_block`` calls.  Tasks without the split protocol run as on
+    ``local``.
 
 The profiler hook and the device-buffer cache of the JAX package wait
 (ROADMAP Queue A 9).
@@ -58,6 +62,8 @@ class LocalExecutor(BaseExecutor):
 
     def run_blocks(self, task, blocking, block_ids, config) -> RunResult:
         n_workers = max(int(config.get("max_jobs", 1)), 1)
+        if not getattr(task, "pipeline_safe", True):
+            n_workers = 1  # blocks read what other blocks write: one at a time
 
         def _one(bid: int):
             try:
@@ -93,7 +99,8 @@ class CudaExecutor(BaseExecutor):
         size = resolve_batch_size(config)
         ids = list(block_ids)
         chunks = [ids[i: i + size] for i in range(0, len(ids), size)]
-        depth = max(int(config.get("pipeline_depth", 2)), 1)
+        serial = not getattr(task, "pipeline_safe", True)
+        depth = 1 if serial else max(int(config.get("pipeline_depth", 2)), 1)
         done: List[int] = []
         failed: List[int] = []
         errors: Dict[int, str] = {}
@@ -152,6 +159,10 @@ class CudaExecutor(BaseExecutor):
                     _drain_write()
 
             for chunk in chunks:
+                while serial and writes:
+                    # the batch's neighbour labels must not depend on timing:
+                    # it reads only after the previous batch is written
+                    _drain_write()
                 reads.append((chunk, read_pool.submit(
                     _timed, "read", read_fn, chunk, blocking, config
                 )))

@@ -1,3 +1,4 @@
+from .agglomerative_clustering import AGGLO_ASSIGNMENTS_NAME, AgglomerativeClusteringTask
 from .costs import ProbsToCostsTask
 from .features import BlockEdgeFeaturesTask, MergeEdgeFeaturesTask
 from .graph import InitialSubGraphsTask, MapEdgeIdsTask, MergeScaleSubGraphsTask, MergeSubGraphsTask
@@ -8,13 +9,21 @@ from .thresholded_components import (
     MergeAssignmentsTask,
     MergeOffsetsTask,
 )
-from .watershed import MAX_IDS_KEY, WatershedFromSeedsTask, WatershedTask, kernel_params
+from .watershed import (
+    MAX_IDS_KEY,
+    AgglomerateTask,
+    TwoPassWatershedTask,
+    WatershedFromSeedsTask,
+    WatershedTask,
+    kernel_params,
+)
 from .write import WriteTask
 
 __all__ = [
+    "AGGLO_ASSIGNMENTS_NAME", "AgglomerateTask", "AgglomerativeClusteringTask",
     "BlockComponentsTask", "BlockEdgeFeaturesTask", "BlockFacesTask", "InitialSubGraphsTask",
     "MAX_IDS_KEY", "MapEdgeIdsTask", "MergeAssignmentsTask", "MergeEdgeFeaturesTask",
     "MergeOffsetsTask", "MergeScaleSubGraphsTask", "MergeSubGraphsTask", "ProbsToCostsTask",
-    "ReduceProblemTask", "SolveGlobalTask", "SolveSubproblemsTask", "WatershedFromSeedsTask",
-    "WatershedTask", "WriteTask", "kernel_params",
+    "ReduceProblemTask", "SolveGlobalTask", "SolveSubproblemsTask", "TwoPassWatershedTask",
+    "WatershedFromSeedsTask", "WatershedTask", "WriteTask", "kernel_params",
 ]

@@ -1,5 +1,6 @@
 """Watershed tasks (port of ``cluster_tools_tpu/tasks/watershed.py``):
-``WatershedTask`` and ``WatershedFromSeedsTask``.
+``WatershedTask``, ``WatershedFromSeedsTask``, ``AgglomerateTask`` and
+``TwoPassWatershedTask``.
 
 ``WatershedTask``, per halo'd block: run the DT-watershed, crop the inner
 box and re-close the labels by connected components (only with a halo), add
@@ -17,10 +18,23 @@ flood it from the block's global seed ids (compacted to int32 for the
 device and mapped back), optionally size-filter, write the inner box.  It
 has no batch protocol: the ``cuda`` target runs ``process_block`` in
 ``max_jobs`` host threads.
+
+``AgglomerateTask``, per block (host, no batch protocol): the block's
+fragments merged below a threshold on their mean boundary evidence, each
+merged fragment named by its smallest member id, so ids stay in the
+block's offset namespace.
+
+``TwoPassWatershedTask``, one pass of the checkerboard two-pass watershed:
+pass 0 is ``WatershedTask`` on the white blocks; pass 1 floods the black
+blocks from the labels pass 0 wrote into their halo as well as from their
+own seeds (``two_pass_flood`` on the device over the stacked batch), so
+segments continue across block faces.  Pass 1 reads what other blocks
+write, so its batches run one at a time (``pipeline_safe``).
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -28,11 +42,13 @@ import torch
 
 from ..ops.cc import connected_components_labels
 from ..ops.filters import gaussian
-from ..ops.watershed import apply_size_filter, dt_watershed, seeded_watershed
+from ..ops.multicut import agglomerative_clustering
+from ..ops.rag import boundary_edge_features
+from ..ops.watershed import apply_size_filter, dt_watershed, seeded_watershed, two_pass_flood
 from ..runtime.device import resolve_device
 from ..utils import store
-from ..utils.blocking import Blocking
-from .base import VolumeTask
+from ..utils.blocking import Blocking, make_checkerboard_block_lists
+from .base import VolumeTask, read_threads
 
 MAX_IDS_KEY = "watershed/max_ids"
 
@@ -260,3 +276,176 @@ class WatershedFromSeedsTask(VolumeTask):
         labels = labels.cpu().numpy().astype(np.int64)
         lookup = np.concatenate([[np.uint64(0)], uniq]).astype(np.uint64)
         self.output_ds()[bh.inner.slicing] = lookup[labels[bh.inner_local.slicing]]
+
+
+class AgglomerateTask(VolumeTask):
+    """Per-block agglomeration of watershed fragments: the block's RAG with
+    mean boundary-evidence edge weights, fragments merged below
+    ``threshold`` (mala clustering semantics).  ``input_path/key`` is the
+    boundary map, ``labels_path/key`` the fragments."""
+
+    task_name = "agglomerate"
+    output_dtype = "uint64"
+
+    def __init__(self, *args, labels_path: str = None, labels_key: str = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.labels_path = labels_path
+        self.labels_key = labels_key
+
+    @classmethod
+    def default_task_config(cls) -> Dict[str, Any]:
+        conf = super().default_task_config()
+        conf.update({
+            "threshold": 0.9,
+            "use_mala_agglomeration": True,
+            "channel_begin": 0,
+            "channel_end": None,
+            "agglomerate_channels": "mean",
+            "invert_inputs": False,
+        })
+        return conf
+
+    def process_block(self, block_id: int, blocking: Blocking, config):
+        bb = blocking.block(block_id).slicing
+        seg = store.file_reader(self.labels_path, "r")[self.labels_key][bb].astype(np.uint64)
+        out_ds = self.output_ds()
+        uniq = np.unique(seg)
+        uniq = uniq[uniq > 0]
+        if uniq.size == 0:
+            out_ds[bb] = seg
+            return
+        x = _read_input_block(self.input_ds(), bb, config)
+        if config.get("invert_inputs", False):
+            x = 1.0 - x
+        edges, feats = boundary_edge_features(seg, x.astype(np.float64))
+        if edges.shape[0] == 0:
+            out_ds[bb] = seg
+            return
+        clusters = agglomerative_clustering(
+            uniq.size,
+            np.searchsorted(uniq, edges).astype(np.int64),  # compact node ids
+            feats[:, 0],  # mean boundary evidence
+            float(config.get("threshold", 0.9)),
+            edge_sizes=feats[:, 9],  # face size
+        )
+        # a merged fragment takes its smallest member's id
+        rep = np.full(int(clusters.max()) + 1, np.iinfo(np.int64).max, np.int64)
+        np.minimum.at(rep, clusters, np.arange(uniq.size, dtype=np.int64))
+        lookup = np.concatenate([[np.uint64(0)], uniq[rep[clusters]]]).astype(np.uint64)
+        dense = np.where(seg > 0, np.searchsorted(uniq, seg) + 1, 0)
+        out_ds[bb] = lookup[dense]
+
+
+class TwoPassWatershedTask(WatershedTask):
+    """One pass of the checkerboard two-pass watershed: ``pass_id`` 0 runs
+    the white blocks as ``WatershedTask``; ``pass_id`` 1 the black blocks,
+    seeded also from the labels already written inside their halo."""
+
+    task_name = "two_pass_watershed"
+    # pass 1 reads labels its own run writes: never fuse it into a stream
+    fusable = False
+
+    def __init__(self, *args, pass_id: int = 0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.pass_id = pass_id
+
+    @classmethod
+    def default_task_config(cls) -> Dict[str, Any]:
+        conf = super().default_task_config()
+        conf["non_maximum_suppression"] = True  # where WatershedTask defaults it off
+        return conf
+
+    @property
+    def identifier(self) -> str:
+        return f"{self.task_name}_pass{self.pass_id}"
+
+    @property
+    def pipeline_safe(self) -> bool:
+        # pass 1's halo'd reads overlap the inner boxes of same-colour
+        # diagonal neighbours of the same run: batches must not overlap
+        return self.pass_id == 0
+
+    def get_block_list(self, blocking: Blocking, gconf: Dict[str, Any]) -> List[int]:
+        white, black = make_checkerboard_block_lists(blocking, super().get_block_list(blocking, gconf))
+        return white if self.pass_id == 0 else black
+
+    def read_batch(self, block_ids: List[int], blocking: Blocking, config):
+        """Pass 1, stage 1 (host): the halo'd blocks and the labels written
+        inside them, compacted per block to int32 1..k, padded to one
+        static shape; their ``valid`` masks and the optional mask batch."""
+        if self.pass_id == 0:
+            return super().read_batch(block_ids, blocking, config)
+        halo = config.get("halo") or [0, 0, 0]
+        if not any(h > 0 for h in halo):
+            raise ValueError(
+                "two-pass watershed requires a non-zero halo — pass 2 seeds from "
+                "pass-1 neighbors inside the halo (set 'halo' in the task config)"
+            )
+        in_ds, out_ds = self.input_ds(), self.output_ds()
+        full_shape = tuple(bs + 2 * h for bs, h in zip(blocking.block_shape, halo))
+        blocks = [blocking.block_with_halo(bid, halo) for bid in block_ids]
+
+        def _read(bh):
+            x = _read_input_block(in_ds, bh.outer.slicing, config)
+            written = out_ds[bh.outer.slicing].astype(np.int64)
+            uniq = np.unique(written)
+            uniq = uniq[uniq > 0]
+            compact = np.where(written > 0, np.searchsorted(uniq, written) + 1, 0).astype(np.int32)
+            return (
+                _pad_block(x, full_shape), _pad_block(compact, full_shape, "zero"),
+                _pad_block(np.ones(x.shape, dtype=bool), full_shape, "zero"), uniq,
+            )
+
+        # the batch reads before it writes, so its blocks read in parallel
+        n_threads = min(read_threads(config), len(blocks))
+        if n_threads > 1:
+            with ThreadPoolExecutor(n_threads) as pool:
+                parts = list(pool.map(_read, blocks))
+        else:
+            parts = [_read(bh) for bh in blocks]
+        datas, compacts, valids, uniqs = zip(*parts)
+        return (
+            list(block_ids), blocks, np.stack(datas), np.stack(compacts), np.stack(valids),
+            self._load_mask_batch(blocks, full_shape), list(uniqs),
+        )
+
+    def compute_batch(self, payload, blocking: Blocking, config):
+        """Pass 1, stage 2 (device): ``two_pass_flood`` over the batch."""
+        if self.pass_id == 0:
+            return super().compute_batch(payload, blocking, config)
+        block_ids, blocks, data, written, valid, mask, uniqs = payload
+        dev = resolve_device(config)
+        # the size filter's label bound: own seed ids ≤ N/2 above at most
+        # k written ids, which lie in the halo shell (pass-0 neighbours
+        # write disjoint inner boxes)
+        n_outer = int(np.prod(data.shape[1:]))
+        shell = n_outer - int(np.prod(blocking.block_shape))
+        k_max = max(u.size for u in uniqs)
+        labels, _ = two_pass_flood(
+            torch.from_numpy(data).to(dev), torch.from_numpy(written).to(dev),
+            mask=None if mask is None else torch.from_numpy(mask).to(dev),
+            valid=torch.from_numpy(valid).to(dev),
+            num_segments=n_outer // 2 + max(shell, k_max) + 2,
+            **kernel_params(config),
+        )
+        return block_ids, blocks, labels.cpu().numpy().astype(np.int64), uniqs
+
+    def write_batch(self, result, blocking: Blocking, config):
+        """Pass 1, stage 3 (host): labels ≤ k back to the written ids, the
+        rest into the block's offset namespace; inner boxes and max ids."""
+        if self.pass_id == 0:
+            return super().write_batch(result, blocking, config)
+        block_ids, blocks, labels, uniqs = result
+        out_ds = self.output_ds()
+        offset_unit = int(np.prod(blocking.block_shape))
+        max_ids = self.tmp_ragged(MAX_IDS_KEY, blocking.n_blocks, np.int64)
+        for bid, bh, lab, uniq in zip(block_ids, blocks, labels, uniqs):
+            k = uniq.size
+            lab = lab[bh.inner_local.slicing]
+            lookup = np.concatenate([[0], uniq])
+            is_written = lab <= k
+            written_part = lookup[np.where(is_written, lab, 0)]
+            new_part = lab - k + bid * offset_unit
+            lab = np.where(lab == 0, 0, np.where(is_written, written_part, new_part)).astype(np.uint64)
+            out_ds[bh.inner.slicing] = lab
+            max_ids.write_chunk((bid,), np.array([lab.max()], dtype=np.int64))

@@ -1,3 +1,4 @@
+from .agglomerative_clustering import AgglomerativeClusteringWorkflow
 from .multicut import (
     EdgeFeaturesWorkflow,
     GraphWorkflow,
@@ -9,7 +10,7 @@ from .thresholded_components import ThresholdAndWatershedWorkflow, ThresholdedCo
 from .watershed import WatershedWorkflow
 
 __all__ = [
-    "EdgeFeaturesWorkflow", "GraphWorkflow", "MulticutSegmentationWorkflow", "MulticutWorkflow",
-    "ProblemWorkflow", "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow",
-    "WatershedWorkflow",
+    "AgglomerativeClusteringWorkflow", "EdgeFeaturesWorkflow", "GraphWorkflow",
+    "MulticutSegmentationWorkflow", "MulticutWorkflow", "ProblemWorkflow",
+    "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "WatershedWorkflow",
 ]

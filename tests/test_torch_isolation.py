@@ -38,6 +38,10 @@ def test_port_imports_no_jax(entry):
             from cluster_tools_tpu_torch import MulticutSegmentationWorkflow, native
             from cluster_tools_tpu_torch.ops.rag import boundary_edge_features_gpu
             from cluster_tools_tpu_torch.ops.multicut import solve_multicut
+            from cluster_tools_tpu_torch import AgglomerativeClusteringWorkflow
+            from cluster_tools_tpu_torch.tasks import AgglomerateTask, AgglomerativeClusteringTask
+            from cluster_tools_tpu_torch.tasks import TwoPassWatershedTask
+            from cluster_tools_tpu_torch.ops.watershed import two_pass_flood
             assert native.available(), native.load_error
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
                 importlib.import_module(m.name)
@@ -131,6 +135,36 @@ def test_multicut_workflow_defaults_to_card_and_raises_without_one(tmp_path, mon
 
 
 def test_unported_workflow_branches_raise(tmp_path):
-    for kw in ({"two_pass": True}, {"agglomeration": True}, {"sharded": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in ({"sharded": True},):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
             WatershedWorkflow(str(tmp_path), None, **kw)
+
+
+@pytest.mark.parametrize("kw", [{"two_pass": True}, {"agglomeration": True}, "clustering"])
+def test_watershed_branches_and_clustering_raise_without_card(tmp_path, monkeypatch, kw):
+    """The two-pass and agglomerating watersheds and the global clustering
+    ask for the card by default; without one the build raises."""
+    from cluster_tools_tpu_torch import AgglomerativeClusteringWorkflow
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "d.n5")
+    file_reader(path).create_dataset(
+        "bnd", data=np.random.default_rng(0).random((8, 16, 16)).astype("float32"),
+        chunks=(8, 16, 16),
+    )
+    config_dir = str(tmp_path / "configs")
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16], "target": "cuda"})
+    if kw == "clustering":
+        file_reader(path).create_dataset("ws", shape=(8, 16, 16), dtype="uint64", chunks=(8, 16, 16))
+        wf = AgglomerativeClusteringWorkflow(
+            str(tmp_path / "tmp"), config_dir, input_path=path, input_key="bnd",
+            ws_path=path, ws_key="ws", output_path=path, output_key="seg",
+        )
+    else:
+        wf = WatershedWorkflow(
+            str(tmp_path / "tmp"), config_dir, input_path=path, input_key="bnd",
+            output_path=path, output_key="ws", **kw,
+        )
+    with pytest.raises(Exception, match="no CUDA device"):
+        build([wf])
+    assert not wf.complete()

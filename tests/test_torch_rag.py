@@ -53,6 +53,19 @@ def test_block_edges_bit_identical(seed, ignore_zero):
     _assert_same((rag.block_edges(empty),), (jrag.block_edges(empty),))
 
 
+@pytest.mark.parametrize("dtype,base", [
+    (np.uint64, 2**63 + 5), (np.uint64, 0), (np.int32, 2**30), (np.int64, 1),
+])
+def test_block_edges_bit_identical_wide_ids(dtype, base):
+    """Many labels, ids far from 0 and other dtypes: the rows' unique over
+    one integer key per row keeps the structured unique's rows, order and
+    dtype."""
+    labels, _ = _labels((12, 20, 18), 4, n=600)
+    labels = np.where(labels > 0, labels + np.uint64(base), 0).astype(dtype)
+    _assert_same((rag.block_edges(labels),), (jrag.block_edges(labels),))
+    assert rag.block_edges(labels).shape[0] > 1000
+
+
 @pytest.mark.parametrize("hist_bins", [0, rag.HIST_BINS])
 @pytest.mark.parametrize("shape,owner", CASES)
 def test_boundary_edge_features_bit_identical(shape, owner, hist_bins):

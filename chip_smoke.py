@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--z 125] [--batch 8] [--seed 0] [--compare DIR] [--kernels-only]
+    python3 chip_smoke.py --mws-scaling
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
 
@@ -32,7 +33,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      of both printed;
   3. the watershed workflow: a seeded synthetic boundary volume at CREMI
      sample A's shape (125, 1250, 1250), made the way ``bench.make_volume``
-     makes it, written to n5 with raw chunks; ``build([WatershedWorkflow(...)])``
+     makes it, written to n5 with raw chunks (its first 64 planes,
+     ``EARLY_Z``, two block layers, in a second container for phase 10:
+     the cut that keeps phases 12-13 inside the time limit);
+     ``build([WatershedWorkflow(...)])``
      on the ``cuda`` target with the default watershed config and blocks
      (32, 256, 256).  Both kernels' launch counts must rise in this run, all
      down the cluster route; the
@@ -118,8 +122,35 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      8 run 1's tmp folder: its graph and feature tasks must be skipped
      (status files untouched); the output must be its table applied to
      the watershed, with between 1 and the fragment count segments;
- 12. one JSON line with the accumulator (``device_functions``), one listing
-     the six kernels, then the result line.
+ 12. ``MwsWorkflow`` at the whole shape (125, 1250, 1250) on long-range
+     affinities made on the card from the boundary map (8 offsets,
+     ``aff(x) = 1 - max(b(x), b(x + o))``, uint8 raw n5, chunks (8, 32,
+     256, 256)), the task's defaults, 8 host threads.  Gates: the native
+     solver built; every voxel labelled; the output is the stitch table
+     applied to ``mws_blocks``; blocks first and last recomputed with
+     ``compute_mws_segmentation`` equal ``mws_blocks``; the dominant
+     stitched id crosses a y face and an x face.  Printed: wall, voxels/s,
+     seconds per task, segment counts, face agreement;
+ 12b. the device MWS (``CTT_MWS_MODE=device``) on the card on the centre
+     (36, 24, 24) of two interior halo'd blocks — a crop, not a workflow
+     block: the whole (36, 264, 264) block does not finish inside the
+     script's time (``--mws-scaling``) — k/256 weights give the native
+     partition, the workflow's k/255 weights Rand > 0.99 and VI < 0.1
+     against it; rounds, ms and the native solve's ms;
+ 13. ``TwoPassMwsWorkflow`` at full width on the first 16 planes (half a
+     block layer); gates: every voxel labelled, two pass-1 blocks
+     recomputed equal to what was written, seeded voxels keep seed ids
+     (their own where a block has at most 1024 seed ids).  Printed: wall, the passes' seconds, face
+     agreement;
+ 14. one JSON line with the accumulator and the device MWS
+     (``device_functions``), one listing the six kernels, then the result
+     line.
+
+``--mws-scaling`` runs only the device MWS's schedule study (no build, no
+result line): growing (36, s, s) centres of phase 12's first interior
+halo'd block up to the whole (36, 264, 264) block, each solve stopped after
+``MWS_SCALING_BUDGET_S`` host seconds; rounds, ms per round, the rows still
+open, and a profiler window over the whole block's rounds.
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -154,6 +185,7 @@ THRESHOLD = 0.5
 SEED_THRESHOLD = 0.3  # seeds: 5.3% of the voxels, ~800 components per 40 x 250 x 250
 FLOOD_TILE = "8,64,128"  # CTT_FLOOD_TILE of the seeds run: kernel 3 tiles of 64 x 128
 HALO = (2, 8, 8)  # the watershed-from-seeds default, also given to the 3d watershed
+EARLY_Z = 64  # depth of phase 10 (two block layers), cut for phases 12-13's time
 
 
 def log(msg: str) -> None:
@@ -1774,7 +1806,7 @@ def face_agreement(ws, axes) -> float:
     return agree / max(total, 1)
 
 
-def two_pass_phase(vol_np, path: str, work: str, card: str):
+def two_pass_phase(vol_np, path: str, work: str, card: str, single_pass: np.ndarray):
     """Phase 10: ``WatershedWorkflow(two_pass=True)`` in the 2d mode (the
     task's defaults: NMS on) with halo [2, 8, 8], at the default
     ``pipeline_depth`` with the kernels, then at ``pipeline_depth`` 1 with
@@ -1786,6 +1818,7 @@ def two_pass_phase(vol_np, path: str, work: str, card: str):
     from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
     from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
     from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks import watershed as ws_tasks
     from cluster_tools_tpu_torch.tasks.watershed import TwoPassWatershedTask
     from cluster_tools_tpu_torch.utils import file_reader
 
@@ -1812,8 +1845,34 @@ def two_pass_phase(vol_np, path: str, work: str, card: str):
         task_seconds(wf, f"two-pass {tag}")
         return wall
 
+    # time each call of pass 1's device function in the kernel run, the
+    # card synchronised around it; its bound: the tensors it is handed read
+    # once and its labels written once
+    calls = []
+    untimed = ws_tasks.two_pass_flood
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = untimed(*args, **kwargs)
+        torch.cuda.synchronize()
+        tensors = [a for a in args + tuple(kwargs.values()) if torch.is_tensor(a)] + [out[0]]
+        calls.append(((time.perf_counter() - t0) * 1e3,
+                      sum(t.numel() * t.element_size() for t in tensors), tuple(args[0].shape)))
+        return out
+
     reset_counts(dtws_slices, flood_slices)
-    wall = run("kernels", {})
+    ws_tasks.two_pass_flood = timed
+    try:
+        wall = run("kernels", {})
+    finally:
+        ws_tasks.two_pass_flood = untimed
+    flood_call = {"calls": len(calls), "shapes": sorted({c[2] for c in calls}),
+                  "ms": float(np.mean([c[0] for c in calls])),
+                  "bound_ms": float(np.mean([c[1] for c in calls])) / HBM_BYTES_PER_S * 1e3}
+    log(f"two-pass kernels: two_pass_flood {flood_call['calls']} calls at {flood_call['shapes']}, "
+        f"{flood_call['ms']:.2f} ms per call (host clock, card synchronised), bound "
+        f"{flood_call['bound_ms']:.4f} ms (bytes) on {card}")
     launches = {"dtws_slices": dtws_slices.launches, "flood_slices": flood_slices.launches}
     if flood_slices.launches == 0 or dtws_slices.launches:
         raise AssertionError(f"two-pass: kernel 1 must launch and kernel 2 must not: {launches}")
@@ -1826,7 +1885,7 @@ def two_pass_phase(vol_np, path: str, work: str, card: str):
     if chunk_files(os.path.join(path, "tp_kernels")) != chunk_files(os.path.join(path, "tp_plain")):
         raise AssertionError("two-pass: the kernel run differs from the plain run at pipeline_depth 1")
     f = file_reader(path, "r")
-    two, one = f["tp_kernels"][:], f["ws"][:]
+    two, one = f["tp_kernels"][:], single_pass
     if (two[vol_np >= THRESHOLD] != 0).any():
         raise AssertionError("two-pass: labels outside the foreground")
     agree = {name: [face_agreement(ws, [axis]) for axis in range(3)]
@@ -1895,6 +1954,431 @@ def clustering_phase(vol_np, path: str, work: str, card: str, mc: dict):
     return wall, vox / wall
 
 
+AFF_CHUNKS = (8, 32, 256, 256)
+MWS_HALO = (2, 4, 4)  # the MWS tasks' default
+MWS_DEVICE_CROP = (36, 24, 24)  # phase 12b: the centre of a halo'd block
+MAX_MUTEX_IDS = 1024  # compute_mws_segmentation_with_seeds' default
+TWO_PASS_MWS_Z = 16  # phase 13's depth: half a block layer (pass 1 runs a block at a time)
+
+
+def mws_offsets() -> list:
+    """``MwsBlocksTask``'s default long-range offsets (z, y, x)."""
+    from cluster_tools_tpu_torch.tasks import MwsBlocksTask
+
+    return MwsBlocksTask.default_task_config()["offsets"]
+
+
+def make_affinities(vol: torch.Tensor) -> torch.Tensor:
+    """Long-range affinities of the boundary map on the card, uint8
+    ``round(255 * aff)``: for offset o, ``aff(x) = 1 - max(b(x), b(x + o))``
+    (attractive inside a compartment, repulsive across a membrane), ``b(x)``
+    alone where ``x + o`` lies outside."""
+    offsets = mws_offsets()
+    out = torch.empty((len(offsets),) + tuple(vol.shape), dtype=torch.uint8, device=vol.device)
+    for c, off in enumerate(offsets):
+        src = tuple(slice(max(-o, 0), n - max(o, 0)) for o, n in zip(off, vol.shape))
+        dst = tuple(slice(max(o, 0), n - max(-o, 0)) for o, n in zip(off, vol.shape))
+        nb = vol.clone()
+        nb[src] = vol[dst]
+        out[c] = torch.round(255.0 * (1.0 - torch.maximum(vol, nb))).to(torch.uint8)
+    return out
+
+
+def relabel_outer(seg: np.ndarray, block_id: int, blocking, halo) -> np.ndarray:
+    """``MwsBlocksTask``'s relabel: the outer region consecutive from 1,
+    offset into the block's namespace of the full halo'd size."""
+    _, inv = np.unique(seg, return_inverse=True)
+    unit = block_id * int(np.prod([b + 2 * h for b, h in zip(blocking.block_shape, halo)]))
+    return inv.reshape(seg.shape).astype(np.uint64) + np.uint64(1 + unit)
+
+
+def mws_graph(affs_u8: np.ndarray, block_id: int, scale: float):
+    """The block's MWS graph as ``compute_mws_segmentation`` builds it from
+    affinities ``k / scale`` (255: the workflow's cast; 256: re-quantised,
+    exact in float32 and float64): nodes, uv, float64 weights, flags."""
+    from cluster_tools_tpu_torch.ops.mws import _affinity_edge_lists
+
+    affs = affs_u8.astype(np.float32) / np.float32(scale)
+    us, vs, ws, att = _affinity_edge_lists(
+        affs, np.asarray(mws_offsets()), [1, 1, 1], False, 0.0, np.random.default_rng(block_id), 3)
+    uv = np.stack([np.concatenate(us), np.concatenate(vs)], axis=1)
+    return int(np.prod(affs.shape[1:])), uv, np.concatenate(ws), np.concatenate(att)
+
+
+def same_partition(a: np.ndarray, b: np.ndarray) -> bool:
+    _, ia = np.unique(a, return_inverse=True)
+    _, ib = np.unique(b, return_inverse=True)
+    key = ia.reshape(-1).astype(np.int64) * (int(ib.max()) + 1) + ib.reshape(-1)
+    n = np.unique(key).size
+    return n == int(ia.max()) + 1 == int(ib.max()) + 1
+
+
+def mws_phase(vol_np, work: str, card: str, dev) -> dict:
+    """Phase 12: ``MwsWorkflow`` at the volume's full size on the ``cuda``
+    target, blocks (32, 256, 256), the task's defaults (halo [2, 4, 4],
+    strides [1, 1, 1], no noise), 8 host threads, on long-range affinities
+    made on the card from the boundary map (uint8, raw n5, chunks (8, 32,
+    256, 256)).  Gates: the native solver built; every voxel labelled; the
+    output is the stitch table applied to ``mws_blocks``; blocks first and
+    last recomputed with ``compute_mws_segmentation`` from the halo'd read
+    equal ``mws_blocks`` after the relabel and offset; the dominant
+    stitched id continues across a y face and an x face."""
+    from cluster_tools_tpu_torch import MwsWorkflow, build, native
+    from cluster_tools_tpu_torch.ops.mws import compute_mws_segmentation
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks import STITCH_ASSIGNMENTS_NAME, MwsBlocksTask
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    t0 = time.perf_counter()
+    affs = make_affinities(torch.from_numpy(vol_np).to(dev)).cpu().numpy()
+    torch.cuda.empty_cache()
+    path = os.path.join(work, "affs.n5")
+    file_reader(path).create_dataset("affs", data=affs, chunks=AFF_CHUNKS, compression="raw")
+    log(f"setup: affinities {affs.shape} uint8 ({affs.nbytes / 1e9:.2f} GB) made on the card and "
+        f"written as raw n5 in {time.perf_counter() - t0:.1f} s")
+    if not native.available():
+        raise AssertionError(f"mws: native solvers unavailable: {native.load_error}")
+    tmp, config_dir = os.path.join(work, "tmp_mws"), os.path.join(work, "configs_mws")
+    cfg.write_global_config(config_dir, {
+        "block_shape": list(BLOCK), "target": "cuda", "device": str(dev),
+        "max_jobs": min(8, os.cpu_count() or 1),
+    })
+    conf = MwsBlocksTask.default_task_config()
+    cfg.write_config(config_dir, "mws_blocks", conf)
+    wf = MwsWorkflow(tmp, config_dir, input_path=path, input_key="affs", output_path=path,
+                     output_key="mws")
+    vox = int(np.prod(vol_np.shape))
+    t0 = time.perf_counter()
+    if not build([wf]):
+        raise AssertionError("mws workflow build failed")
+    wall = time.perf_counter() - t0
+    log(f"mws: {vol_np.shape} in {wall:.2f} s = {vox / wall:.6g} voxels/s on {card}")
+    task_seconds(wf, "mws")
+    t0 = time.perf_counter()
+    f = file_reader(path, "r")
+    seg, blocks = f["mws"][:], f["mws_blocks"][:]
+    table = np.load(os.path.join(tmp, STITCH_ASSIGNMENTS_NAME))
+    if not (seg > 0).all():
+        raise AssertionError("mws: unlabelled voxels")
+    # ids lie below n_blocks x the halo'd block size: dense tables over them
+    # are a few GB and a pass each, where sorts of the volume take minutes
+    lut = np.arange(int(blocks.max()) + 1, dtype=np.uint64)
+    lut[table[:, 0]] = table[:, 1]
+    if not np.array_equal(lut[blocks], seg):
+        raise AssertionError("mws: the output is not the stitch table applied to mws_blocks")
+    del lut
+    n_blocks_ids = int(np.count_nonzero(np.bincount(blocks.reshape(-1).view(np.int64))))
+    counts = np.bincount(seg.reshape(-1).view(np.int64))
+    n_ids, dom = int(np.count_nonzero(counts)), int(counts.argmax())
+    log(f"mws: {n_blocks_ids} segments in the blocks, {n_ids} after stitching "
+        f"({table.shape[0]} voted ids in the table); the output is the table applied to "
+        f"mws_blocks (checked in {time.perf_counter() - t0:.1f} s)")
+    blocking = Blocking(vol_np.shape, BLOCK)
+    for bid in (0, blocking.n_blocks - 1):
+        bh = blocking.block_with_halo(bid, MWS_HALO)
+        a = affs[(slice(None),) + bh.outer.slicing].astype(np.float32) / 255.0
+        t0 = time.perf_counter()
+        got = compute_mws_segmentation(a, conf["offsets"], strides=conf["strides"], seed=bid)
+        dt = time.perf_counter() - t0
+        got = relabel_outer(got, bid, blocking, MWS_HALO)[bh.inner_local.slicing]
+        if not np.array_equal(got, blocks[bh.inner.slicing]):
+            raise AssertionError(f"mws block {bid}: recomputed labels differ from mws_blocks")
+        log(f"mws block {bid} {tuple(a.shape[1:])}: compute_mws_segmentation (edges, native "
+            f"solve, relabel) {dt:.3f} s on the host; equals mws_blocks")
+    crossing = []
+    for axis in (1, 2):
+        crossing.append(any(
+            bool(((np.take(seg, pos - 1, axis) == dom) & (np.take(seg, pos, axis) == dom)).any())
+            for pos in range(BLOCK[axis], seg.shape[axis], BLOCK[axis])))
+    agree = [face_agreement(seg, [axis]) for axis in range(3)]
+    log(f"mws: dominant id {dom} holds {counts[dom] / seg.size:.4f} of the voxels, crosses a "
+        f"y face {crossing[0]}, an x face {crossing[1]}; face voxel pairs agreeing (z, y, x) {agree}")
+    if not all(crossing):
+        raise AssertionError("mws: the dominant stitched id does not continue across y and x faces")
+    return {"wall": wall, "rate": vox / wall, "affs": affs, "path": path}
+
+
+def device_mws_phase(affs: np.ndarray, card: str, dev) -> dict:
+    """Phase 12b: the device MWS on the card, on the centre (36, 24, 24) of
+    two interior halo'd blocks of phase 12's input — a crop: the whole
+    (36, 264, 264) block does not finish inside the script's time (its
+    rounds and round cost: ``--mws-scaling``).  Weights re-quantised to k/256 (exact in float32 and
+    float64): ``CTT_MWS_MODE=device`` must give the native solve's
+    partition.  The workflow's k/255 weights: Rand > 0.99 and VI split +
+    merge < 0.1 against the native solve.  Printed per solve: rounds, ms
+    (CUDA events around the call, its copies included), the native solve's
+    ms; for the first block's k/255 graph a bytes bound (uv, weight and flag
+    read once: 13 B per edge; 4 B per node written)."""
+    from cluster_tools_tpu_torch import native
+    from cluster_tools_tpu_torch.ops.mws import force_mws_mode
+    from cluster_tools_tpu_torch.ops.mws import mutex_watershed_graph
+    from cluster_tools_tpu_torch.ops.mws_device import mutex_watershed_device
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    blocking = Blocking(affs.shape[1:], BLOCK)
+    grid = blocking.grid_shape
+    picks = [blocking.block_id_from_grid_position((1, 1, 1)),
+             blocking.block_id_from_grid_position(tuple(max(g - 2, 1) for g in grid))]
+    reset_counts(mutex_watershed_device)
+    mutex_watershed_device.rounds = 0
+    record = None
+    for bid in picks:
+        bh = blocking.block_with_halo(bid, MWS_HALO)
+        outer = affs[(slice(None),) + bh.outer.slicing]
+        crop = tuple(slice((s - min(c, s)) // 2, (s - min(c, s)) // 2 + min(c, s))
+                     for s, c in zip(outer.shape[1:], MWS_DEVICE_CROP))
+        block = np.ascontiguousarray(outer[(slice(None),) + crop])
+        for scale in (256, 255):
+            n, uv, w, att = mws_graph(block, bid, scale)
+            t0 = time.perf_counter()
+            want = native.mutex_watershed(n, uv, w, att)
+            native_ms = (time.perf_counter() - t0) * 1e3
+            rounds = mutex_watershed_device.rounds
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            with force_mws_mode("device"):
+                got = mutex_watershed_graph(n, uv, w, att, device=dev)
+            end.record()
+            torch.cuda.synchronize()
+            wrapper_ms = (time.perf_counter() - t0) * 1e3
+            ms = start.elapsed_time(end)
+            rounds = mutex_watershed_device.rounds - rounds
+            if scale == 256:
+                if not same_partition(got, want):
+                    raise AssertionError(f"device mws block {bid}: k/256 partition differs from native")
+                verdict = "the native partition"
+            else:
+                scores = rand_voi(np.stack([want, got], axis=1), np.ones(n))
+                if not (scores["rand_index"] > 0.99
+                        and scores["voi_split"] + scores["voi_merge"] < 0.1):
+                    raise AssertionError(f"device mws block {bid}: k/255 beyond Rand/VoI {scores}")
+                verdict = f"Rand/VoI {scores}"
+            log(f"device mws block {bid} centre {tuple(block.shape[1:])} k/{scale}: {n} nodes, "
+                f"{uv.shape[0]} edges, {len(np.unique(want))} segments; {verdict}; {rounds} rounds, "
+                f"{ms:.1f} ms on the card ({ms / max(rounds, 1):.3f} ms per round; host clock "
+                f"{wrapper_ms:.1f} ms), native {native_ms:.1f} ms, on {card}")
+            if record is None and scale == 255:
+                bound = (13 * uv.shape[0] + 4 * n) / HBM_BYTES_PER_S * 1e3
+                record = {"name": "mutex_watershed_device", "block": bid,
+                          "shape": list(block.shape[1:]), "crop_of": list(outer.shape[1:]),
+                          "nodes": n, "edges": int(uv.shape[0]),
+                          "ms": ms, "rounds": rounds, "ms_per_round": ms / max(rounds, 1),
+                          "wrapper_ms": wrapper_ms, "native_ms": native_ms,
+                          "bound_ms": bound, "bound_by": "bytes"}
+    if mutex_watershed_device.launches != 2 * len(picks):
+        raise AssertionError(f"device mws: {mutex_watershed_device.launches} launches, "
+                             f"{2 * len(picks)} expected")
+    record["launches"] = mutex_watershed_device.launches
+    log(f"device mws on {card}: {record}")
+    return record
+
+
+MWS_SCALING_SIDES = (24, 32, 48, 96, 264)  # (36, s, s) centres; 264: the whole halo'd block
+MWS_SCALING_BUDGET_S = 120.0  # host seconds per device solve before it is stopped unfinished
+MWS_PROFILE_ROUNDS = (50, 70)  # rounds of the whole block under torch.profiler
+
+
+def device_time_us(evt) -> float:
+    return float(getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0))
+
+
+def mws_scaling_phase(card: str, dev, seed: int) -> list:
+    """``--mws-scaling``: the device MWS's schedule on growing centres
+    (36, s, s) of phase 12's first interior halo'd block, up to the whole
+    block, on the workflow's k/255 weights.  Each solve runs the round loop
+    for at most ``MWS_SCALING_BUDGET_S`` host seconds (``on_round``); a
+    finished one is held to the native solve by Rand/VoI as in phase 12b.
+    Printed per size: nodes, edges, rounds, ms per round (host clock: the
+    loop reads the card once per round), rows still open and read, the
+    native solve's ms; the open rows at rounds 1, 10, 100, ...; for the
+    whole block a ``torch.profiler`` window over rounds
+    ``MWS_PROFILE_ROUNDS``: the card's busy share and its top operators."""
+    from cluster_tools_tpu_torch import native
+    from cluster_tools_tpu_torch.ops.mws_device import _mws_parallel_greedy
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    t0 = time.perf_counter()
+    vol = make_volume(CREMI_A, seed, dev)
+    blocking = Blocking(CREMI_A, BLOCK)
+    bid = blocking.block_id_from_grid_position((1, 1, 1))
+    bh = blocking.block_with_halo(bid, MWS_HALO)
+    outer = make_affinities(vol)[(slice(None),) + bh.outer.slicing].cpu().numpy()
+    del vol
+    torch.cuda.empty_cache()
+    log(f"mws scaling: block {bid} halo'd {outer.shape[1:]} affinities in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = []
+    for side in MWS_SCALING_SIDES:
+        crop = tuple(slice((s - min(c, s)) // 2, (s - min(c, s)) // 2 + min(c, s))
+                     for s, c in zip(outer.shape[1:], (36, side, side)))
+        block = np.ascontiguousarray(outer[(slice(None),) + crop])
+        n, uv, w, att = mws_graph(block, bid, 255)
+        t0 = time.perf_counter()
+        want = native.mutex_watershed(n, uv, w, att)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        uv_d = torch.from_numpy(uv.astype(np.int64)).to(dev)
+        w_d = torch.from_numpy(w.astype(np.float32)).to(dev)
+        att_d = torch.from_numpy(att.astype(bool)).to(dev)
+        trace, prof = [], None
+        whole = block.shape[1:] == outer.shape[1:]
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+
+        def on_round(rounds, n_open, n_live):
+            nonlocal prof
+            now = time.perf_counter() - t_start
+            if rounds & (rounds - 1) == 0:
+                trace.append((rounds, round(now, 3), n_open, n_live))
+            if whole and rounds == MWS_PROFILE_ROUNDS[0]:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                prof.start()
+                prof.t0 = time.perf_counter()
+            if prof is not None and rounds == MWS_PROFILE_ROUNDS[1]:
+                prof.wall_us = (time.perf_counter() - prof.t0) * 1e6
+                prof.stop()
+            on_round.last = (rounds, now, n_open, n_live)
+            return now > MWS_SCALING_BUDGET_S
+
+        on_round.last = None
+        comp, rounds = _mws_parallel_greedy(uv_d, w_d, att_d, n, True, on_round)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t_start
+        if prof is not None and not hasattr(prof, "wall_us"):
+            prof.stop()  # the loop ended inside the window: no profile kept
+            prof = None
+        # the profiled rounds run slower: they are left out of ms per round
+        span = MWS_PROFILE_ROUNDS[1] - MWS_PROFILE_ROUNDS[0]
+        plain_s, plain_rounds = ((secs - prof.wall_us / 1e6, rounds - span) if prof is not None
+                                 else (secs, rounds))
+        # the loop ends on its own (no open row: the hook is not called that
+        # round) or when the hook stops it (rounds equal the hook's last)
+        finished = on_round.last is None or on_round.last[0] != rounds
+        rec = {"shape": list(block.shape[1:]),
+               "nodes": n, "edges": int(uv.shape[0]), "rounds": rounds, "finished": finished,
+               "seconds": secs, "ms_per_round": plain_s * 1e3 / max(plain_rounds, 1),
+               "native_ms": native_ms, "open_trace": trace}
+        if not finished:
+            rec["open_at_stop"], rec["live_at_stop"] = on_round.last[2], on_round.last[3]
+            verdict = (f"stopped unfinished after {secs:.1f} s: {on_round.last[2]} of "
+                       f"{uv.shape[0]} rows still open, {on_round.last[3]} still read")
+        else:
+            scores = rand_voi(np.stack([want, comp.cpu().numpy()], axis=1), np.ones(n))
+            if not (scores["rand_index"] > 0.99 and scores["voi_split"] + scores["voi_merge"] < 0.1):
+                raise AssertionError(f"mws scaling {side}: beyond Rand/VoI {scores}")
+            rec["scores"] = scores
+            verdict = f"finished in {secs:.1f} s, Rand/VoI against native {scores}"
+        log(f"mws scaling {tuple(block.shape[1:])}: {n} nodes, {uv.shape[0]} edges; {rounds} rounds, "
+            f"{rec['ms_per_round']:.3f} ms per round; {verdict}; native {native_ms:.1f} ms; "
+            f"open rows at rounds 2**k {trace}; on {card}")
+        if prof is not None:
+            evts = prof.key_averages()
+            # self device time counts each kernel once, under the kernel
+            busy = sum(float(getattr(e, "self_device_time_total", None)
+                             or getattr(e, "self_cuda_time_total", 0.0)) for e in evts)
+            ops = [e for e in evts if e.key.startswith("aten::") and device_time_us(e) > 0]
+            top = sorted(ops, key=device_time_us, reverse=True)[:10]
+            rec["profile"] = {
+                "rounds": list(MWS_PROFILE_ROUNDS), "wall_ms_per_round": prof.wall_us / span / 1e3,
+                "device_ms_per_round": busy / span / 1e3,
+                "top": [[e.key, e.count // span, round(device_time_us(e) / span / 1e3, 4)]
+                        for e in top]}
+            log(f"mws scaling whole block profile: {rec['profile']}")
+        out.append(rec)
+        del uv_d, w_d, att_d, comp
+        torch.cuda.empty_cache()
+    return out
+
+
+def face_seeds(written: np.ndarray, inner_local) -> np.ndarray:
+    """``TwoPassMwsTask``'s seeds: the written labels in the halo's face
+    slabs only."""
+    seeds = np.zeros_like(written)
+    for axis in range(3):
+        for lo, hi in ((0, inner_local[axis].start), (inner_local[axis].stop, written.shape[axis])):
+            slab = list(inner_local)
+            slab[axis] = slice(lo, hi)
+            seeds[tuple(slab)] = written[tuple(slab)]
+    return seeds
+
+
+def two_pass_mws_phase(affs: np.ndarray, path: str, work: str, card: str, dev, z: int) -> dict:
+    """Phase 13: ``TwoPassMwsWorkflow`` at full width on the first ``z``
+    planes of phase 12's input, written as a dataset of their own (pass 1
+    is serial by design, so its depth is cut; an ROI would still run whole
+    blocks), the task's defaults.  Gates: every voxel labelled; the first
+    and last pass-1 blocks, recomputed from the written volume, equal what
+    was written (new ids shifted past the seeds), every
+    seeded voxel (a pass-0 id in the halo's face slabs) keeps a seed id, and
+    its own id where the block has at most ``MAX_MUTEX_IDS`` seed ids."""
+    from cluster_tools_tpu_torch import TwoPassMwsWorkflow, build
+    from cluster_tools_tpu_torch.ops.mws import compute_mws_segmentation_with_seeds
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks import TwoPassMwsTask
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    affs = np.ascontiguousarray(affs[:, :z])
+    shape = affs.shape[1:]
+    file_reader(path).create_dataset("affs_tp", data=affs, chunks=AFF_CHUNKS, compression="raw")
+    tmp, config_dir = os.path.join(work, "tmp_tp_mws"), os.path.join(work, "configs_tp_mws")
+    cfg.write_global_config(config_dir, {
+        "block_shape": list(BLOCK), "target": "cuda", "device": str(dev),
+        "max_jobs": min(8, os.cpu_count() or 1),
+    })
+    conf = TwoPassMwsTask.default_task_config()
+    cfg.write_config(config_dir, "two_pass_mws", conf)
+    wf = TwoPassMwsWorkflow(tmp, config_dir, input_path=path, input_key="affs_tp",
+                            output_path=path, output_key="tp_mws")
+    vox = int(np.prod(shape))
+    t0 = time.perf_counter()
+    if not build([wf]):
+        raise AssertionError("two-pass mws build failed")
+    wall = time.perf_counter() - t0
+    passes = [status_seconds(tmp, f"two_pass_mws_pass{i}") for i in (0, 1)]
+    seg = file_reader(path, "r")["tp_mws"][:]
+    if not (seg > 0).all():
+        raise AssertionError("two-pass mws: unlabelled voxels")
+    agree = [face_agreement(seg, [axis]) for axis in (1, 2)]
+    log(f"two-pass mws: {shape} in {wall:.2f} s = {vox / wall:.6g} voxels/s "
+        f"on {card}; pass 0 {passes[0]:.3f} s, pass 1 {passes[1]:.3f} s; face voxel pairs "
+        f"agreeing (y, x) {agree}; {np.unique(seg).size} ids")
+    blocking = Blocking(shape, BLOCK)
+    black = TwoPassMwsTask(tmp, config_dir, pass_id=1).get_block_list(blocking, cfg.global_config(config_dir))
+    full = file_reader(path, "r")["tp_mws"]
+    for bid in (black[0], black[-1]):
+        bh = blocking.block_with_halo(bid, conf["halo"])
+        seeds = face_seeds(full[bh.outer.slicing], bh.inner_local.slicing)
+        a = affs[(slice(None),) + bh.outer.slicing].astype(np.float32) / 255.0
+        t0 = time.perf_counter()
+        out = compute_mws_segmentation_with_seeds(a, conf["offsets"], seeds, strides=conf["strides"],
+                                                  seed=bid)
+        dt = time.perf_counter() - t0
+        seed_ids = np.unique(seeds[seeds > 0])
+        k, at = seed_ids.size, seeds > 0
+        kept = float((out[at] == seeds[at]).mean()) if at.any() else 1.0
+        # the reference's contract: every seeded voxel keeps a seed id; its
+        # own one when at most MAX_MUTEX_IDS seed ids are mutexed pair by
+        # pair (past that, only consecutive ids are: two seeds may merge)
+        if not np.isin(out[at], seed_ids).all():
+            raise AssertionError(f"two-pass mws block {bid}: a seeded voxel took a new id")
+        if k <= MAX_MUTEX_IDS and kept < 1.0:
+            raise AssertionError(f"two-pass mws block {bid}: a seed id did not survive ({k} seed ids)")
+        seed_max = int(seeds.max())
+        unit = np.uint64(bid * int(np.prod([b + 2 * h for b, h in zip(BLOCK, conf["halo"])])))
+        out = np.where(out > seed_max, out - np.uint64(seed_max) + unit, out)
+        if not np.array_equal(out[bh.inner_local.slicing], full[bh.inner.slicing]):
+            raise AssertionError(f"two-pass mws block {bid}: the recomputed block differs")
+        log(f"two-pass mws block {bid}: {k} seed ids on {int(at.sum())} face voxels, each seeded "
+            f"voxel keeps a seed id, its own on a share {kept:.6f} (all must where k <= "
+            f"{MAX_MUTEX_IDS}); recomputed in {dt:.3f} s, equal to the written block")
+    return {"wall": wall, "rate": vox / wall, "passes": passes, "agree": agree,
+            "shape": ", ".join(map(str, shape))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--z", type=int, default=CREMI_A[0], help="volume depth (cut z only)")
@@ -1907,6 +2391,9 @@ def main() -> int:
                          "process, this tree in one too")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 5 (no workflow runs, no result line)")
+    ap.add_argument("--mws-scaling", action="store_true",
+                    help="only the device MWS's rounds and round cost on growing centres of a "
+                         "halo'd block, up to the whole block (no build, no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1917,6 +2404,10 @@ def main() -> int:
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    if args.mws_scaling:
+        log(json.dumps({"mws_scaling": mws_scaling_phase(card, torch.device("cuda"), args.seed)}))
+        log(f"script: {time.perf_counter() - t_start:.1f} s")
+        return 0
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"setup: built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
@@ -1942,15 +2433,21 @@ def main() -> int:
     vol_np = vol.cpu().numpy()
     del vol
     torch.cuda.empty_cache()
+    # phase 10 runs on the first EARLY_Z planes so that the mutex
+    # watershed's phases fit the time limit; the rest on the whole
+    cut_np = vol_np[:EARLY_Z]
     from scipy import ndimage
 
     from cluster_tools_tpu_torch.utils import file_reader
 
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
         path = os.path.join(work, "cremi_a.n5")
+        cut_path = os.path.join(work, "cremi_a_cut.n5")
         t0 = time.perf_counter()
         file_reader(path).create_dataset("raw", data=vol_np, chunks=BLOCK, compression="raw")
-        log(f"setup: wrote {vol_np.shape} raw n5 in {time.perf_counter() - t0:.1f} s")
+        file_reader(cut_path).create_dataset("raw", data=cut_np, chunks=BLOCK, compression="raw")
+        log(f"setup: wrote {vol_np.shape} and {cut_np.shape} raw n5 in "
+            f"{time.perf_counter() - t0:.1f} s")
         launches, wall, rate = workflow_phase(vol_np, path, work, card)
         t0 = time.perf_counter()
         fg = vol_np < THRESHOLD
@@ -1974,9 +2471,17 @@ def main() -> int:
         mc = multicut_phase(vol_np, path, work, card)
         log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
         agglo_launches, agglo_wall, agglo_rate = agglomeration_phase(vol_np, path, work, card)
-        tp_launches, tp_wall, tp_rate = two_pass_phase(vol_np, path, work, card)
+        tp_launches, tp_wall, tp_rate = two_pass_phase(
+            cut_np, cut_path, work, card, file_reader(path, "r")["ws"][:EARLY_Z])
         ac_wall, ac_rate = clustering_phase(vol_np, path, work, card, mc)
         log(f"phases 9-11 done at {time.perf_counter() - t_start:.1f} s")
+        mws = mws_phase(vol_np, work, card, dev)
+        log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+        device_mws = device_mws_phase(mws["affs"], card, dev)
+        log(f"phase 12b done at {time.perf_counter() - t_start:.1f} s")
+        tp_mws = two_pass_mws_phase(mws["affs"], mws["path"], work, card, dev,
+                                    min(TWO_PASS_MWS_Z, vol_np.shape[0]))
+        log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
     for name, rec in records.items():
         rec["launches"] = launches[name]
         log(f"kernel {name}: {rec['launches']} launches in its workflow run, {rec['ms']:.3f} ms "
@@ -1995,11 +2500,16 @@ def main() -> int:
     log(f"multicut run 1 kernel launches {mc['launches']}")
     log(f"{card}: WatershedWorkflow agglomeration {vol_np.shape} {agglo_rate:.6g} voxels/s "
         f"({agglo_wall:.3f} s); kernel launches {agglo_launches}")
-    log(f"{card}: WatershedWorkflow two-pass {vol_np.shape} {tp_rate:.6g} voxels/s "
+    log(f"{card}: WatershedWorkflow two-pass {cut_np.shape} {tp_rate:.6g} voxels/s "
         f"({tp_wall:.3f} s); kernel launches {tp_launches}")
     log(f"{card}: AgglomerativeClusteringWorkflow {vol_np.shape} {ac_rate:.6g} voxels/s "
         f"({ac_wall:.3f} s, graph and features reused)")
-    log(json.dumps({"device_functions": [mc["accumulator"]]}))
+    log(f"{card}: MwsWorkflow {vol_np.shape} {mws['rate']:.6g} voxels/s ({mws['wall']:.3f} s)")
+    log(f"{card}: TwoPassMwsWorkflow ({tp_mws['shape']}) {tp_mws['rate']:.6g} voxels/s "
+        f"({tp_mws['wall']:.3f} s; pass 0 {tp_mws['passes'][0]:.3f} s, pass 1 "
+        f"{tp_mws['passes'][1]:.3f} s)")
+    log(f"script: {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"device_functions": [mc["accumulator"], device_mws]}))
     log(json.dumps({"kernels": [records[k] for k in (
         "flood_slices", "dtws_slices", "flood_tiles_warm", "cc_slices", "cc_tiles",
         "flood_volume")]}))

@@ -87,6 +87,9 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_double, i64p,
         ]
         lib.agglomerative_clustering.restype = None
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        lib.mutex_watershed.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p, f64p, u8p, i64p]
+        lib.mutex_watershed.restype = None
         _lib = lib
         return _lib
 
@@ -146,4 +149,23 @@ def agglomerative_clustering(
         n_nodes, uv.shape[0], uv.reshape(-1), weights, sizes_ptr,
         float(threshold), labels,
     )
+    return labels
+
+
+def mutex_watershed(
+    n_nodes: int, uv: np.ndarray, weights: np.ndarray, attractive: np.ndarray
+) -> np.ndarray:
+    """Kruskal with mutex constraints over edges by weight, descending
+    (stable); attractive edges merge unless their clusters are mutexed,
+    repulsive ones record a mutex.  Returns a root per node."""
+    lib = _require()
+    uv = _edges(uv, n_nodes)
+    weights = np.ascontiguousarray(weights, dtype=np.float64)
+    attractive = np.ascontiguousarray(attractive, dtype=np.uint8)
+    if weights.shape != (uv.shape[0],) or attractive.shape != weights.shape:
+        raise ValueError(
+            f"{weights.shape} weights and {attractive.shape} flags for {uv.shape[0]} edges"
+        )
+    labels = np.empty(n_nodes, dtype=np.int64)
+    lib.mutex_watershed(n_nodes, uv.shape[0], uv.reshape(-1), weights, attractive, labels)
     return labels

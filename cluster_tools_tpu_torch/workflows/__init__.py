@@ -6,11 +6,13 @@ from .multicut import (
     MulticutWorkflow,
     ProblemWorkflow,
 )
+from .mws import MwsWorkflow, TwoPassMwsWorkflow
 from .thresholded_components import ThresholdAndWatershedWorkflow, ThresholdedComponentsWorkflow
 from .watershed import WatershedWorkflow
 
 __all__ = [
     "AgglomerativeClusteringWorkflow", "EdgeFeaturesWorkflow", "GraphWorkflow",
-    "MulticutSegmentationWorkflow", "MulticutWorkflow", "ProblemWorkflow",
-    "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "WatershedWorkflow",
+    "MulticutSegmentationWorkflow", "MulticutWorkflow", "MwsWorkflow", "ProblemWorkflow",
+    "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "TwoPassMwsWorkflow",
+    "WatershedWorkflow",
 ]

@@ -723,3 +723,79 @@ def test_multicut_workflow_on_card_equals_cpu(tmp_path, cuda_device):
     out = file_reader(path, "r")
     np.testing.assert_array_equal(out["ws_cuda"][:], out["ws_cpu"][:])
     np.testing.assert_array_equal(out["seg_cuda"][:], out["seg_cpu"][:])
+
+
+def _mws_graph(case):
+    """Graphs for the device mutex watershed: a tie-heavy random graph, a
+    smoothed affinity grid (the workflow's kind of problem) and a monotone
+    chain (one round with chain contraction, one per merge without)."""
+    from cluster_tools_tpu_torch.ops.mws import _affinity_edge_lists
+
+    rng = np.random.default_rng(7)
+    if case == "random":
+        n = 4000
+        uv = rng.integers(0, n, (40000, 2))
+        uv = uv[uv[:, 0] != uv[:, 1]]
+        return n, uv, rng.integers(0, 32, len(uv)) / 32.0, rng.random(len(uv)) < 0.6
+    if case == "grid":
+        offsets = np.array([[-1, 0, 0], [0, -1, 0], [0, 0, -1], [-2, 0, 0], [0, -3, 0],
+                            [0, 0, -3], [-3, -3, -3], [-3, 3, 3]])
+        shape = (6, 24, 24)  # smooth affinities take ~n**0.8 rounds: keep the CPU run short
+        affs = ndimage.gaussian_filter(rng.random((8,) + shape), (0, 1, 2, 2))
+        affs = (np.round(affs * 256) / 256).astype(np.float32)
+        us, vs, ws, att = _affinity_edge_lists(affs, offsets, None, False, 0.0, rng, 3)
+        uv = np.stack([np.concatenate(us), np.concatenate(vs)], axis=1)
+        return int(np.prod(shape)), uv, np.concatenate(ws), np.concatenate(att)
+    n = 2048
+    uv = np.stack([np.arange(n - 1), np.arange(1, n)], axis=1)
+    return n, uv, np.linspace(1.0, 0.5, n - 1), np.ones(n - 1, bool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "grid", "chain"])
+def test_device_mws_on_card_equals_cpu(case, cuda_device):
+    """The device MWS (plain PyTorch) on the card against the same function
+    on CPU tensors: the same labels and the same rounds, with chain
+    contraction on and off; the partition of the native solver.  One call
+    on the card counts one launch."""
+    from cluster_tools_tpu_torch import native
+    from cluster_tools_tpu_torch.ops import mws_device
+
+    n, uv, w, att = _mws_graph(case)
+    before = mws_device.mutex_watershed_device.launches
+    got = mws_device.mutex_watershed_device(n, uv, w, att, device=cuda_device)
+    assert mws_device.mutex_watershed_device.launches == before + 1
+    np.testing.assert_array_equal(got, mws_device.mutex_watershed_device(n, uv, w, att, device="cpu"))
+    for chain in (True, False):
+        assert mws_device.mutex_watershed_device_rounds(
+            n, uv, w, att, enable_chain=chain, device=cuda_device,
+        ) == mws_device.mutex_watershed_device_rounds(n, uv, w, att, enable_chain=chain, device="cpu")
+    host = native.mutex_watershed(n, uv, np.asarray(w, np.float32), att)
+    pairs = np.unique(np.stack([got, host], axis=1), axis=0)
+    assert len(pairs) == len(np.unique(got)) == len(np.unique(host))
+
+
+@pytest.mark.cuda
+def test_mws_workflow_device_mode_on_card_equals_cpu(tmp_path, cuda_device):
+    """``MwsWorkflow`` with ``CTT_MWS_MODE=device`` on the card writes what
+    it writes with the device formulation on the CPU."""
+    from cluster_tools_tpu_torch import MwsWorkflow
+    from cluster_tools_tpu_torch.ops.mws import force_mws_mode
+
+    affs = np.random.default_rng(3).random((8, 16, 48, 48))
+    path = str(tmp_path / "d.n5")
+    file_reader(path).create_dataset("affs", data=np.round(255 * affs).astype(np.uint8),
+                                     chunks=(1, 8, 24, 24), compression="raw")
+    for device in ("cuda", "cpu"):
+        config_dir = str(tmp_path / f"configs_{device}")
+        cfg.write_global_config(config_dir, {
+            "block_shape": [8, 24, 24], "target": "cuda", "device": device, "max_jobs": 2,
+        })
+        with force_mws_mode("device"):
+            assert build([MwsWorkflow(
+                str(tmp_path / f"tmp_{device}"), config_dir, input_path=path, input_key="affs",
+                output_path=path, output_key=f"seg_{device}",
+            )])
+    out = file_reader(path, "r")
+    np.testing.assert_array_equal(out["seg_cuda"][:], out["seg_cpu"][:])
+    np.testing.assert_array_equal(out["seg_cuda_blocks"][:], out["seg_cpu_blocks"][:])

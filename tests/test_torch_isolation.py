@@ -42,6 +42,10 @@ def test_port_imports_no_jax(entry):
             from cluster_tools_tpu_torch.tasks import AgglomerateTask, AgglomerativeClusteringTask
             from cluster_tools_tpu_torch.tasks import TwoPassWatershedTask
             from cluster_tools_tpu_torch.ops.watershed import two_pass_flood
+            from cluster_tools_tpu_torch import MwsWorkflow, TwoPassMwsWorkflow
+            from cluster_tools_tpu_torch.tasks import MwsBlocksTask, StitchFacesTask, TwoPassMwsTask
+            from cluster_tools_tpu_torch.ops.mws_device import mutex_watershed_device
+            from cluster_tools_tpu_torch.ops.mws import compute_mws_segmentation
             assert native.available(), native.load_error
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
                 importlib.import_module(m.name)

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--z 125] [--batch 8] [--seed 0] [--compare DIR] [--kernels-only]
     python3 chip_smoke.py --mws-scaling
+    python3 chip_smoke.py --filter-bank-exact
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
 
@@ -34,8 +35,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
   3. the watershed workflow: a seeded synthetic boundary volume at CREMI
      sample A's shape (125, 1250, 1250), made the way ``bench.make_volume``
      makes it, written to n5 with raw chunks (its first 64 planes,
-     ``EARLY_Z``, two block layers, in a second container for phase 10:
-     the cut that keeps phases 12-13 inside the time limit);
+     ``EARLY_Z``, two block layers, in a second container for phases 6 and
+     10: the cut that keeps the later phases inside the time limit);
      ``build([WatershedWorkflow(...)])``
      on the ``cuda`` target with the default watershed config and blocks
      (32, 256, 256).  Both kernels' launch counts must rise in this run, all
@@ -73,7 +74,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      (``in_turns``) are: each such checkout and this tree in child
      processes, all timed alike, then this tree in this process twice
      (the kernels line's ms), then the children again in reverse;
-  6. ``ThresholdAndWatershedWorkflow`` on the same volume: seeds are the
+  6. ``ThresholdAndWatershedWorkflow`` on the first 64 planes: seeds are the
      components of ``vol < 0.3`` (``"less"``), the watershed from seeds runs
      with its defaults (3d flood, sigma 2, halo [2, 8, 8]) on the ``cuda``
      target with ``CTT_FLOOD_TILE`` pinned to the kernel phase's tile.
@@ -122,12 +123,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      8 run 1's tmp folder: its graph and feature tasks must be skipped
      (status files untouched); the output must be its table applied to
      the watershed, with between 1 and the fragment count segments;
- 12. ``MwsWorkflow`` at the whole shape (125, 1250, 1250) on long-range
-     affinities made on the card from the boundary map (8 offsets,
-     ``aff(x) = 1 - max(b(x), b(x + o))``, uint8 raw n5, chunks (8, 32,
-     256, 256)), the task's defaults, 8 host threads.  Gates: the native
-     solver built; every voxel labelled; the output is the stitch table
-     applied to ``mws_blocks``; blocks first and last recomputed with
+ 12. ``MwsWorkflow`` at full width on the first 32 planes (``MWS_Z``, a
+     ``roi_end`` in the global config: the cut that keeps phases 14-17
+     inside the time limit) on long-range affinities made on the card from
+     the whole boundary map (8 offsets, ``aff(x) = 1 - max(b(x), b(x +
+     o))``, uint8 raw n5, chunks (8, 32, 256, 256)), the task's defaults,
+     8 host threads.  Gates, inside the ROI: the native solver built; every
+     voxel labelled; the output is the stitch table applied to
+     ``mws_blocks``; its first and last blocks recomputed with
      ``compute_mws_segmentation`` equal ``mws_blocks``; the dominant
      stitched id crosses a y face and an x face.  Printed: wall, voxels/s,
      seconds per task, segment counts, face agreement;
@@ -137,20 +140,55 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      script's time (``--mws-scaling``) — k/256 weights give the native
      partition, the workflow's k/255 weights Rand > 0.99 and VI < 0.1
      against it; rounds, ms and the native solve's ms;
- 13. ``TwoPassMwsWorkflow`` at full width on the first 16 planes (half a
+ 13. ``TwoPassMwsWorkflow`` at full width on the first 8 planes (a quarter of a
      block layer); gates: every voxel labelled, two pass-1 blocks
      recomputed equal to what was written, seeded voxels keep seed ids
      (their own where a block has at most 1024 seed ids).  Printed: wall, the passes' seconds, face
      agreement;
- 14. one JSON line with the accumulator and the device MWS
-     (``device_functions``), one listing the six kernels, then the result
-     line.
+ 14. ``MulticutSegmentationWorkflow`` from affinities at the whole shape:
+     ``255 -`` phase 12's channels 0-2 (offsets [-1, 0, 0], [0, -1, 0],
+     [0, 0, -1], boundary convention; uint8 raw n5, chunks (3, 32, 256,
+     256)), n_scales 1, ``sanity_checks``, the watershed over channels
+     0-3 (mean), the ``offsets`` features.  Gates: kernels 2 and 1 launch,
+     all on the cluster route; ``CheckSubGraphsTask`` passes; blocks first
+     and last of the watershed re-run through the plain versions equal it;
+     their saved feature chunks equal ``affinity_edge_features`` on the
+     host; the output is its table applied to the watershed, with between
+     1 and the fragment count segments.  Printed: wall, voxels/s, seconds
+     per task, the energy;
+ 15. ``SubSolutionsWorkflow`` and ``ReducedSolutionWorkflow`` at scale 1 in
+     phase 14's tmp folder: each fragment one sub-solution id within a
+     scale-1 block; the reduced labelling its table applied to the
+     watershed, a coarsening with 1 < segments < fragments;
+ 16. on the first 32 planes (``FEATURE_Z``): the multicut with the filter
+     bank (all four filters, sigma 1.6, halo [6, 6, 6], ``quantile_mode``
+     "approx": the default exact raw-sample merge alone takes minutes,
+     ``--filter-bank-exact``), ``ImageFilterTask`` (hessian eigenvalues)
+     and the region features over its watershed.  Gates: the card's filter
+     responses equal the port's on the CPU on two whole halo'd blocks
+     (exactly; the eigenvalues within 1e-5·max|H|), saved features equal a
+     host recompute, region counts, minima and maxima equal numpy's and
+     means within rtol 1e-4;
+ 17. on the first 32 planes: ``InsertAffinitiesTask`` (phase 12's 8
+     channels; objects phase 6's seeds left of x = 512), ``GradientsTask``
+     and ``EmbeddingDistancesTask`` (the 8 channels as an embedding).
+     Gates: the 3d flood launches; blocks without objects are copied; three
+     blocks of each output equal the port's CPU recompute (uint8 byte for
+     byte, float within 1e-6 relative);
+ 18. one JSON line with the device functions (the accumulator, the device
+     MWS, the filter bank with its ``eigvalsh``, the segment reductions,
+     the dilation), one listing the six kernels, then the result line.
 
 ``--mws-scaling`` runs only the device MWS's schedule study (no build, no
 result line): growing (36, s, s) centres of phase 12's first interior
 halo'd block up to the whole (36, 264, 264) block, each solve stopped after
 ``MWS_SCALING_BUDGET_S`` host seconds; rounds, ms per round, the rows still
 open, and a profiler window over the whole block's rounds.
+
+``--filter-bank-exact`` runs only phase 16 (after the build and the
+volume; no result line) with the filter bank's default quantile mode, the
+exact raw-sample merge that the full run leaves out for time; its gates are
+phase 16's, with the saved raw samples checked too.
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -185,7 +223,7 @@ THRESHOLD = 0.5
 SEED_THRESHOLD = 0.3  # seeds: 5.3% of the voxels, ~800 components per 40 x 250 x 250
 FLOOD_TILE = "8,64,128"  # CTT_FLOOD_TILE of the seeds run: kernel 3 tiles of 64 x 128
 HALO = (2, 8, 8)  # the watershed-from-seeds default, also given to the 3d watershed
-EARLY_Z = 64  # depth of phase 10 (two block layers), cut for phases 12-13's time
+EARLY_Z = 64  # depth of phases 6 and 10 (two block layers), cut for the script's time
 
 
 def log(msg: str) -> None:
@@ -842,19 +880,8 @@ def workflow_phase(vol_np, path: str, work: str, card: str):
     log(f"output: foreground labelled {float((out[fg] > 0).mean()):.4f}, "
         f"{len(np.unique(out)) - 1} segments, ids unique per block")
 
-    task = wf.requires()[0]
-    config = {**task.global_config(), **task.get_task_config()}
     check_ids = [0, blocking.n_blocks - 1]  # an interior-corner block and the ragged last one
-    with plain_kernels():
-        _, blocks, labels = task.compute_batch(
-            task.read_batch(check_ids, blocking, config), blocking, config
-        )
-    torch.cuda.synchronize()
-    for bid, bh, lab in zip(check_ids, blocks, labels):
-        lab = lab[bh.inner_local.slicing]
-        lab = np.where(lab > 0, lab + np.uint64(bid * unit), 0).astype(np.uint64)
-        if not np.array_equal(lab, out[bh.inner.slicing]):
-            raise AssertionError(f"block {bid}: plain re-run differs from the workflow")
+    check_watershed_blocks(wf.requires()[0], path, "ws", blocking, check_ids)
     log(f"blocks {check_ids} re-run through the plain versions: byte-identical")
     return launches, wall, vox / wall
 
@@ -1166,7 +1193,7 @@ def flood3d_kernel_phase(vol, dev, compare=()):
 def task_seconds(wf, tag: str) -> None:
     """Seconds per task of a workflow run, upstream first, with the cuda
     target's stage sums."""
-    chain, todo = [], list(wf.requires())
+    chain, todo = [], [wf]
     while todo:
         node = todo.pop()
         chain.append(node)
@@ -1958,7 +1985,8 @@ AFF_CHUNKS = (8, 32, 256, 256)
 MWS_HALO = (2, 4, 4)  # the MWS tasks' default
 MWS_DEVICE_CROP = (36, 24, 24)  # phase 12b: the centre of a halo'd block
 MAX_MUTEX_IDS = 1024  # compute_mws_segmentation_with_seeds' default
-TWO_PASS_MWS_Z = 16  # phase 13's depth: half a block layer (pass 1 runs a block at a time)
+TWO_PASS_MWS_Z = 8  # phase 13's depth: a quarter block layer (pass 1 runs a block at a time)
+MWS_Z = 32  # phase 12's ROI depth (one block layer), cut for phases 14-17's time
 
 
 def mws_offsets() -> list:
@@ -2014,15 +2042,18 @@ def same_partition(a: np.ndarray, b: np.ndarray) -> bool:
 
 
 def mws_phase(vol_np, work: str, card: str, dev) -> dict:
-    """Phase 12: ``MwsWorkflow`` at the volume's full size on the ``cuda``
+    """Phase 12: ``MwsWorkflow`` at full width on the first ``MWS_Z``
+    planes (a ``roi_end`` in the global config; the affinities are made and
+    stored for the whole volume, phase 14 reads them) on the ``cuda``
     target, blocks (32, 256, 256), the task's defaults (halo [2, 4, 4],
     strides [1, 1, 1], no noise), 8 host threads, on long-range affinities
     made on the card from the boundary map (uint8, raw n5, chunks (8, 32,
-    256, 256)).  Gates: the native solver built; every voxel labelled; the
-    output is the stitch table applied to ``mws_blocks``; blocks first and
-    last recomputed with ``compute_mws_segmentation`` from the halo'd read
-    equal ``mws_blocks`` after the relabel and offset; the dominant
-    stitched id continues across a y face and an x face."""
+    256, 256)).  Gates, inside the ROI: the native solver built; every
+    voxel labelled; the output is the stitch table applied to
+    ``mws_blocks``; blocks first and last recomputed with
+    ``compute_mws_segmentation`` from the halo'd read equal ``mws_blocks``
+    after the relabel and offset; the dominant stitched id continues across
+    a y face and an x face."""
     from cluster_tools_tpu_torch import MwsWorkflow, build, native
     from cluster_tools_tpu_torch.ops.mws import compute_mws_segmentation
     from cluster_tools_tpu_torch.runtime import config as cfg
@@ -2040,30 +2071,33 @@ def mws_phase(vol_np, work: str, card: str, dev) -> dict:
     if not native.available():
         raise AssertionError(f"mws: native solvers unavailable: {native.load_error}")
     tmp, config_dir = os.path.join(work, "tmp_mws"), os.path.join(work, "configs_mws")
+    z = min(MWS_Z, vol_np.shape[0])
     cfg.write_global_config(config_dir, {
         "block_shape": list(BLOCK), "target": "cuda", "device": str(dev),
         "max_jobs": min(8, os.cpu_count() or 1),
+        "roi_begin": [0, 0, 0], "roi_end": [z] + list(vol_np.shape[1:]),
     })
     conf = MwsBlocksTask.default_task_config()
     cfg.write_config(config_dir, "mws_blocks", conf)
     wf = MwsWorkflow(tmp, config_dir, input_path=path, input_key="affs", output_path=path,
                      output_key="mws")
-    vox = int(np.prod(vol_np.shape))
+    roi = (z,) + tuple(vol_np.shape[1:])
+    vox = int(np.prod(roi))
     t0 = time.perf_counter()
     if not build([wf]):
         raise AssertionError("mws workflow build failed")
     wall = time.perf_counter() - t0
-    log(f"mws: {vol_np.shape} in {wall:.2f} s = {vox / wall:.6g} voxels/s on {card}")
+    log(f"mws: {roi} of {vol_np.shape} in {wall:.2f} s = {vox / wall:.6g} voxels/s on {card}")
     task_seconds(wf, "mws")
     t0 = time.perf_counter()
     f = file_reader(path, "r")
-    seg, blocks = f["mws"][:], f["mws_blocks"][:]
+    seg, blocks = f["mws"][:z], f["mws_blocks"][:z]
     table = np.load(os.path.join(tmp, STITCH_ASSIGNMENTS_NAME))
     if not (seg > 0).all():
         raise AssertionError("mws: unlabelled voxels")
     # ids lie below n_blocks x the halo'd block size: dense tables over them
     # are a few GB and a pass each, where sorts of the volume take minutes
-    lut = np.arange(int(blocks.max()) + 1, dtype=np.uint64)
+    lut = np.arange(max(int(blocks.max()), int(table[:, 0].max(initial=0))) + 1, dtype=np.uint64)
     lut[table[:, 0]] = table[:, 1]
     if not np.array_equal(lut[blocks], seg):
         raise AssertionError("mws: the output is not the stitch table applied to mws_blocks")
@@ -2075,7 +2109,8 @@ def mws_phase(vol_np, work: str, card: str, dev) -> dict:
         f"({table.shape[0]} voted ids in the table); the output is the table applied to "
         f"mws_blocks (checked in {time.perf_counter() - t0:.1f} s)")
     blocking = Blocking(vol_np.shape, BLOCK)
-    for bid in (0, blocking.n_blocks - 1):
+    in_roi = blocking.blocks_overlapping_roi([0, 0, 0], list(roi))
+    for bid in (in_roi[0], in_roi[-1]):
         bh = blocking.block_with_halo(bid, MWS_HALO)
         a = affs[(slice(None),) + bh.outer.slicing].astype(np.float32) / 255.0
         t0 = time.perf_counter()
@@ -2096,7 +2131,7 @@ def mws_phase(vol_np, work: str, card: str, dev) -> dict:
         f"y face {crossing[0]}, an x face {crossing[1]}; face voxel pairs agreeing (z, y, x) {agree}")
     if not all(crossing):
         raise AssertionError("mws: the dominant stitched id does not continue across y and x faces")
-    return {"wall": wall, "rate": vox / wall, "affs": affs, "path": path}
+    return {"wall": wall, "rate": vox / wall, "affs": affs, "path": path, "shape": roi}
 
 
 def device_mws_phase(affs: np.ndarray, card: str, dev) -> dict:
@@ -2379,6 +2414,666 @@ def two_pass_mws_phase(affs: np.ndarray, path: str, work: str, card: str, dev, z
             "shape": ", ".join(map(str, shape))}
 
 
+AFF_MC_OFFSETS = [[-1, 0, 0], [0, -1, 0], [0, 0, -1]]  # MwsBlocksTask's offsets 0-2
+AFF_MC_CHUNKS = (3, 32, 256, 256)
+# the watershed's threshold on the affinities' channel mean: at the task's 0.5
+# the mean's foreground is one connected piece whose RAG edges all lie below
+# 0.5, so every cost is attractive and the multicut returns one segment
+# (PERF.md §4); at 0.4 the cells separate
+AFF_WS_THRESHOLD = 0.4
+FEATURE_Z = 32  # depth of phases 16-17 (one block layer), cut for the script's time
+FILTER_SIGMA = 1.6
+FILTER_HALO = [6, 6, 6]  # int(4 * 1.6 + 0.5): the filters' radius at FILTER_SIGMA
+# phase 16's quantile merge: the filter bank's default, the exact raw-sample
+# merge, took 258.8 s alone at 32 planes (PERF.md §4), more than the script
+# has room for; ``--filter-bank-exact`` runs phase 16 with it
+FILTER_QUANTILE_MODE = "approx"
+OBJECTS_X = 512  # phase 17: objects only left of x = 512, so blocks right of it hold none
+# phase 17's refit: the seeds average ~165 voxels, so the default erosion (6,
+# a 13^3 window) would leave almost none; 2 in plane (5 x 5) keeps many
+INSERT_CONFIG = {"erode_by": 2, "erode_3d": False}
+
+
+def check_watershed_blocks(task, path: str, ws_key: str, blocking, check_ids) -> None:
+    """Blocks ``check_ids`` of a ``WatershedTask``'s output re-run through the
+    plain versions on the card: byte-identical."""
+    from cluster_tools_tpu_torch.utils import file_reader
+
+    config = {**task.global_config(), **task.get_task_config()}
+    with plain_kernels():
+        _, blocks, labels = task.compute_batch(
+            task.read_batch(list(check_ids), blocking, config), blocking, config)
+    torch.cuda.synchronize()
+    out = file_reader(path, "r")[ws_key]
+    unit = int(np.prod(blocking.block_shape))
+    for bid, bh, lab in zip(check_ids, blocks, labels):
+        lab = lab[bh.inner_local.slicing]
+        lab = np.where(lab > 0, lab + np.uint64(bid * unit), 0).astype(np.uint64)
+        if not np.array_equal(lab, out[bh.inner.slicing]):
+            raise AssertionError(f"{ws_key} block {bid}: plain re-run differs from the workflow")
+
+
+def saved_block_features(tmp: str, bid: int, edges: np.ndarray):
+    """A block's saved feature partial (``BlockEdgeFeaturesTask``): its
+    global edge ids, the feature rows and sketches, with the graph ids of
+    ``edges`` and which of them the graph holds."""
+    from cluster_tools_tpu_torch.tasks.features import (
+        FEATURE_HISTS_KEY, FEATURE_IDS_KEY, FEATURE_VALS_KEY, global_edge_ids)
+    from cluster_tools_tpu_torch.tasks.graph import load_graph
+    from cluster_tools_tpu_torch.utils import file_reader
+
+    scratch = file_reader(os.path.join(tmp, "data.zarr"), "r")
+    ids, valid = global_edge_ids(*load_graph(scratch), edges)
+    saved_ids = scratch[FEATURE_IDS_KEY].read_chunk((bid,))
+    vals = scratch[FEATURE_VALS_KEY].read_chunk((bid,)).reshape(saved_ids.size, -1)
+    hists = scratch[FEATURE_HISTS_KEY].read_chunk((bid,))
+    if not np.array_equal(saved_ids, ids[valid]):
+        raise AssertionError(f"block {bid}: saved edge ids differ from the recompute's")
+    return vals, hists, valid
+
+
+def affinity_multicut_phase(affs: np.ndarray, work: str, card: str) -> dict:
+    """Phase 14: ``MulticutSegmentationWorkflow`` from affinities at the whole
+    shape on the ``cuda`` target: the boundary-convention nearest-neighbour
+    affinities ``255 -`` phase 12's channels 0-2 (offsets ``AFF_MC_OFFSETS``,
+    uint8 raw n5, chunks (3, 32, 256, 256)); blocks (32, 256, 256), n_scales
+    1, ``sanity_checks``; the watershed over channels 0-3, mean, threshold
+    ``AFF_WS_THRESHOLD`` (kernels 2 and 1 on a 4d input); the ``offsets``
+    features.  Gates: kernels 2 and 1
+    launched, all on the cluster route; ``CheckSubGraphsTask`` found no
+    failed block; blocks first and last of the watershed re-run through the
+    plain versions equal it; their saved feature chunks equal
+    ``affinity_edge_features`` recomputed on the host from the stored
+    inputs; the output is its table applied to the watershed, with between
+    1 and the fragment count segments."""
+    from cluster_tools_tpu_torch import MulticutSegmentationWorkflow, build
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
+    from cluster_tools_tpu_torch.ops.multicut import multicut_energy
+    from cluster_tools_tpu_torch.ops.rag import HIST_BINS, affinity_edge_features
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks.debugging import FAILED_SUBGRAPH_BLOCKS_NAME
+    from cluster_tools_tpu_torch.tasks.graph import read_block_with_upper_halo
+    from cluster_tools_tpu_torch.tasks.multicut import ASSIGNMENTS_NAME
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedTask
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    if mws_offsets()[:3] != AFF_MC_OFFSETS:
+        raise AssertionError(f"phase 12's channels 0-2 are not {AFF_MC_OFFSETS}")
+    t0 = time.perf_counter()
+    aff3 = 255 - affs[:3]
+    path = os.path.join(work, "affs_mc.n5")
+    file_reader(path).create_dataset("affs", data=aff3, chunks=AFF_MC_CHUNKS, compression="raw")
+    log(f"setup: boundary affinities {aff3.shape} uint8 written as raw n5 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    shape = aff3.shape[1:]
+    config_dir, tmp = os.path.join(work, "configs_mc_aff"), os.path.join(work, "tmp_mc_aff")
+    cfg.write_global_config(config_dir, {
+        "block_shape": list(BLOCK), "target": "cuda", "device": "cuda",
+        "max_jobs": min(8, os.cpu_count() or 1),
+    })
+    ws_conf = WatershedTask.default_task_config()
+    ws_conf.update({"channel_begin": 0, "channel_end": 3, "agglomerate_channels": "mean",
+                    "threshold": AFF_WS_THRESHOLD})
+    cfg.write_config(config_dir, "watershed", ws_conf)
+    cfg.write_config(config_dir, "block_edge_features", {"offsets": AFF_MC_OFFSETS})
+    wf = MulticutSegmentationWorkflow(
+        tmp, config_dir, input_path=path, input_key="affs", ws_path=path, ws_key="ws",
+        output_path=path, output_key="seg", n_scales=1, sanity_checks=True,
+    )
+    reset_counts(dtws_slices, flood_slices)
+    t0 = time.perf_counter()
+    if not build([wf]):
+        raise AssertionError("affinity multicut build failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vox = int(np.prod(shape))
+    launches = {"dtws_slices": dtws_slices.launches, "flood_slices": flood_slices.launches}
+    for name, wrapper in (("dtws_slices", dtws_slices), ("flood_slices", flood_slices)):
+        if wrapper.launches == 0:
+            raise AssertionError(f"the affinity multicut never launched {name}")
+        if wrapper.launches_by_route["cluster"] != wrapper.launches:
+            raise AssertionError(f"{name}: launches off the cluster route {wrapper.launches_by_route}")
+    log(f"affinity multicut: {shape} in {wall:.2f} s = {vox / wall:.6g} voxels/s on {card}; "
+        f"launches {launches}, all down the cluster route")
+    task_seconds(wf, "affinity multicut")
+    failed = np.load(os.path.join(tmp, FAILED_SUBGRAPH_BLOCKS_NAME))
+    if failed.size:
+        raise AssertionError(f"check_sub_graphs: failed blocks {failed[:10]}")
+
+    t0 = time.perf_counter()
+    blocking = Blocking(shape, BLOCK)
+    check_ids = [0, blocking.n_blocks - 1]
+    ws_task = WatershedTask(tmp, config_dir, input_path=path, input_key="affs",
+                            output_path=path, output_key="ws")
+    check_watershed_blocks(ws_task, path, "ws", blocking, check_ids)
+    f = file_reader(path, "r")
+    for bid in check_ids:
+        block = blocking.block(bid)
+        seg = read_block_with_upper_halo(f["ws"], blocking, bid).astype(np.uint64)
+        end = tuple(min(e + 1, s) for e, s in zip(block.end, shape))
+        bb = tuple(slice(b, e) for b, e in zip(block.begin, end))
+        data = aff3[(slice(None),) + bb].astype(np.float64) / 255.0
+        edges, feats, hists = affinity_edge_features(
+            seg, data, AFF_MC_OFFSETS, hist_bins=HIST_BINS, owner_shape=block.shape)
+        vals, saved_hists, valid = saved_block_features(tmp, bid, edges)
+        if not (np.array_equal(vals, feats[valid])
+                and np.array_equal(saved_hists, hists[valid].reshape(-1))):
+            raise AssertionError(f"affinity multicut block {bid}: saved features differ from "
+                                 "the host recompute")
+    log(f"affinity multicut: watershed blocks {check_ids} equal their plain re-run; their saved "
+        f"features equal affinity_edge_features on the host ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    table = np.load(os.path.join(tmp, ASSIGNMENTS_NAME))
+    run = {"table": table, "key": "seg"}
+    cont = check_segmentations(path, "ws", {"affinity": run}, blocking)
+    scratch = file_reader(os.path.join(tmp, "data.zarr"), "r")
+    edges = scratch["graph/edges"][:]
+    costs = np.load(os.path.join(tmp, "costs.npy"))
+    energy = multicut_energy(edges, costs, table[:, 1].astype(np.int64))
+    log(f"affinity multicut: {cont['n_fragments']} fragments, {edges.shape[0]} edges, "
+        f"{run['n_segments']} segments; the output is its table applied to the watershed "
+        f"(checked in {time.perf_counter() - t0:.1f} s); energy {energy:.6g}, attractive share "
+        f"{float((costs > 0).mean()):.4f}")
+    return {"wall": wall, "rate": vox / wall, "shape": shape, "launches": launches, "path": path,
+            "tmp": tmp, "config_dir": config_dir, "n_fragments": cont["n_fragments"]}
+
+
+def solutions_phase(mc: dict, card: str) -> dict:
+    """Phase 15: ``SubSolutionsWorkflow`` and ``ReducedSolutionWorkflow`` at
+    scale 1 in phase 14's tmp folder (its scale-0 solve and reduce are
+    reused).  Gates (the JAX package's workflow tests): within the first
+    and last scale-1 blocks each fragment maps to one sub-solution id; the
+    reduced output is its table applied to the watershed, a coarsening with
+    1 < segments < fragments."""
+    from cluster_tools_tpu_torch import build
+    from cluster_tools_tpu_torch.tasks.multicut import reduced_assignments_name
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+    from cluster_tools_tpu_torch.workflows import ReducedSolutionWorkflow, SubSolutionsWorkflow
+
+    path, tmp, config_dir = mc["path"], mc["tmp"], mc["config_dir"]
+    vox = int(np.prod(mc["shape"]))
+    walls = {}
+    for tag, cls, key in (("sub", SubSolutionsWorkflow, "subsol"),
+                          ("reduced", ReducedSolutionWorkflow, "redsol")):
+        wf = cls(tmp, config_dir, ws_path=path, ws_key="ws", output_path=path, output_key=key,
+                 n_scales=1)
+        t0 = time.perf_counter()
+        if not build([wf]):
+            raise AssertionError(f"{tag} solution build failed")
+        walls[tag] = time.perf_counter() - t0
+        log(f"{tag} solution: {mc['shape']} in {walls[tag]:.2f} s = {vox / walls[tag]:.6g} "
+            f"voxels/s on {card}")
+        task_seconds(wf, f"{tag} solution")
+    t0 = time.perf_counter()
+    f = file_reader(path, "r")
+    coarse = Blocking(mc["shape"], [2 * b for b in BLOCK])
+    for bid in (0, coarse.n_blocks - 1):
+        bb = coarse.block(bid).slicing
+        ws, sub = f["ws"][bb], f["subsol"][bb]
+        fg = ws > 0
+        if (sub[~fg] != 0).any() or (sub[fg] == 0).any():
+            raise AssertionError(f"sub solution block {bid}: background not kept")
+        key = ws[fg] * np.uint64(int(sub.max()) + 1) + sub[fg]
+        if np.unique(key).size != np.unique(ws[fg]).size:
+            raise AssertionError(f"sub solution block {bid}: a fragment maps to two ids")
+    table = np.load(os.path.join(tmp, reduced_assignments_name(1)))
+    run = {"table": table, "key": "redsol"}
+    check_segmentations(path, "ws", {"reduced": run}, Blocking(mc["shape"], BLOCK))
+    log(f"solutions: each fragment one sub-solution id in scale-1 blocks 0 and "
+        f"{coarse.n_blocks - 1}; the reduced labelling is its table applied to the watershed, "
+        f"{run['n_segments']} segments of {mc['n_fragments']} fragments (checked in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return walls
+
+
+def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTILE_MODE) -> dict:
+    """Phase 16 on the first ``FEATURE_Z`` planes at full width:
+    ``MulticutSegmentationWorkflow`` with the filter bank (all four filters,
+    sigma 1.6, halo [6, 6, 6]; ``quantile_mode`` as given, None for the
+    task's default, which for the filter bank is the exact raw-sample
+    merge), then ``ImageFilterTask``
+    (hessian eigenvalues, sigma 1.6), then ``RegionFeaturesTask`` +
+    ``MergeRegionFeaturesTask`` over the multicut's watershed and the
+    boundary map.  Gates: the filter bank launched; on the whole halo'd
+    reads of block 0 and the last block the card's responses equal the
+    port's on the CPU — exactly for the gaussian, gradient magnitude and
+    LoG, within 1e-5·max|H| for the eigenvalues; those blocks' saved
+    features (and, in the exact mode, raw samples) equal
+    ``filter_edge_features`` on the host over the card's responses within
+    1e-6; the image filter's eigenvalues finite
+    and descending, its block 0 (the same halo'd read) within 1e-5·max|H| of
+    the CPU's; region counts, minima and maxima equal a numpy group-by,
+    means within rtol 1e-4."""
+    from cluster_tools_tpu_torch import MulticutSegmentationWorkflow, build
+    from cluster_tools_tpu_torch.ops import filters as F
+    from cluster_tools_tpu_torch.ops import segment
+    from cluster_tools_tpu_torch.ops.rag import filter_edge_features
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks import (
+        BlockEdgeFeaturesTask, ImageFilterTask, MergeRegionFeaturesTask, RegionFeaturesTask)
+    from cluster_tools_tpu_torch.tasks.features import FEATURE_SAMPLES_KEY, quantile_plan
+    from cluster_tools_tpu_torch.tasks.graph import read_block_with_upper_halo
+    from cluster_tools_tpu_torch.tasks.region_features import load_region_features
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedTask
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    z = min(FEATURE_Z, vol_np.shape[0])
+    raw = np.ascontiguousarray(vol_np[:z])
+    shape = raw.shape
+    vox = int(np.prod(shape))
+    path = os.path.join(work, "filters.n5")
+    file_reader(path).create_dataset("raw", data=raw, chunks=BLOCK, compression="raw")
+    config_dir, tmp = os.path.join(work, "configs_filters"), os.path.join(work, "tmp_filters")
+    cfg.write_global_config(config_dir, {
+        "block_shape": list(BLOCK), "target": "cuda", "device": "cuda",
+        "max_jobs": min(8, os.cpu_count() or 1),
+    })
+    cfg.write_config(config_dir, "watershed", WatershedTask.default_task_config())
+    features = {"filters": list(F.FILTERS), "sigmas": [FILTER_SIGMA], "halo": FILTER_HALO}
+    if quantile_mode is not None:
+        features["quantile_mode"] = quantile_mode
+    cfg.write_config(config_dir, "block_edge_features", features)
+    wf = MulticutSegmentationWorkflow(
+        tmp, config_dir, input_path=path, input_key="raw", ws_path=path, ws_key="ws",
+        output_path=path, output_key="seg")
+    reset_counts(F.apply_filter)
+    t0 = time.perf_counter()
+    if not build([wf]):
+        raise AssertionError("filter-bank multicut build failed")
+    torch.cuda.synchronize()
+    walls = {"multicut": time.perf_counter() - t0}
+    launches = {"apply_filter": F.apply_filter.launches}
+    blocking = Blocking(shape, BLOCK)
+    if launches["apply_filter"] != len(F.FILTERS) * blocking.n_blocks:
+        raise AssertionError(f"the filter bank launched {launches['apply_filter']} times, not "
+                             f"{len(F.FILTERS)} per block")
+    log(f"filter-bank multicut: {shape} in {walls['multicut']:.2f} s = "
+        f"{vox / walls['multicut']:.6g} voxels/s on {card}; filter launches {launches}")
+    task_seconds(wf, "filter-bank multicut")
+
+    # the card's responses against the CPU's, then the saved features
+    t0 = time.perf_counter()
+    task = BlockEdgeFeaturesTask(tmp, config_dir, input_path=path, input_key="raw",
+                                 labels_path=path, labels_key="ws")
+    config = {**task.global_config(), **task.get_task_config()}
+    f = file_reader(path, "r")
+    exact, _ = quantile_plan(features)
+    if exact:
+        saved_samples = file_reader(os.path.join(tmp, "data.zarr"), "r")[FEATURE_SAMPLES_KEY]
+    errs = {name: 0.0 for name in F.FILTERS}
+    regions, cpu_s = {}, 0.0
+    for bid in (0, blocking.n_blocks - 1):
+        block = blocking.block(bid)
+        ob = [max(b - h, 0) for b, h in zip(block.begin, FILTER_HALO)]
+        oe = [min(e + h + 1, s) for e, h, s in zip(block.end, FILTER_HALO, shape)]
+        x = np.ascontiguousarray(raw[tuple(slice(b, e) for b, e in zip(ob, oe))])
+        x_card = torch.from_numpy(x).cuda()
+        for name in F.FILTERS:
+            card_r = F.apply_filter(x_card, name, FILTER_SIGMA).cpu().numpy()
+            t1 = time.perf_counter()
+            cpu_r = F.apply_filter(torch.from_numpy(x), name, FILTER_SIGMA).numpy()
+            cpu_s += time.perf_counter() - t1
+            err = float(np.abs(card_r - cpu_r).max())
+            errs[name] = max(errs[name], err)
+            if name == "hessianOfGaussianEigenvalues":
+                regions[bid] = (ob, oe, cpu_r)
+                if err > 1e-5 * float(np.abs(cpu_r).max()):
+                    raise AssertionError(f"block {bid}: card eigenvalues off the CPU's by {err}")
+            elif not np.array_equal(card_r, cpu_r):
+                raise AssertionError(f"block {bid}: card {name} differs from the CPU's ({err})")
+        seg = read_block_with_upper_halo(f["ws"], blocking, bid).astype(np.uint64)
+        responses = task._filter_responses(blocking, bid, config)
+        edges, feats, samples = filter_edge_features(
+            seg, responses, owner_shape=block.shape, return_samples=True)
+        vals, _, valid = saved_block_features(tmp, bid, edges)
+        err = float(np.abs(vals - feats[valid]).max(initial=0.0))
+        if vals.shape != feats[valid].shape or err > 1e-6:
+            raise AssertionError(f"filter features block {bid}: saved partial off the host "
+                                 f"recompute by {err}")
+        if exact:
+            counts = feats[:, -1].astype(np.int64)
+            kept = samples.reshape(len(responses), -1)[:, np.repeat(valid, counts)].reshape(-1)
+            if not np.array_equal(saved_samples.read_chunk((bid,)), kept):
+                raise AssertionError(f"filter features block {bid}: saved raw samples differ "
+                                     "from the host recompute")
+    log(f"filter bank ({quantile_mode or 'default'} quantile mode): card vs CPU on the whole "
+        f"halo'd blocks 0 and {blocking.n_blocks - 1}, max abs err {errs} (the CPU's responses "
+        f"{cpu_s:.1f} s); saved features{' and raw samples' if exact else ''} equal the host "
+        f"recompute ({time.perf_counter() - t0:.1f} s)")
+
+    # ImageFilterTask
+    hess = ImageFilterTask(tmp, config_dir, input_path=path, input_key="raw", output_path=path,
+                           output_key="hessian", filter_name="hessianOfGaussianEigenvalues",
+                           sigma=FILTER_SIGMA)
+    t0 = time.perf_counter()
+    if not build([hess]):
+        raise AssertionError("image filter build failed")
+    torch.cuda.synchronize()
+    walls["image_filter"] = time.perf_counter() - t0
+    out = f["hessian"][:]
+    if out.shape != (3,) + shape or not np.isfinite(out).all() \
+            or not ((out[0] >= out[1]).all() and (out[1] >= out[2]).all()):
+        raise AssertionError("image filter: eigenvalues not finite and descending")
+    # block 0's halo'd read is the one the bank was compared on (at its
+    # origin, the task's halo of 7 and the bank's 6 + 1 end alike), so the
+    # CPU's eigenvalues from there are block 0's reference
+    bh = blocking.block_with_halo(0, hess.halo)
+    ob, oe, cpu_r = regions[0]
+    if list(bh.outer.begin) != ob or list(bh.outer.end) != oe:
+        raise AssertionError(f"image filter: block 0 reads {bh.outer} and not {ob}..{oe}")
+    inner = blocking.block(0).slicing
+    cpu_r = np.moveaxis(cpu_r, -1, 0)[(slice(None),) + inner]
+    got = out[(slice(None),) + inner]
+    err = float(np.abs(got - cpu_r).max())
+    if err > 1e-5 * float(np.abs(cpu_r).max()):
+        raise AssertionError(f"image filter: block 0 off the CPU's by {err}")
+    log(f"image filter: {shape} in {walls['image_filter']:.2f} s = "
+        f"{vox / walls['image_filter']:.6g} voxels/s on {card}; eigenvalues finite and "
+        f"descending; block 0 max abs err {err} against the CPU")
+
+    # region features
+    counts = {name: 0 for name in ("segment_count", "segment_sum", "segment_min", "segment_max")}
+    reset_counts(*(getattr(segment, n) for n in counts))
+    block = RegionFeaturesTask(tmp, config_dir, input_path=path, input_key="raw",
+                               labels_path=path, labels_key="ws")
+    merge = MergeRegionFeaturesTask(tmp, config_dir, dependencies=[block], input_path=path,
+                                    input_key="raw")
+    t0 = time.perf_counter()
+    if not build([merge]):
+        raise AssertionError("region features build failed")
+    torch.cuda.synchronize()
+    walls["region_features"] = time.perf_counter() - t0
+    counts = {n: getattr(segment, n).launches for n in counts}
+    if not all(counts.values()):
+        raise AssertionError(f"region features: a reduction never launched {counts}")
+    t0 = time.perf_counter()
+    feats = load_region_features(tmp)
+    ws_all = f["ws"][:]
+    unit = int(np.prod(BLOCK))
+    n_seg = 0
+    worst = 0.0
+    for bid in range(blocking.n_blocks):
+        bb = blocking.block(bid).slicing
+        lab = ws_all[bb].reshape(-1)
+        val = raw[bb].reshape(-1).astype(np.float64)
+        sel = lab > 0
+        local = (lab[sel] - np.uint64(bid * unit)).astype(np.int64)
+        v = val[sel]
+        cnt = np.bincount(local, minlength=unit + 1)
+        mean = np.bincount(local, weights=v, minlength=unit + 1) / np.maximum(cnt, 1)
+        mn = np.full(unit + 1, np.inf)
+        mx = np.full(unit + 1, -np.inf)
+        np.minimum.at(mn, local, v)
+        np.maximum.at(mx, local, v)
+        present = np.nonzero(cnt)[0]
+        got = feats[present + bid * unit]
+        if not (np.array_equal(got[:, 0], cnt[present])
+                and np.array_equal(got[:, 2], mn[present])
+                and np.array_equal(got[:, 3], mx[present])):
+            raise AssertionError(f"region features block {bid}: counts, minima or maxima differ")
+        rel = np.abs(got[:, 1] - mean[present]) / np.maximum(np.abs(mean[present]), 1e-12)
+        worst = max(worst, float(rel.max(initial=0.0)))
+        n_seg += present.size
+    if worst > 1e-4:
+        raise AssertionError(f"region features: a mean off numpy's by rtol {worst}")
+    log(f"region features: {shape} in {walls['region_features']:.2f} s = "
+        f"{vox / walls['region_features']:.6g} voxels/s on {card}; reductions {counts}; "
+        f"{n_seg} segments: counts, minima, maxima equal numpy's, means within rtol {worst:.3g} "
+        f"(checked in {time.perf_counter() - t0:.1f} s)")
+    return {"walls": walls, "shape": shape, "launches": launches, "segment_launches": counts,
+            "raw": raw, "ws": ws_all}
+
+
+def affinity_tasks_phase(affs: np.ndarray, vol_np, seeds_path: str, work: str, card: str) -> dict:
+    """Phase 17 on the first ``FEATURE_Z`` planes at full width, the
+    ``cuda`` target, 8 host threads: ``InsertAffinitiesTask`` on phase 12's
+    8 channels at their offsets, the objects phase 6's seeds (the components
+    of ``vol < 0.3``) left of x = ``OBJECTS_X``, refit with
+    ``INSERT_CONFIG``; ``GradientsTask`` on the
+    boundary map; ``EmbeddingDistancesTask`` with the 8 affinity channels
+    taken as an embedding.  Gates: the 3d flood (the objects' refit)
+    launched; blocks whose halo'd read holds no object are copied
+    unchanged; blocks 0, 1 and the last of each output equal the port's
+    recompute on the CPU (``"device": "cpu"``, a block list): byte for byte
+    for the uint8 affinities, within 1e-6 of each block's largest value for
+    the float ones."""
+    import json as _json
+
+    from cluster_tools_tpu_torch import build
+    from cluster_tools_tpu_torch.ops import affinities as A
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_volume
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks import EmbeddingDistancesTask, GradientsTask, InsertAffinitiesTask
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    z = min(FEATURE_Z, vol_np.shape[0])
+    t0 = time.perf_counter()
+    path = os.path.join(work, "aff_tasks.n5")
+    fw = file_reader(path)
+    a = np.ascontiguousarray(affs[:, :z])
+    fw.create_dataset("affs", data=a, chunks=AFF_CHUNKS, compression="raw")
+    objs = file_reader(seeds_path, "r")["seg_seeds"][:z]
+    objs[..., OBJECTS_X:] = 0
+    fw.create_dataset("objs", data=objs, chunks=BLOCK, compression="raw")
+    fw.create_dataset("raw", data=np.ascontiguousarray(vol_np[:z]), chunks=BLOCK, compression="raw")
+    for c in range(a.shape[0]):
+        fw.create_dataset(f"emb{c}", data=a[c], chunks=BLOCK, compression="raw")
+    shape = a.shape[1:]
+    vox = int(np.prod(shape))
+    log(f"setup: affinity-task inputs {shape} written in {time.perf_counter() - t0:.1f} s; "
+        f"{len(np.unique(objs)) - 1} objects")
+
+    def tasks(tmp, config_dir, suffix=""):
+        return {
+            "insert_affinities": InsertAffinitiesTask(
+                tmp, config_dir, input_path=path, input_key="affs", output_path=path,
+                output_key="ins" + suffix, objects_path=path, objects_key="objs",
+                offsets=mws_offsets()),
+            "gradients": GradientsTask(
+                tmp, config_dir, input_paths=[path], input_keys=["raw"], output_path=path,
+                output_key="grad" + suffix),
+            "embedding_distances": EmbeddingDistancesTask(
+                tmp, config_dir, input_paths=[path] * a.shape[0],
+                input_keys=[f"emb{c}" for c in range(a.shape[0])], output_path=path,
+                output_key="dist" + suffix),
+        }
+
+    config_dir, tmp = os.path.join(work, "configs_aff_tasks"), os.path.join(work, "tmp_aff_tasks")
+    cfg.write_global_config(config_dir, {
+        "block_shape": list(BLOCK), "target": "cuda", "device": "cuda",
+        "max_jobs": min(8, os.cpu_count() or 1),
+    })
+    cfg.write_config(config_dir, "insert_affinities", INSERT_CONFIG)
+    reset_counts(flood_volume, A.binary_dilation)
+    walls = {}
+    for name, task in tasks(tmp, config_dir).items():
+        t0 = time.perf_counter()
+        if not build([task]):
+            raise AssertionError(f"{name} build failed")
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        log(f"{name}: {shape} in {walls[name]:.2f} s = {vox / walls[name]:.6g} voxels/s on {card}")
+        task_seconds(task, name)
+    launches = {"flood_volume": flood_volume.launches, "binary_dilation": A.binary_dilation.launches}
+    if launches["flood_volume"] == 0:
+        raise AssertionError("insert_affinities never launched the 3d flood")
+    blocking = Blocking(shape, BLOCK)
+    f = file_reader(path, "r")
+    ins = f["ins"][:]
+    task = tasks(tmp, config_dir)["insert_affinities"]
+    halo = task._halo({**task.global_config(), **task.get_task_config()})
+    empty = [bid for bid in range(blocking.n_blocks)
+             if not objs[blocking.block_with_halo(bid, halo).outer.slicing].any()]
+    if not empty or len(empty) == blocking.n_blocks:
+        raise AssertionError(f"insert_affinities: {len(empty)} blocks without objects")
+    for bid in empty:
+        inner = (slice(None),) + blocking.block(bid).slicing
+        if not np.array_equal(ins[inner], a[inner]):
+            raise AssertionError(f"insert_affinities block {bid}: no objects, not copied")
+    if np.array_equal(ins, a):
+        raise AssertionError("insert_affinities changed nothing")
+    log(f"affinity tasks: launches {launches}; {len(empty)} blocks without objects copied "
+        f"unchanged")
+
+    # the port's recompute on the CPU of blocks 0 and 1 (both with objects)
+    # and the last one
+    check_ids = [0, 1, blocking.n_blocks - 1]
+    cpu_dir, cpu_tmp = os.path.join(work, "configs_aff_cpu"), os.path.join(work, "tmp_aff_cpu")
+    block_list = os.path.join(work, "aff_check_blocks.json")
+    with open(block_list, "w") as fh:
+        _json.dump(check_ids, fh)
+    cfg.write_global_config(cpu_dir, {
+        "block_shape": list(BLOCK), "target": "local", "device": "cpu", "max_jobs": 2,
+        "block_list_path": block_list,
+    })
+    cfg.write_config(cpu_dir, "insert_affinities", INSERT_CONFIG)
+    t0 = time.perf_counter()
+    if not build(list(tasks(cpu_tmp, cpu_dir, "_cpu").values())):
+        raise AssertionError("affinity tasks: the CPU recompute failed")
+    errs = {}
+    for key in ("ins", "grad", "dist"):
+        card_ds, cpu_ds = f[key], f[key + "_cpu"]
+        lead = (slice(None),) * (card_ds.ndim - 3)
+        for bid in check_ids:
+            bb = lead + blocking.block(bid).slicing
+            got, want = card_ds[bb], cpu_ds[bb]
+            if got.dtype == np.uint8:
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"{key} block {bid}: the card differs from the CPU")
+                errs[key] = 0
+            else:
+                err = float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
+                errs[key] = max(errs.get(key, 0.0), err)
+                if err > 1e-6:
+                    raise AssertionError(f"{key} block {bid}: off the CPU by {err}")
+    log(f"affinity tasks: blocks {check_ids} equal the port's CPU recompute (uint8 exactly, "
+        f"float relative max err {errs}; {time.perf_counter() - t0:.1f} s)")
+    return {"walls": walls, "shape": shape, "launches": launches, "affs": a, "path": path,
+            "halo": halo}
+
+
+def slice_device_functions(fb: dict, at: dict, card: str) -> list:
+    """The plain PyTorch device functions of phases 16-17 timed on the card
+    at their workflow shapes (CUDA events, ``cuda_ms``): the filter bank on
+    block 1's halo'd read (its four filters; ``torch.linalg.eigvalsh`` of
+    the hessians alone, with its workspace), the region features'
+    reductions on block 1, one channel's in-plane dilation on block 1's
+    halo'd read.  Bounds: bytes (inputs read once, outputs written once)
+    over 3.35 TB/s against float32 operations over 67 TFLOP/s — the bank
+    2 per tap of each separable pass and ~60 per eigen solve, the
+    dilation 2 iterations x 4 neighbours."""
+    from cluster_tools_tpu_torch.ops import affinities as A
+    from cluster_tools_tpu_torch.ops import filters as F
+    from cluster_tools_tpu_torch.ops import segment
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    def bound(nbytes, ops):
+        b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        return (b, "bytes") if b >= o else (o, "operations")
+
+    blocking = Blocking(fb["shape"], BLOCK)
+    block = blocking.block(1)
+    ob = [max(b - h, 0) for b, h in zip(block.begin, FILTER_HALO)]
+    oe = [min(e + h + 1, s) for e, h, s in zip(block.end, FILTER_HALO, fb["shape"])]
+    x = torch.from_numpy(fb["raw"][tuple(slice(b, e) for b, e in zip(ob, oe))]).cuda()
+    v = x.numel()
+    before = F.apply_filter.launches
+    bank_ms = cuda_ms(lambda: [F.apply_filter(x, name, FILTER_SIGMA) for name in F.FILTERS], 5)
+    F.apply_filter.launches = before
+    taps = len(F.gauss_kernel(FILTER_SIGMA))
+    passes = 3 + 9 + 9 + 18  # gaussian, gradient magnitude, LoG, hessian (per axis)
+    ops = v * (2 * taps * passes + 60)
+    nbytes = v * 4 * (len(F.FILTERS) + 1 + 1 + 1 + 3)
+    hess = [F._separable(x, FILTER_SIGMA, [(1 if ax == i else 0) + (1 if ax == j else 0)
+                                          for ax in range(3)])
+            for i in range(3) for j in range(i, 3)]
+    h = torch.stack([hess[0], hess[1], hess[2], hess[1], hess[3], hess[4], hess[2], hess[4],
+                     hess[5]], dim=-1).reshape(x.shape + (3, 3))
+    del hess
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eig = F.eigenvalues_descending(h)
+    torch.cuda.synchronize()
+    # beyond the result and its flipped copy
+    workspace = max(torch.cuda.max_memory_allocated() - base - 2 * eig.numel() * eig.element_size(), 0)
+    del eig
+    eig_ms = cuda_ms(lambda: F.eigenvalues_descending(h), 3)
+    del h
+    b_ms, b_by = bound(nbytes, ops)
+    records = [{
+        "name": "filter_bank (apply_filter x 4: gaussian, gradient magnitude, LoG, hessian "
+                "eigenvalues; sigma 1.6)",
+        "shape": list(x.shape), "ms": bank_ms / len(F.FILTERS), "block_ms": bank_ms,
+        "launches": fb["launches"]["apply_filter"], "bound_ms": b_ms / len(F.FILTERS),
+        "bound_by": b_by, "eigvalsh_ms": eig_ms, "eigvalsh_workspace_bytes": int(workspace),
+    }]
+    del x
+    torch.cuda.empty_cache()
+
+    bb = block.slicing
+    lab = fb["ws"][bb]
+    ids = np.unique(lab[lab > 0])
+    local = np.searchsorted(ids, lab).clip(0, ids.size - 1)
+    local = np.where((lab > 0) & (lab == ids[local]), local + 1, 0)
+    lab_d = torch.from_numpy(local.astype(np.int64).reshape(-1)).cuda()
+    val_d = torch.from_numpy(fb["raw"][bb].reshape(-1)).cuda()
+    k = ids.size + 1
+    saved = {n: getattr(segment, n).launches for n in fb["segment_launches"]}
+
+    def reductions():
+        return (segment.segment_count(lab_d, k), segment.segment_mean(lab_d, val_d, k),
+                segment.segment_min(lab_d, val_d, k), segment.segment_max(lab_d, val_d, k))
+
+    red_ms = cuda_ms(reductions, 10)
+    for n, c in saved.items():
+        getattr(segment, n).launches = c
+    n_calls = 5  # count, mean (a sum and a count), min, max
+    b_ms, b_by = bound(lab_d.numel() * (8 * n_calls + 4 * 4), 0)
+    records.append({
+        "name": "segment reductions (count, sum, min, max; region features)",
+        "shape": list(lab.shape), "segments": int(ids.size), "ms": red_ms / n_calls,
+        "block_ms": red_ms, "launches": int(sum(fb["segment_launches"].values())),
+        "bound_ms": b_ms / n_calls, "bound_by": b_by,
+    })
+    del lab_d, val_d
+
+    bh = Blocking(at["shape"], BLOCK).block_with_halo(1, at["halo"])
+    m = torch.from_numpy(at["affs"][(0,) + bh.outer.slicing] > 127).cuda()
+    before = A.binary_dilation.launches
+    dil_ms = cuda_ms(lambda: A.binary_dilation(m, 2, in_2d=True), 10)
+    A.binary_dilation.launches = before
+    b_ms, b_by = bound(2 * m.numel(), 2 * 4 * m.numel())
+    records.append({
+        "name": "binary_dilation (insert_affinities: 2 iterations in plane)",
+        "shape": list(m.shape), "ms": dil_ms, "launches": at["launches"]["binary_dilation"],
+        "bound_ms": b_ms, "bound_by": b_by,
+    })
+    for rec in records:
+        rec["gap_ms"] = rec["ms"] - rec["bound_ms"]
+        rec["launches_x_gap_ms"] = rec["launches"] * rec["gap_ms"]
+        log(f"device function on {card}: {rec}")
+    return records
+
+
+def log_failed_blocks(work: str) -> None:
+    """The failed-block tracebacks of every task log under ``work``."""
+    import glob
+
+    for path in sorted(glob.glob(os.path.join(work, "*", "logs", "*.log"))):
+        with open(path) as f:
+            text = f.read()
+        at = text.find("failed: ")
+        if at >= 0:
+            log(f"--- {os.path.basename(path)}:\n{text[max(0, at - 200):at + 6000]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--z", type=int, default=CREMI_A[0], help="volume depth (cut z only)")
@@ -2391,6 +3086,9 @@ def main() -> int:
                          "process, this tree in one too")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 5 (no workflow runs, no result line)")
+    ap.add_argument("--filter-bank-exact", action="store_true",
+                    help="only phase 16 with the filter bank's default quantile mode, the exact "
+                         "raw-sample merge (the build and the volume first; no result line)")
     ap.add_argument("--mws-scaling", action="store_true",
                     help="only the device MWS's rounds and round cost on growing centres of a "
                          "halo'd block, up to the whole block (no build, no result line)")
@@ -2423,6 +3121,20 @@ def main() -> int:
     vol = make_volume(shape, args.seed, dev)
     log(f"setup: synthetic volume {shape} in {time.perf_counter() - t0:.1f} s, "
         f"boundary fraction {float((vol >= THRESHOLD).float().mean()):.4f}")
+    if args.filter_bank_exact:
+        vol_np = vol.cpu().numpy()
+        del vol
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
+            t0 = time.perf_counter()
+            try:
+                fb = filter_bank_phase(vol_np, work, card, quantile_mode=None)
+            except Exception:
+                log_failed_blocks(work)
+                raise
+            log(f"phase 16 (exact merge): {time.perf_counter() - t0:.1f} s; walls {fb['walls']}")
+        log(f"script: {time.perf_counter() - t_start:.1f} s")
+        return 0
     records = kernel_phase(vol, dev, args.batch)
     records.update(cc_kernel_phase(vol, dev, args.batch, args.compare))
     records.update(flood3d_kernel_phase(vol, dev, args.compare))
@@ -2433,8 +3145,8 @@ def main() -> int:
     vol_np = vol.cpu().numpy()
     del vol
     torch.cuda.empty_cache()
-    # phase 10 runs on the first EARLY_Z planes so that the mutex
-    # watershed's phases fit the time limit; the rest on the whole
+    # phases 6 and 10 run on the first EARLY_Z planes so that the later
+    # phases fit the time limit; the rest on the whole
     cut_np = vol_np[:EARLY_Z]
     from scipy import ndimage
 
@@ -2463,7 +3175,7 @@ def main() -> int:
         del ref, fg
         cache_budget_phase(path, work, BLOCK)
         log(f"phases 3-4 done at {time.perf_counter() - t_start:.1f} s")
-        seed_launches, seeds_wall, seeds_rate = seeds_phase(vol_np, path, work, card)
+        seed_launches, seeds_wall, seeds_rate = seeds_phase(cut_np, cut_path, work, card)
         for name in ("flood_tiles_warm", "flood_volume"):
             launches[name] = seed_launches[name]
         ws3d_wall, ws3d_rate = ws3d_phase(vol_np, path, work, card)
@@ -2482,6 +3194,15 @@ def main() -> int:
         tp_mws = two_pass_mws_phase(mws["affs"], mws["path"], work, card, dev,
                                     min(TWO_PASS_MWS_Z, vol_np.shape[0]))
         log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+        mc_aff = affinity_multicut_phase(mws["affs"], work, card)
+        log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+        sol_walls = solutions_phase(mc_aff, card)
+        log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
+        fb = filter_bank_phase(vol_np, work, card)
+        log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
+        at = affinity_tasks_phase(mws["affs"], vol_np, cut_path, work, card)
+        log(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
+        slice_records = slice_device_functions(fb, at, card)
     for name, rec in records.items():
         rec["launches"] = launches[name]
         log(f"kernel {name}: {rec['launches']} launches in its workflow run, {rec['ms']:.3f} ms "
@@ -2491,7 +3212,7 @@ def main() -> int:
     for block, (cc_wall, cc_rate) in rates.items():
         log(f"{card}: ThresholdedComponentsWorkflow {vol_np.shape} blocks {block} "
             f"{cc_rate:.6g} voxels/s ({cc_wall:.3f} s)")
-    log(f"{card}: ThresholdAndWatershedWorkflow {vol_np.shape} {seeds_rate:.6g} voxels/s "
+    log(f"{card}: ThresholdAndWatershedWorkflow {cut_np.shape} {seeds_rate:.6g} voxels/s "
         f"({seeds_wall:.3f} s)")
     log(f"{card}: WatershedWorkflow 3d {vol_np.shape} {ws3d_rate:.6g} voxels/s ({ws3d_wall:.3f} s)")
     for tag, wall in mc["walls"].items():
@@ -2504,12 +3225,21 @@ def main() -> int:
         f"({tp_wall:.3f} s); kernel launches {tp_launches}")
     log(f"{card}: AgglomerativeClusteringWorkflow {vol_np.shape} {ac_rate:.6g} voxels/s "
         f"({ac_wall:.3f} s, graph and features reused)")
-    log(f"{card}: MwsWorkflow {vol_np.shape} {mws['rate']:.6g} voxels/s ({mws['wall']:.3f} s)")
+    log(f"{card}: MwsWorkflow {mws['shape']} {mws['rate']:.6g} voxels/s ({mws['wall']:.3f} s)")
     log(f"{card}: TwoPassMwsWorkflow ({tp_mws['shape']}) {tp_mws['rate']:.6g} voxels/s "
         f"({tp_mws['wall']:.3f} s; pass 0 {tp_mws['passes'][0]:.3f} s, pass 1 "
         f"{tp_mws['passes'][1]:.3f} s)")
+    log(f"{card}: MulticutSegmentationWorkflow from affinities {mc_aff['shape']} "
+        f"{mc_aff['rate']:.6g} voxels/s ({mc_aff['wall']:.3f} s); kernel launches "
+        f"{mc_aff['launches']}")
+    for tag, wall in sol_walls.items():
+        log(f"{card}: {tag} solution workflow (scale 1, phase 14's problem) {mc_aff['shape']} "
+            f"{int(np.prod(mc_aff['shape'])) / wall:.6g} voxels/s ({wall:.3f} s)")
+    for tag, wall in {**fb["walls"], **at["walls"]}.items():
+        shape = fb["shape"] if tag in fb["walls"] else at["shape"]
+        log(f"{card}: {tag} {shape} {int(np.prod(shape)) / wall:.6g} voxels/s ({wall:.3f} s)")
     log(f"script: {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"device_functions": [mc["accumulator"], device_mws]}))
+    log(json.dumps({"device_functions": [mc["accumulator"], device_mws] + slice_records}))
     log(json.dumps({"kernels": [records[k] for k in (
         "flood_slices", "dtws_slices", "flood_tiles_warm", "cc_slices", "cc_tiles",
         "flood_volume")]}))

@@ -136,6 +136,13 @@ def count_launch(wrapper, route=None, **sums) -> None:
             setattr(wrapper, name, getattr(wrapper, name) + value)
 
 
+def count_on_card(wrapper, tensor) -> None:
+    """``count_launch(wrapper)`` where ``tensor`` lies on a card: the launch
+    counts of the plain PyTorch device functions."""
+    if tensor.is_cuda:
+        count_launch(wrapper)
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a nonzero ``cudaGetLastError`` code returned by a launch."""
     if rc != 0:

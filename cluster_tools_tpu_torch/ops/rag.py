@@ -8,6 +8,10 @@ mergeFeatureBlocks, Graph).
 Host path (numpy, a copy of the JAX package's, bit-identical): face-pair
 extraction is vectorized (adjacent-voxel label pairs per axis); uniquing and
 per-edge statistics run as sort-based reductions (np.lexsort + reduceat).
+Three accumulators share it: boundary maps (``boundary_edge_features``),
+a bank of filter responses (``filter_edge_features``: 9 statistics per
+response and one count) and affinity maps with per-channel offsets
+(``affinity_edge_features``, the min-corner owner rule).
 
 Edge features (10 per edge, the reference's default feature width —
 block_edge_features.py:146-148):
@@ -25,7 +29,6 @@ Device path (``boundary_edge_features_device``, plain PyTorch on the
 tensors' device; XLA in the JAX package): the same statistics from one
 sort of the face rows, float32 moments.  Edges, counts, histograms, minima,
 maxima and quantiles equal the host path's; the moments hold its tolerance.
-The affinity and filter-bank accumulators are ROADMAP Queue A 6(b).
 """
 
 from __future__ import annotations
@@ -208,6 +211,118 @@ def face_sample_indices(labels: np.ndarray, owner_shape=None):
     return (
         np.concatenate(us), np.concatenate(vs),
         np.concatenate(ilos), np.concatenate(ihis),
+    )
+
+
+def filter_edge_features(
+    labels: np.ndarray,
+    responses: Sequence[np.ndarray],
+    owner_shape=None,
+    return_samples: bool = False,
+):
+    """Edge features over a bank of filter responses (the reference's
+    filter-accumulation path, block_edge_features.py:151-238 via
+    ndist.accumulateInput): 9 statistics [mean, var, min, q10, q25, q50,
+    q75, q90, max] per response channel plus ONE trailing count column.
+
+    ``responses`` are label-shaped float arrays (one per filter × sigma ×
+    channel, the caller's flattening of multichannel filters).  Returns
+    ``(edges [m,2], feats [m, 9*G+1])`` and, with ``return_samples``, the
+    group-major flat sample array ``[G * total_count]`` (each group's
+    samples edge-major sorted — the exact-merge partials consumed by
+    ``merge_edge_features_multi``)."""
+    G = len(responses)
+    u0, v0, ilo, ihi = face_sample_indices(labels, owner_shape)
+    u = np.concatenate([u0, u0])
+    v = np.concatenate([v0, v0])
+    edges = None
+    feat_groups, sample_groups = [], []
+    count = None
+    for resp in responses:
+        if resp.shape != labels.shape:
+            raise ValueError(
+                f"response shape {resp.shape} != labels shape {labels.shape}"
+            )
+        flat = resp.reshape(-1).astype(np.float64)
+        s = np.concatenate([flat[ilo], flat[ihi]])
+        e, f, samp = _edge_group_features(
+            u, v, s, labels.dtype, 0, return_samples=True
+        )
+        if edges is None:
+            edges = e
+            count = f[:, 9]
+        feat_groups.append(f[:, :9])
+        if return_samples:
+            sample_groups.append(samp)
+    if edges is None or edges.shape[0] == 0:
+        feats = np.zeros((0, 9 * G + 1))
+        if return_samples:
+            return np.zeros((0, 2), dtype=labels.dtype), feats, np.zeros(0)
+        return np.zeros((0, 2), dtype=labels.dtype), feats
+    feats = np.concatenate(feat_groups + [count[:, None]], axis=1)
+    if return_samples:
+        return edges, feats, np.concatenate(sample_groups)
+    return edges, feats
+
+
+def affinity_edge_features(
+    labels: np.ndarray,
+    affs: np.ndarray,
+    offsets: Sequence[Sequence[int]],
+    hist_bins: int = 0,
+    owner_shape=None,
+    return_samples: bool = False,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Edge features from an affinity map [C, *spatial] with per-channel offsets
+    (reference extractBlockFeaturesFromAffinityMaps).  Samples the affinity
+    value at the source voxel of each offset-crossing label pair.
+
+    With ``owner_shape`` a pair is accumulated iff its *min-corner* voxel
+    (elementwise min of the two endpoints) lies in the inner block — a global
+    rule assigning every pair to exactly one block regardless of offset sign,
+    so a cross-face pair of a negative offset is owned by the lower block
+    (which sees it through the +1 upper halo) instead of being dropped.
+    Cross-block pairs reaching further than the 1-voxel halo remain
+    per-block-invisible, as in the reference's blockwise accumulation."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    owned = _owner_mask(labels.shape, owner_shape)
+    us, vs, samples = [], [], []
+    for c, off in enumerate(offsets):
+        src = tuple(
+            slice(max(-o, 0), s - max(o, 0)) for o, s in zip(off, labels.shape)
+        )
+        dst = tuple(
+            slice(max(o, 0), s - max(-o, 0)) for o, s in zip(off, labels.shape)
+        )
+        lo, hi = labels[src].reshape(-1), labels[dst].reshape(-1)
+        val = affs[c][src].reshape(-1).astype(np.float64)
+        sel = (lo != hi) & (lo != 0) & (hi != 0)
+        if owned is not None:
+            # min-corner of (src, dst): slice [0, s - |o|) along every axis —
+            # aligned elementwise with the src/dst iteration space
+            anchor = tuple(
+                slice(0, s - abs(o)) for o, s in zip(off, labels.shape)
+            )
+            sel &= owned[anchor].reshape(-1)
+        if sel.any():
+            us.append(np.minimum(lo[sel], hi[sel]))
+            vs.append(np.maximum(lo[sel], hi[sel]))
+            samples.append(val[sel])
+    if not us:
+        empty = (
+            np.zeros((0, 2), dtype=labels.dtype),
+            np.zeros((0, N_FEATURES)),
+        )
+        if hist_bins:
+            empty = empty + (np.zeros((0, hist_bins), dtype=np.uint32),)
+        if return_samples:
+            empty = empty + (np.zeros(0, dtype=np.float64),)
+        return empty
+    u = np.concatenate(us)
+    v = np.concatenate(vs)
+    s = np.concatenate(samples)
+    return _edge_group_features(
+        u, v, s, labels.dtype, hist_bins, return_samples
     )
 
 

@@ -1,11 +1,61 @@
-"""Segment overlaps on the host (port of ``contingency_table`` from
-``cluster_tools_tpu/ops/segment.py``, the part that stitching needs)."""
+"""Segment reductions (port of ``cluster_tools_tpu/ops/segment.py``: the
+per-segment count, sum, mean, min and max, and ``contingency_table``).
+
+The reductions run on the tensors' device over flat int64 labels in
+``[0, num_segments)``: counts by ``torch.bincount`` and minima and maxima by
+``scatter_reduce`` (exact whatever the order), sums by ``index_add_`` in
+float32 as the JAX package's ``segment_sum`` — on the card its order is not
+fixed, so sums and means hold a float32 tolerance, not bits.  Empty segments
+give 0 (count, sum, mean), +inf (min) and -inf (max), as in JAX.  The
+contingency table is host numpy.
+"""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from ._build import count_on_card
+
+
+def segment_count(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+    count_on_card(segment_count, labels)
+    return torch.bincount(labels.reshape(-1), minlength=num_segments)[:num_segments]
+
+
+def segment_sum(labels: torch.Tensor, values: torch.Tensor, num_segments: int) -> torch.Tensor:
+    count_on_card(segment_sum, labels)
+    vals = values.reshape(-1)
+    out = torch.zeros(num_segments, dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, labels.reshape(-1), vals)
+
+
+def segment_mean(labels: torch.Tensor, values: torch.Tensor, num_segments: int) -> torch.Tensor:
+    s = segment_sum(labels, values, num_segments)
+    c = segment_count(labels, num_segments)
+    return s / torch.clamp(c, min=1).to(s.dtype)
+
+
+def _segment_extreme(labels, values, num_segments: int, reduce: str, fill: float):
+    vals = values.reshape(-1)
+    out = torch.full((num_segments,), fill, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, labels.reshape(-1), vals, reduce, include_self=False)
+
+
+def segment_min(labels: torch.Tensor, values: torch.Tensor, num_segments: int) -> torch.Tensor:
+    count_on_card(segment_min, labels)
+    return _segment_extreme(labels, values, num_segments, "amin", float("inf"))
+
+
+def segment_max(labels: torch.Tensor, values: torch.Tensor, num_segments: int) -> torch.Tensor:
+    count_on_card(segment_max, labels)
+    return _segment_extreme(labels, values, num_segments, "amax", float("-inf"))
+
+
+for _fn in (segment_count, segment_sum, segment_min, segment_max):
+    _fn.launches = 0
 
 
 def contingency_table(

@@ -32,7 +32,7 @@ import torch
 from .cc import connected_components, parse_tile_spec
 from .cuda_flood import flood_slices, flood_tiles_warm, flood_volume
 from .dt import distance_transform, distance_transform_2d_stack, parabola_pass_axis
-from .filters import fma32, gaussian, maximum_filter, normalize
+from .filters import fma32, gaussian, maximum_filter, minimum_filter, normalize
 
 FLOOD_TILE_ENV = "CTT_FLOOD_TILE"
 _BIG = 3.0e38
@@ -349,3 +349,45 @@ def num_segments_of(block_shape) -> int:
     """Exclusive bound of the seed ids of one block (the JAX package's
     ``prod(shape)//2 + 2``)."""
     return int(np.prod(block_shape)) // 2 + 2
+
+
+def fit_to_hmap(
+    objs: np.ndarray,
+    hmap: torch.Tensor,
+    erode_by: int,
+    erode_3d: bool = True,
+) -> np.ndarray:
+    """Refit (possibly resampled) objects to a boundary height map: erode each
+    object, then re-grow all of them with a seeded watershed on a DT-blended
+    height map (reference volume_utils.fit_to_hmap:336-357).
+
+    Labels are compacted to int32 on the host and the refit runs on
+    ``hmap``'s device: the per-object erosion is the min==max window test
+    (a voxel is interior iff its whole window carries one label), the
+    background seed is the eroded background, the height map
+    ``0.8·h + 0.2·(1 − normalize(dt(h > 0.3)))`` of the normalized map
+    (each operation rounded on its own, as the JAX package's eager
+    operations are), and the flood the 3d one of ``seeded_watershed``.
+    Returns the refit uint64 labels on the host."""
+    uniq = np.unique(objs)
+    if uniq[0] != 0:
+        uniq = np.concatenate([[0], uniq])
+    local = np.searchsorted(uniq, objs).astype(np.int32)
+    bg_id = int(uniq.size)
+
+    size = 2 * int(erode_by) + 1
+    win = size if erode_3d else (1, size, size)
+    labels = torch.from_numpy(local).to(hmap.device)
+    mn = minimum_filter(labels, win)
+    mx = maximum_filter(labels, win)
+    interior = (mn == mx) & (labels > 0)
+    seeds = torch.where(interior, labels, 0)
+    seeds = torch.where(mx == 0, bg_id, seeds).to(torch.int32)
+
+    h = normalize(hmap.to(torch.float32))
+    dt = distance_transform(h > 0.3)
+    h = 0.8 * h + 0.2 * (1.0 - normalize(dt))
+
+    fitted = seeded_watershed(h, seeds).to(torch.int64)
+    fitted = torch.where(fitted == bg_id, 0, fitted).cpu().numpy()
+    return uniq[fitted].astype(np.uint64)

@@ -1,9 +1,18 @@
+from .affinities import EmbeddingDistancesTask, GradientsTask, InsertAffinitiesTask
 from .agglomerative_clustering import AGGLO_ASSIGNMENTS_NAME, AgglomerativeClusteringTask
 from .costs import ProbsToCostsTask
+from .debugging import CheckComponentsTask, CheckSubGraphsTask
 from .features import BlockEdgeFeaturesTask, MergeEdgeFeaturesTask
 from .graph import InitialSubGraphsTask, MapEdgeIdsTask, MergeScaleSubGraphsTask, MergeSubGraphsTask
-from .multicut import ReduceProblemTask, SolveGlobalTask, SolveSubproblemsTask
+from .multicut import (
+    ReduceProblemTask,
+    ReducedAssignmentsTask,
+    SolveGlobalTask,
+    SolveSubproblemsTask,
+    SubSolutionsTask,
+)
 from .mws import MwsBlocksTask, TwoPassMwsTask
+from .region_features import ImageFilterTask, MergeRegionFeaturesTask, RegionFeaturesTask
 from .stitching import STITCH_ASSIGNMENTS_NAME, StitchAssignmentsTask, StitchFacesTask
 from .thresholded_components import (
     BlockComponentsTask,
@@ -23,11 +32,14 @@ from .write import WriteTask
 
 __all__ = [
     "AGGLO_ASSIGNMENTS_NAME", "AgglomerateTask", "AgglomerativeClusteringTask",
-    "BlockComponentsTask", "BlockEdgeFeaturesTask", "BlockFacesTask", "InitialSubGraphsTask",
+    "BlockComponentsTask", "BlockEdgeFeaturesTask", "BlockFacesTask", "CheckComponentsTask",
+    "CheckSubGraphsTask", "EmbeddingDistancesTask", "GradientsTask", "ImageFilterTask",
+    "InitialSubGraphsTask", "InsertAffinitiesTask",
     "MAX_IDS_KEY", "MapEdgeIdsTask", "MergeAssignmentsTask", "MergeEdgeFeaturesTask",
-    "MergeOffsetsTask", "MergeScaleSubGraphsTask", "MergeSubGraphsTask", "MwsBlocksTask",
-    "ProbsToCostsTask", "ReduceProblemTask", "STITCH_ASSIGNMENTS_NAME", "SolveGlobalTask",
-    "SolveSubproblemsTask", "StitchAssignmentsTask", "StitchFacesTask", "TwoPassMwsTask",
-    "TwoPassWatershedTask",
+    "MergeOffsetsTask", "MergeRegionFeaturesTask", "MergeScaleSubGraphsTask",
+    "MergeSubGraphsTask", "MwsBlocksTask", "ProbsToCostsTask", "ReduceProblemTask",
+    "ReducedAssignmentsTask", "RegionFeaturesTask", "STITCH_ASSIGNMENTS_NAME",
+    "SolveGlobalTask", "SolveSubproblemsTask", "StitchAssignmentsTask", "StitchFacesTask",
+    "SubSolutionsTask", "TwoPassMwsTask", "TwoPassWatershedTask",
     "WatershedFromSeedsTask", "WatershedTask", "WriteTask", "kernel_params",
 ]

@@ -1,5 +1,5 @@
-"""Edge-feature accumulation over boundary maps (port of
-``cluster_tools_tpu/tasks/features.py``, the boundary-map path).
+"""Edge-feature accumulation over boundary maps, affinity maps or a filter
+bank (port of ``cluster_tools_tpu/tasks/features.py``).
 
 Reference features/{block_edge_features,merge_edge_features}.py via
 nifty.distributed accumulators (SURVEY.md §2.3).  10 features per edge
@@ -10,8 +10,11 @@ or exactly from raw samples with ``quantile_mode: "exact"`` (ops/rag.py
 doc).  ``device_accumulation`` computes a block's features with the device
 accumulator (``ops.rag.boundary_edge_features_gpu``) on the task's device;
 the exact mode's raw samples come from the host path, as in the reference.
-Affinity maps (``offsets``) and the filter bank (``filters``) are ROADMAP
-Queue A 6(b) and raise.
+Affinity maps (``offsets``) accumulate on the host
+(``ops.rag.affinity_edge_features``).  The filter bank (``filters`` ×
+``sigmas``, ``ops.filters.apply_filter``) runs on the task's device over the
+halo'd block; only the cropped responses come back to the host, where
+``ops.rag.filter_edge_features`` accumulates them.
 
 Scratch layout:
   features/ids     ragged per block: global edge ids
@@ -30,8 +33,10 @@ import numpy as np
 from ..ops.rag import (
     HIST_BINS,
     N_FEATURES,
+    affinity_edge_features,
     boundary_edge_features,
     boundary_edge_features_gpu,
+    filter_edge_features,
     merge_edge_features,
     merge_edge_features_multi,
 )
@@ -58,6 +63,17 @@ def quantile_plan(config):
     return exact, sketch
 
 
+def global_edge_ids(nodes: np.ndarray, gedges: np.ndarray, edges: np.ndarray):
+    """Ids in the global graph (``nodes``, dense ``gedges``) of a block's
+    label-pair ``edges``, and the mask of the pairs the graph holds."""
+    pairs = np.searchsorted(nodes, edges).astype(np.int64)
+    keys = gedges[:, 0] * (nodes.size + 1) + gedges[:, 1]
+    want = pairs[:, 0] * (nodes.size + 1) + pairs[:, 1]
+    ids = np.searchsorted(keys, want)
+    valid = keys[np.clip(ids, 0, keys.size - 1)] == want
+    return ids, valid
+
+
 FEATURE_IDS_KEY = "features/ids"
 FEATURE_VALS_KEY = "features/vals"
 FEATURE_HISTS_KEY = "features/hists"
@@ -68,7 +84,7 @@ FEATURES_KEY = "features/edges"
 class BlockEdgeFeaturesTask(VolumeTask):
     """Per-block edge features (reference block_edge_features.py:21).
 
-    ``input_path/key`` is the boundary map; ``labels_path/key`` the
+    ``input_path/key`` is the boundary/affinity map; ``labels_path/key`` the
     segmentation whose RAG was extracted.
     """
 
@@ -86,11 +102,22 @@ class BlockEdgeFeaturesTask(VolumeTask):
         conf = super().default_task_config()
         conf.update(
             {
-                "offsets": None,  # affinity offsets: ROADMAP Queue A 6(b)
-                "filters": None,  # filter-bank accumulation: Queue A 6(b)
-                # quantile merge strategy: "auto" (the histogram sketch on the
-                # boundary-map path), "exact" (raw samples — zero drift vs a
-                # single-shot recompute), "sketch", or "approx" (count-weighted
+                "offsets": None,  # affinity offsets, None → boundary map
+                # filter-bank accumulation (reference
+                # block_edge_features.py:40-41,151-238): a bank of filters
+                # (ops/filters) × sigmas on the task's device, 9 stats per
+                # response channel + one trailing count column
+                "filters": None,
+                "sigmas": None,
+                "halo": [0, 0, 0],
+                "apply_in_2d": False,
+                "channel_agglomeration": "mean",
+                # quantile merge strategy: "auto" (sketch for the 10-column
+                # default path, exact raw-sample partials for the filter
+                # bank), "exact" (raw samples everywhere — zero drift vs a
+                # single-shot recompute), "sketch" (histogram sketch; filter
+                # responses leave the sketch's [0,1] domain so the filter
+                # path degrades to "approx"), or "approx" (count-weighted
                 # quantile averaging — smallest partials, largest drift)
                 "quantile_mode": "auto",
                 # the device accumulator (ops/rag.boundary_edge_features_gpu)
@@ -104,24 +131,99 @@ class BlockEdgeFeaturesTask(VolumeTask):
     def labels_ds(self):
         return store.file_reader(self.labels_path, "r")[self.labels_key]
 
+    def _filter_responses(self, blocking: Blocking, block_id: int, config):
+        """Halo'd read → filter bank on the task's device → per-channel
+        responses cropped to the inner(+1-upper-halo) region, copied to the
+        host as float64 (reference block_edge_features.py:172-238 via
+        vu.apply_filter).
+
+        Unlike the reference's per-block min-max ``vu.normalize`` this uses
+        the task's deterministic normalization (uint8 → /255, floats raw), so
+        blocked responses equal a single-shot whole-volume recompute wherever
+        the halo covers the filter support."""
+        import torch
+
+        from ..ops import filters as F
+
+        block = blocking.block(block_id)
+        shape = blocking.shape
+        halo = [int(h) for h in (config.get("halo") or [0, 0, 0])]
+        # the accumulated region carries a +1 upper halo (cross-block faces
+        # are owned by the lower block), so the upper read extends halo + 1:
+        # even the +1-slab voxels then see the full filter support
+        ob = [max(b - h, 0) for b, h in zip(block.begin, halo)]
+        oe = [min(e + h + 1, s) for e, h, s in zip(block.end, halo, shape)]
+        bb = tuple(slice(b, e) for b, e in zip(ob, oe))
+        data_ds = self.input_ds()
+        if len(data_ds.shape) == 4:
+            # agglomerate over ALL channels (the reference hardcodes the
+            # first three, block_edge_features.py:214-215 — a marked TODO
+            # there; silent truncation is worse than the divergence)
+            data = self._normalize(data_ds[(slice(None),) + bb])
+            agglo = config.get("channel_agglomeration") or "mean"
+            data = getattr(np, agglo)(data, axis=0)
+        else:
+            data = self._normalize(data_ds[bb])
+        ie = [min(e + 1, s) for e, s in zip(block.end, shape)]
+        local = tuple(
+            slice(b - o, e - o) for b, o, e in zip(block.begin, ob, ie)
+        )
+        if not config.get("sigmas"):
+            raise ValueError(
+                "filter-bank accumulation needs 'sigmas' (a list of filter "
+                "scales) alongside 'filters' in the block_edge_features "
+                "config (reference block_edge_features.py:312)"
+            )
+        responses = []
+        x = torch.from_numpy(data.astype(np.float32)).to(resolve_device(config))
+        in_2d = bool(config.get("apply_in_2d", False))
+        for name in config["filters"]:
+            for sigma in config["sigmas"]:
+                resp = F.apply_filter(x, name, sigma, apply_in_2d=in_2d)
+                if resp.dim() == 4:  # multichannel filters: channels last
+                    resp = resp[local].movedim(-1, 0).cpu().numpy()
+                    responses.extend(c.astype(np.float64) for c in resp)
+                else:
+                    responses.append(resp[local].cpu().numpy().astype(np.float64))
+        return responses
+
     def process_block(self, block_id: int, blocking: Blocking, config):
-        for key in ("offsets", "filters"):
-            if config.get(key) is not None:
-                raise NotImplementedError(
-                    f"block_edge_features {key!r} is not ported yet (ROADMAP "
-                    "Queue A 6(b)); the port accumulates boundary maps only"
-                )
         seg = read_block_with_upper_halo(
             self.labels_ds(), blocking, block_id
         ).astype(np.uint64)
+        offsets = config.get("offsets")
         block = blocking.block(block_id)
         end = tuple(min(e + 1, s) for e, s in zip(block.end, blocking.shape))
         bb = tuple(slice(b, e) for b, e in zip(block.begin, end))
         exact, sketch = quantile_plan(config)
         hist_bins = HIST_BINS if sketch else 0
         hists = samples = None
-        data = self._normalize(self.input_ds()[bb])
-        if config.get("device_accumulation") and not exact:
+        if config.get("filters") is not None:
+            if offsets is not None:
+                raise ValueError(
+                    "filters and offsets are mutually exclusive "
+                    "(reference block_edge_features.py:311)"
+                )
+            responses = self._filter_responses(blocking, block_id, config)
+            out = filter_edge_features(
+                seg, responses, owner_shape=block.shape, return_samples=exact
+            )
+            edges, feats = out[0], out[1]
+            if exact:
+                samples = out[2]
+        elif offsets is not None:
+            data = self._normalize(self.input_ds()[(slice(0, len(offsets)),) + bb])
+            out = affinity_edge_features(
+                seg, data, offsets, hist_bins=hist_bins,
+                owner_shape=block.shape, return_samples=exact,
+            )
+            edges, feats = out[0], out[1]
+            if exact:
+                samples = out[2]
+            elif sketch:
+                hists = out[2]
+        elif config.get("device_accumulation") and not exact:
+            data = self._normalize(self.input_ds()[bb])
             edges, feats, hists = boundary_edge_features_gpu(
                 seg, data, hist_bins=HIST_BINS, owner_shape=block.shape,
                 max_edges=int(config.get("max_edges_per_block", 16384)),
@@ -130,6 +232,7 @@ class BlockEdgeFeaturesTask(VolumeTask):
             if not sketch:
                 hists = None
         else:
+            data = self._normalize(self.input_ds()[bb])
             out = boundary_edge_features(
                 seg, data, hist_bins=hist_bins, owner_shape=block.shape,
                 return_samples=exact,
@@ -162,11 +265,7 @@ class BlockEdgeFeaturesTask(VolumeTask):
                     (block_id,), np.array([], dtype=np.float64)
                 )
             return
-        pairs = np.searchsorted(nodes, edges).astype(np.int64)
-        keys = gedges[:, 0] * (nodes.size + 1) + gedges[:, 1]
-        want = pairs[:, 0] * (nodes.size + 1) + pairs[:, 1]
-        ids = np.searchsorted(keys, want)
-        valid = keys[np.clip(ids, 0, keys.size - 1)] == want
+        ids, valid = global_edge_ids(nodes, gedges, edges)
         ids_out.write_chunk((block_id,), ids[valid].astype(np.int64))
         vals_out.write_chunk((block_id,), feats[valid].reshape(-1))
         hists_out.write_chunk(

@@ -6,7 +6,9 @@ Reference multicut/{solve_subproblems,reduce_problem,solve_global}.py
 subproblems; cut edges are collected; non-cut edges are union-find-merged and
 the graph contracted with accumulated costs; block shape doubles per scale;
 the final reduced graph is solved globally and composed back to scale 0.
-The sub-solution and reduced-solution tasks are ROADMAP Queue A 6(b).
+``SubSolutionsTask`` writes each block's standalone solve and
+``ReducedAssignmentsTask`` the reduced (not globally solved) labeling, for
+inspection.
 
 Scratch layout:
   multicut/s{s}/cut_edges   ragged per (scale-s) block: cut edge ids
@@ -229,3 +231,119 @@ class SolveGlobalTask(VolumeSimpleTask):
         self.log(
             f"global solve: {n_current} nodes → {int(result.max()) + 1} segments"
         )
+
+
+def reduced_assignments_name(scale: int) -> str:
+    return f"reduced_assignments_s{scale}.npy"
+
+
+class ReducedAssignmentsTask(VolumeSimpleTask):
+    """Emit the scale-``n`` *reduced* labeling (merged through the
+    hierarchical reduces, but not globally solved) as a (label → segment)
+    table, the role of ``s{n}/node_labeling`` in the reference's
+    ReducedSolutionWorkflow (multicut_workflow.py:103-125)."""
+
+    task_name = "reduced_assignments"
+
+    def __init__(self, *args, scale: int = 0, **kwargs):
+        super().__init__(*args, scale=scale, **kwargs)
+
+    @property
+    def identifier(self) -> str:
+        return f"{self.task_name}_s{self.scale}"
+
+    def run_impl(self) -> None:
+        if self.scale == 0:
+            # identity labeling straight from the graph: scale 0 needs
+            # neither edges nor costs (which may not have been computed)
+            n_nodes = int(self.tmp_store()["graph/edges"].attrs["n_nodes"])
+            node_labeling = np.arange(n_nodes, dtype=np.int64)
+        else:
+            _, _, node_labeling = load_scale_problem(self, self.scale)
+        write_assignment_table(
+            self, node_labeling.astype(np.int64),
+            reduced_assignments_name(self.scale),
+        )
+        self.log(
+            f"scale-{self.scale} reduced labeling: "
+            f"{int(node_labeling.max()) + 1} clusters"
+        )
+
+
+class SubSolutionsTask(VolumeTask):
+    """Write each block's standalone sub-solution as a label volume for
+    inspection (reference sub_solutions.py:28): the block's subproblem is
+    solved in isolation and the watershed labels (``input_path/key``) are
+    mapped through the local result, offset into the block's id namespace."""
+
+    task_name = "sub_solutions"
+    output_dtype = "uint64"
+
+    def __init__(self, *args, scale: int = 0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.scale = scale
+
+    @property
+    def identifier(self) -> str:
+        return f"{self.task_name}_s{self.scale}"
+
+    def get_block_shape(self, gconf):
+        return [bs * (2**self.scale) for bs in gconf["block_shape"]]
+
+    def process_block(self, block_id: int, blocking: Blocking, config):
+        nodes, _ = load_graph(self.tmp_store())
+        edges, costs, node_labeling = load_scale_problem(self, self.scale)
+        bb = blocking.block(block_id).slicing
+        ws = np.asarray(self.input_ds()[bb]).astype(np.uint64)
+        out_ds = self.output_ds()
+        dense = block_dense_nodes(nodes, ws)
+        if dense.size == 0:
+            out_ds[bb] = np.zeros(ws.shape, dtype=np.uint64)
+            return
+        sub_edge_ids, uniq, local_uv, _ = extract_cluster_subgraph(
+            edges, node_labeling, dense
+        )
+
+        # per-voxel cluster via searchsorted over the block's (sorted) labels
+        # — no dense nodes.max()-sized arrays; labels missing from the graph
+        # go to 0 deliberately (a graph/volume mismatch should be visible)
+        block_labels = nodes[dense]  # ascending
+        pos = np.searchsorted(block_labels, ws)
+        safe = np.clip(pos, 0, block_labels.size - 1)
+        known = (ws > 0) & (block_labels[safe] == ws)
+        cluster = np.where(known, node_labeling[dense][safe], -1)
+
+        # every cluster present in the block gets a segment id: solved
+        # clusters take their multicut component, edge-less clusters get
+        # fresh ids after them — coverage never depends on edge locality
+        clusters_here = np.unique(node_labeling[dense])
+        if sub_edge_ids.size:
+            result = solve_multicut(uniq.size, local_uv, costs[sub_edge_ids])
+            n_res = int(result.max()) + 1
+        else:
+            uniq = np.zeros(0, dtype=np.int64)
+            result = np.zeros(0, dtype=np.int64)
+            n_res = 0
+        seg_of_cluster = {}
+        extra = n_res
+        for cl in clusters_here:
+            p = np.searchsorted(uniq, cl)
+            if p < uniq.size and uniq[p] == cl:
+                seg_of_cluster[int(cl)] = int(result[p])
+            else:
+                seg_of_cluster[int(cl)] = extra
+                extra += 1
+
+        # segment ids are bounded by the cluster count <= node_labeling.max()+1,
+        # so this offset spacing keeps block namespaces disjoint
+        offset = np.uint64(block_id) * np.uint64(int(node_labeling.max()) + 2)
+        lut = np.asarray(
+            [seg_of_cluster[int(c)] for c in clusters_here], dtype=np.uint64
+        )
+        cl_pos = np.searchsorted(clusters_here, np.maximum(cluster, 0))
+        seg = np.where(
+            cluster >= 0,
+            lut[np.clip(cl_pos, 0, lut.size - 1)] + np.uint64(1) + offset,
+            0,
+        )
+        out_ds[bb] = seg.astype(np.uint64)

@@ -6,17 +6,20 @@ Reference workflows.py:28-235 and multicut/multicut_workflow.py:11-61:
   GraphWorkflow:        initial_sub_graphs → [merge_scale_sub_graphs(s)]
                         → merge_sub_graphs → map_edge_ids
   EdgeFeaturesWorkflow: block_edge_features → merge_edge_features
-  ProblemWorkflow:      graph → features → probs_to_costs
+  ProblemWorkflow:      graph → [check_sub_graphs] → features → probs_to_costs
   MulticutWorkflow:     [solve_subproblems(s) → reduce_problem(s)] × n_scales
                         → solve_global
   MulticutSegmentationWorkflow: watershed → problem → multicut → write
+  SubSolutionsWorkflow / ReducedSolutionWorkflow: the hierarchical solve to
+                        a scale, then each block's sub-solution or the
+                        reduced labeling written as a volume
 
 The watershed is the port's ``WatershedTask`` (kernels 1 and 2 on the card
 in the default 2d mode); graph, features, costs and the solvers are host
 numpy and C++, with the device RAG accumulator behind
-``block_edge_features``' ``device_accumulation``.  Not ported yet, and
-raising: ``sharded_problem`` / ``sharded_ws`` (ROADMAP Queue A 11) and
-``sanity_checks`` (``CheckSubGraphsTask``, Queue A 6(b)).
+``block_edge_features``' ``device_accumulation`` and the filter bank on
+the card behind its ``filters``.  Not ported yet, and raising:
+``sharded_problem`` / ``sharded_ws`` (ROADMAP Queue A 11).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Optional
 
 from ..runtime.workflow import WorkflowBase
 from ..tasks.costs import ProbsToCostsTask
+from ..tasks.debugging import CheckSubGraphsTask
 from ..tasks.features import BlockEdgeFeaturesTask, MergeEdgeFeaturesTask
 from ..tasks.graph import (
     InitialSubGraphsTask,
@@ -35,9 +39,12 @@ from ..tasks.graph import (
 )
 from ..tasks.multicut import (
     ASSIGNMENTS_NAME,
+    ReducedAssignmentsTask,
     ReduceProblemTask,
     SolveGlobalTask,
     SolveSubproblemsTask,
+    SubSolutionsTask,
+    reduced_assignments_name,
 )
 from ..tasks.watershed import WatershedTask
 from ..tasks.write import WriteTask
@@ -131,24 +138,21 @@ def _check_sharded_ws_flags(sharded_ws: bool, sharded_problem: bool) -> None:
         )
 
 
-def _check_sanity_checks(sanity_checks: bool) -> None:
-    if sanity_checks:
-        raise NotImplementedError(
-            "sanity_checks (CheckSubGraphsTask, tasks/debugging.py) is not "
-            "ported yet (ROADMAP Queue A 6(b))"
-        )
-
-
 class ProblemWorkflow(WorkflowBase):
-    """Graph extraction → edge features → (optional) costs: the standalone
-    "problem" pipeline (reference workflows.py:28-107).
-    ``compute_costs=False`` stops after the features (for learning pipelines
-    that predict their own probabilities)."""
+    """Graph extraction → (optional sanity checks) → edge features →
+    (optional) costs: the standalone "problem" pipeline
+    (reference workflows.py:28-107).
+
+    ``sanity_checks`` inserts the per-block subgraph validation between graph
+    extraction and feature accumulation (reference workflows.py:61-72);
+    ``compute_costs=False`` stops after the features (for learning
+    pipelines that predict their own probabilities).
+    """
 
     task_name = "problem_workflow"
 
     def __init__(self, tmp_folder, config_dir=None, max_jobs=None, target=None,
-                 input_path=None, input_key=None,       # boundary map
+                 input_path=None, input_key=None,       # boundary/affinity map
                  ws_path=None, ws_key=None,             # fragment labels
                  n_scales: int = 1,
                  sanity_checks: bool = False,
@@ -159,13 +163,13 @@ class ProblemWorkflow(WorkflowBase):
                  sharded_ws: bool = False,
                  dependencies=()):
         _check_sharded_ws_flags(sharded_ws, sharded_problem)
-        _check_sanity_checks(sanity_checks)
         super().__init__(tmp_folder, config_dir, max_jobs, target, dependencies)
         self.input_path = input_path
         self.input_key = input_key
         self.ws_path = ws_path
         self.ws_key = ws_key
         self.n_scales = n_scales
+        self.sanity_checks = sanity_checks
         self.compute_costs = compute_costs
         self.probs_path = probs_path
         self.node_label_dict = dict(node_label_dict or {})
@@ -176,11 +180,19 @@ class ProblemWorkflow(WorkflowBase):
             input_path=self.ws_path, input_key=self.ws_key,
             n_scales=self.n_scales, dependencies=list(self.dependencies),
         )
+        dep = [graph]
+        if self.sanity_checks:
+            check = CheckSubGraphsTask(
+                self.tmp_folder, self.config_dir, self.max_jobs,
+                dependencies=dep,
+                input_path=self.ws_path, input_key=self.ws_key,
+            )
+            dep = [check]
         feats = EdgeFeaturesWorkflow(
             self.tmp_folder, self.config_dir, self.max_jobs,
             input_path=self.input_path, input_key=self.input_key,
             labels_path=self.ws_path, labels_key=self.ws_key,
-            dependencies=[graph],
+            dependencies=dep,
         )
         dep = [feats]
         if self.compute_costs:
@@ -257,7 +269,7 @@ class MulticutSegmentationWorkflow(WorkflowBase):
         config_dir=None,
         max_jobs=None,
         target=None,
-        input_path: str = None,       # boundary map
+        input_path: str = None,       # boundary / affinity map
         input_key: str = None,
         ws_path: str = None,          # watershed volume (created if missing)
         ws_key: str = None,
@@ -274,7 +286,6 @@ class MulticutSegmentationWorkflow(WorkflowBase):
         dependencies=(),
     ):
         _check_sharded_ws_flags(sharded_ws, sharded_problem)
-        _check_sanity_checks(sanity_checks)
         super().__init__(tmp_folder, config_dir, max_jobs, target, dependencies)
         self.input_path = input_path
         self.input_key = input_key
@@ -286,6 +297,7 @@ class MulticutSegmentationWorkflow(WorkflowBase):
         self.mask_key = mask_key
         self.n_scales = n_scales
         self.skip_ws = skip_ws
+        self.sanity_checks = sanity_checks
         self.node_label_dict = dict(node_label_dict or {})
 
     def requires(self):
@@ -303,6 +315,7 @@ class MulticutSegmentationWorkflow(WorkflowBase):
             self.tmp_folder, self.config_dir, self.max_jobs,
             input_path=self.input_path, input_key=self.input_key,
             ws_path=self.ws_path, ws_key=self.ws_key,
+            sanity_checks=self.sanity_checks,
             node_label_dict=self.node_label_dict,
             dependencies=dep,
         )
@@ -328,3 +341,76 @@ class MulticutSegmentationWorkflow(WorkflowBase):
         conf["block_edge_features"] = BlockEdgeFeaturesTask.default_task_config()
         conf["probs_to_costs"] = ProbsToCostsTask.default_task_config()
         return conf
+
+
+class SubSolutionsWorkflow(WorkflowBase):
+    """Hierarchical solve to scale ``n_scales``, then write each block's
+    standalone sub-solution for inspection (reference
+    multicut_workflow.py:70-100)."""
+
+    task_name = "sub_solutions_workflow"
+
+    def __init__(self, tmp_folder, config_dir=None, max_jobs=None, target=None,
+                 ws_path=None, ws_key=None,
+                 output_path=None, output_key=None,
+                 n_scales: int = 0, dependencies=()):
+        super().__init__(tmp_folder, config_dir, max_jobs, target, dependencies)
+        self.ws_path = ws_path
+        self.ws_key = ws_key
+        self.output_path = output_path
+        self.output_key = output_key
+        self.n_scales = n_scales
+
+    def requires(self):
+        dep = _hierarchical_solve_tasks(
+            self, self.n_scales, list(self.dependencies),
+            self.ws_path, self.ws_key,
+        )
+        sub = SubSolutionsTask(
+            self.tmp_folder, self.config_dir, self.max_jobs,
+            dependencies=dep, scale=self.n_scales,
+            input_path=self.ws_path, input_key=self.ws_key,
+            output_path=self.output_path, output_key=self.output_key,
+        )
+        return [sub]
+
+
+class ReducedSolutionWorkflow(WorkflowBase):
+    """Hierarchical solve to scale ``n_scales``, then write the *reduced*
+    labeling — merged through the reduces but not globally solved — as a
+    segmentation (reference multicut_workflow.py:103-128).  At
+    ``n_scales=0`` this reproduces the fragments."""
+
+    task_name = "reduced_solution_workflow"
+
+    def __init__(self, tmp_folder, config_dir=None, max_jobs=None, target=None,
+                 ws_path=None, ws_key=None,
+                 output_path=None, output_key=None,
+                 n_scales: int = 0, dependencies=()):
+        super().__init__(tmp_folder, config_dir, max_jobs, target, dependencies)
+        self.ws_path = ws_path
+        self.ws_key = ws_key
+        self.output_path = output_path
+        self.output_key = output_key
+        self.n_scales = n_scales
+
+    def requires(self):
+        dep = _hierarchical_solve_tasks(
+            self, self.n_scales, list(self.dependencies),
+            self.ws_path, self.ws_key,
+        )
+        assign = ReducedAssignmentsTask(
+            self.tmp_folder, self.config_dir,
+            dependencies=dep, scale=self.n_scales,
+        )
+        write = WriteTask(
+            self.tmp_folder, self.config_dir, self.max_jobs,
+            dependencies=[assign],
+            input_path=self.ws_path, input_key=self.ws_key,
+            output_path=self.output_path, output_key=self.output_key,
+            assignment_path=os.path.join(
+                self.tmp_folder, reduced_assignments_name(self.n_scales)
+            ),
+            identifier=f"reduced_s{self.n_scales}",
+        )
+        return [write]

@@ -46,6 +46,22 @@ def test_port_imports_no_jax(entry):
             from cluster_tools_tpu_torch.tasks import MwsBlocksTask, StitchFacesTask, TwoPassMwsTask
             from cluster_tools_tpu_torch.ops.mws_device import mutex_watershed_device
             from cluster_tools_tpu_torch.ops.mws import compute_mws_segmentation
+            from cluster_tools_tpu_torch.ops import affinities, filters, segment
+            from cluster_tools_tpu_torch.ops.filters import apply_filter, hessian_of_gaussian_eigenvalues
+            from cluster_tools_tpu_torch.ops.rag import affinity_edge_features, filter_edge_features
+            from cluster_tools_tpu_torch.ops.watershed import fit_to_hmap
+            from cluster_tools_tpu_torch.tasks import debugging, region_features
+            from cluster_tools_tpu_torch.tasks import affinities as affinity_tasks
+            from cluster_tools_tpu_torch.tasks import (
+                CheckComponentsTask, CheckSubGraphsTask, EmbeddingDistancesTask, GradientsTask,
+                ImageFilterTask, InsertAffinitiesTask, MergeRegionFeaturesTask,
+                ReducedAssignmentsTask, RegionFeaturesTask, SubSolutionsTask,
+            )
+            from cluster_tools_tpu_torch.workflows import debugging as debugging_workflows
+            from cluster_tools_tpu_torch.workflows import (
+                CheckComponentsWorkflow, CheckSubGraphsWorkflow, ReducedSolutionWorkflow,
+                SubSolutionsWorkflow,
+            )
             assert native.available(), native.load_error
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
                 importlib.import_module(m.name)
@@ -172,3 +188,71 @@ def test_watershed_branches_and_clustering_raise_without_card(tmp_path, monkeypa
     with pytest.raises(Exception, match="no CUDA device"):
         build([wf])
     assert not wf.complete()
+
+
+def _new_task_roots(kind, tmp, config_dir, path):
+    """The slice's tasks and workflows over small inputs in ``path``."""
+    from cluster_tools_tpu_torch import tasks as t
+    from cluster_tools_tpu_torch import workflows as w
+
+    io = {"input_path": path, "input_key": "bnd"}
+    if kind == "insert_affinities":
+        return [t.InsertAffinitiesTask(tmp, config_dir, input_path=path, input_key="affs",
+                                       output_path=path, output_key="out", objects_path=path,
+                                       objects_key="objs")]
+    if kind == "embedding_distances":
+        return [t.EmbeddingDistancesTask(tmp, config_dir, input_paths=[path] * 2,
+                                         input_keys=["bnd", "bnd"], output_path=path,
+                                         output_key="out")]
+    if kind == "gradients":
+        return [t.GradientsTask(tmp, config_dir, input_paths=[path], input_keys=["bnd"],
+                                output_path=path, output_key="out")]
+    if kind == "region_features":
+        block = t.RegionFeaturesTask(tmp, config_dir, **io, labels_path=path, labels_key="ws")
+        return [t.MergeRegionFeaturesTask(tmp, config_dir, dependencies=[block], **io)]
+    if kind == "image_filter":
+        return [t.ImageFilterTask(tmp, config_dir, **io, output_path=path, output_key="out",
+                                  filter_name="hessianOfGaussianEigenvalues", sigma=1.0)]
+    if kind == "check_components":
+        return [t.CheckComponentsTask(tmp, config_dir, input_path=path, input_key="ws")]
+    if kind == "check_sub_graphs":
+        return [w.CheckSubGraphsWorkflow(tmp, config_dir, ws_path=path, ws_key="ws")]
+    problem = w.ProblemWorkflow(tmp, config_dir, **io, ws_path=path, ws_key="ws",
+                                sanity_checks=True)
+    cls = w.SubSolutionsWorkflow if kind == "sub_solutions" else w.ReducedSolutionWorkflow
+    return [cls(tmp, config_dir, ws_path=path, ws_key="ws", output_path=path, output_key="out",
+                n_scales=1, dependencies=[problem])]
+
+
+@pytest.mark.parametrize("kind", [
+    "insert_affinities", "embedding_distances", "gradients", "region_features", "image_filter",
+    "check_components", "check_sub_graphs", "sub_solutions", "reduced_solution",
+])
+def test_new_tasks_default_to_card_and_run_on_cpu(tmp_path, monkeypatch, kind):
+    """Each task and workflow of the affinity / filter-bank slice asks for the
+    card by default and raises without one; with ``"device": "cpu"`` in the
+    global config the same build runs on the host."""
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "d.n5")
+    f = file_reader(path)
+    f.create_dataset("bnd", data=rng.random((8, 16, 16)).astype("float32"), chunks=(8, 16, 16))
+    f.create_dataset("ws", data=rng.integers(1, 6, (8, 16, 16)).astype("uint64"), chunks=(8, 16, 16))
+    f.create_dataset("affs", data=rng.integers(0, 256, (3, 8, 16, 16)).astype("uint8"),
+                     chunks=(1, 8, 16, 16))
+    objs = np.zeros((8, 16, 16), dtype="uint64")
+    objs[1:7, 3:13, 3:13] = 4
+    f.create_dataset("objs", data=objs, chunks=(8, 16, 16))
+    config_dir = str(tmp_path / "configs")
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16]})
+    cfg.write_config(config_dir, "insert_affinities", {"erode_by": 1})
+    assert cfg.global_config(config_dir)["device"] == "cuda"
+    tmp = str(tmp_path / "tmp")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    roots = _new_task_roots(kind, tmp, config_dir, path)
+    with pytest.raises(Exception, match="no CUDA device"):
+        build(roots)
+    assert not roots[0].complete()
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16], "device": "cpu"})
+    roots = _new_task_roots(kind, tmp, config_dir, path)
+    assert build(roots)
+    assert roots[0].complete()

@@ -199,15 +199,28 @@ def test_device_accumulation_same_scores_as_jax(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"sharded_problem": True}, {"sharded_problem": True, "sharded_ws": True},
-    {"sanity_checks": True},
-], ids=["sharded_problem", "sharded_ws", "sanity_checks"])
+], ids=["sharded_problem", "sharded_ws"])
 def test_unported_options_raise(tmp_path, kw):
+    """The sharded problem paths raise (ROADMAP Queue A 11)."""
     from cluster_tools_tpu_torch.workflows import ProblemWorkflow
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
         MulticutSegmentationWorkflow(str(tmp_path), None, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
         ProblemWorkflow(str(tmp_path), None, **kw)
+
+
+def test_sanity_checks_inserts_check_task(tmp_path):
+    """``sanity_checks`` puts ``CheckSubGraphsTask`` between the graph and
+    the features."""
+    from cluster_tools_tpu_torch.tasks import CheckSubGraphsTask
+    from cluster_tools_tpu_torch.workflows import EdgeFeaturesWorkflow, ProblemWorkflow
+
+    kw = {"sanity_checks": True}
+    problem = ProblemWorkflow(str(tmp_path), None, ws_path="w", ws_key="k", **kw)
+    feats = next(t for t in problem.requires()[0].requires() if isinstance(t, EdgeFeaturesWorkflow))
+    assert [type(t) for t in feats.dependencies] == [CheckSubGraphsTask]
+    assert MulticutSegmentationWorkflow(str(tmp_path), None, **kw).sanity_checks
 
 
 def test_sharded_ws_without_sharded_problem_is_a_contradiction(tmp_path):
@@ -216,12 +229,20 @@ def test_sharded_ws_without_sharded_problem_is_a_contradiction(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [("offsets", [[-1, 0, 0]]), ("filters", ["gaussianSmoothing"])])
-def test_unported_feature_paths_raise(tmp_path, key, value):
-    path, _, _ = _cells(tmp_path, shape=(12, 24, 24), seed=10, n_cells=8)
+def test_feature_paths_run(tmp_path, key, value):
+    """The affinity (``offsets``) and filter-bank (``filters``) feature
+    paths are ported: the port's workflow runs them (on the CPU, as the
+    config asks) and writes 10 feature columns (one offset channel, or one
+    filter at one sigma: 9 statistics and the count); with one z offset
+    only z-neighbour edges carry samples."""
+    path, bnd, _ = _cells(tmp_path, shape=(12, 48, 48), seed=10, n_cells=16)
+    jax_reader(path).create_dataset("affs", data=bnd[None], chunks=(1, 12, 24, 24), compression="gzip")
     config_dir = _config(tmp_path, "configs", WS_3D, features={key: value, "sigmas": [1.0]})
-    with pytest.raises(FailedBlocksError, match="block_edge_features"):
-        _run("torch", tmp_path, path, config_dir, "x")
-    log = os.path.join(str(tmp_path / "tmp_x_torch"), "logs", "block_edge_features.log")
-    with open(log) as f:
-        text = f.read()
-    assert "NotImplementedError" in text and "Queue A 6(b)" in text
+    wf = MulticutSegmentationWorkflow(
+        str(tmp_path / "tmp_x"), config_dir, input_path=path, input_key="affs",
+        ws_path=path, ws_key="ws_x", output_path=path, output_key="seg_x",
+    )
+    assert build([wf])
+    store = file_reader(str(tmp_path / "tmp_x" / "data.zarr"), "r")
+    feats = store["features/edges"][:]
+    assert feats.shape[1] == 10 and (feats[:, 9] > 0).any()

@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--z 125] [--batch 8] [--seed 0] [--compare DIR] [--kernels-only]
     python3 chip_smoke.py --mws-scaling
     python3 chip_smoke.py --filter-bank-exact
+    python3 chip_smoke.py --label-phases
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
 
@@ -35,8 +36,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
   3. the watershed workflow: a seeded synthetic boundary volume at CREMI
      sample A's shape (125, 1250, 1250), made the way ``bench.make_volume``
      makes it, written to n5 with raw chunks (its first 64 planes,
-     ``EARLY_Z``, two block layers, in a second container for phases 6 and
-     10: the cut that keeps the later phases inside the time limit);
+     ``EARLY_Z``, two block layers, and its first 32, ``SHALLOW_Z``, in
+     containers of their own for the phases cut to those depths so that
+     the script keeps inside its time);
      ``build([WatershedWorkflow(...)])``
      on the ``cuda`` target with the default watershed config and blocks
      (32, 256, 256).  Both kernels' launch counts must rise in this run, all
@@ -44,8 +46,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      output is checked (shape, labels only on the foreground, ids unique per
      block through the offsets) and two blocks re-run through the plain
      versions on the card must equal it byte for byte;
-  4. the thresholded-components workflow on the same volume
-     (``threshold_mode="less"``: the cell interior), ``cuda`` target, twice:
+  4. the thresholded-components workflow on the first 32 planes of the
+     same volume (``SHALLOW_Z``, a cut for the script's time;
+     ``threshold_mode="less"``: the cell interior), ``cuda`` target, twice:
      blocks (32, 256, 256), whose slices take kernel 4 (every launch down
      its cluster route), and blocks (32, 640, 640), whose slices exceed the
      whole-slice limit and take kernel 5.  The kernel's launch count must
@@ -74,7 +77,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      (``in_turns``) are: each such checkout and this tree in child
      processes, all timed alike, then this tree in this process twice
      (the kernels line's ms), then the children again in reverse;
-  6. ``ThresholdAndWatershedWorkflow`` on the first 64 planes: seeds are the
+  6. ``ThresholdAndWatershedWorkflow`` on the first 32 planes: seeds are the
      components of ``vol < 0.3`` (``"less"``), the watershed from seeds runs
      with its defaults (3d flood, sigma 2, halo [2, 8, 8]) on the ``cuda``
      target with ``CTT_FLOOD_TILE`` pinned to the kernel phase's tile.
@@ -83,8 +86,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      cover the volume, two blocks re-run through the plain versions and a
      second, unpinned run of the watershed task must equal it byte for
      byte;
-  7. ``WatershedWorkflow`` in the 3d mode (``apply_dt_2d`` and
-     ``apply_ws_2d`` False, halo [2, 8, 8]: the CC re-close runs), the
+  7. ``WatershedWorkflow`` in the 3d mode on the first 32 planes
+     (``apply_dt_2d`` and ``apply_ws_2d`` False, halo [2, 8, 8]: the CC
+     re-close runs), the
      3d flood's launch count must rise, two blocks re-run through the
      plain versions must equal it;
   8. ``MulticutSegmentationWorkflow`` on the ``cuda`` target, blocks (32,
@@ -101,11 +105,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      task, chunk-cache hits and misses, the multicut energy of each run,
      Rand and VoI between the runs, and the accumulator's ms per block
      against its byte bound;
-  9. ``WatershedWorkflow(agglomeration=True)``, the default watershed and
-     agglomerate configs, ``max_jobs`` 8: kernels 2 and 1 must launch, all
-     on the cluster route, and the native solvers must have built; the
-     fragments (``<key>_frag``) must equal phase 3's watershed byte for
-     byte, the output must merge them within each block's offset range
+  9. ``WatershedWorkflow(agglomeration=True)`` on the first 32 planes, the
+     default watershed and agglomerate configs, ``max_jobs`` 8: kernels 2
+     and 1 must launch, all on the cluster route, and the native solvers
+     must have built; the fragments (``<key>_frag``) must equal phase 3's
+     watershed on those planes byte for byte, the output must merge them
+     within each block's offset range
      with their coverage, and two blocks re-run with the Python solver
      must equal it.  Printed: wall, voxels/s, seconds per task, fragment
      and segment counts, and the share of the two blocks' edges under the
@@ -123,14 +128,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      8 run 1's tmp folder: its graph and feature tasks must be skipped
      (status files untouched); the output must be its table applied to
      the watershed, with between 1 and the fragment count segments;
- 12. ``MwsWorkflow`` at full width on the first 32 planes (``MWS_Z``, a
-     ``roi_end`` in the global config: the cut that keeps phases 14-17
-     inside the time limit) on long-range affinities made on the card from
-     the whole boundary map (8 offsets, ``aff(x) = 1 - max(b(x), b(x +
-     o))``, uint8 raw n5, chunks (8, 32, 256, 256)), the task's defaults,
-     8 host threads.  Gates, inside the ROI: the native solver built; every
-     voxel labelled; the output is the stitch table applied to
-     ``mws_blocks``; its first and last blocks recomputed with
+ 12. ``MwsWorkflow`` at full width on an ROI of the first 16 planes
+     (``MWS_Z``, a ``roi_end`` in the global config: the cut that keeps
+     the later phases inside the time limit) on long-range affinities made
+     on the card from the whole boundary map (8 offsets, ``aff(x) = 1 -
+     max(b(x), b(x + o))``, uint8 raw n5, chunks (8, 32, 256, 256); the
+     first 34 planes written, so the ROI selects the first of two block
+     layers), the task's defaults, 8 host threads.  Gates: the native
+     solver built; the ROI runs a strict subset of the blocks and the rest
+     stay unwritten; inside the ROI every voxel labelled; the output is the
+     stitch table applied to ``mws_blocks``; the ROI's first and last
+     blocks recomputed with
      ``compute_mws_segmentation`` equal ``mws_blocks``; the dominant
      stitched id crosses a y face and an x face.  Printed: wall, voxels/s,
      seconds per task, segment counts, face agreement;
@@ -145,7 +153,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      recomputed equal to what was written, seeded voxels keep seed ids
      (their own where a block has at most 1024 seed ids).  Printed: wall, the passes' seconds, face
      agreement;
- 14. ``MulticutSegmentationWorkflow`` from affinities at the whole shape:
+ 14. ``MulticutSegmentationWorkflow`` from affinities on the first 32 planes:
      ``255 -`` phase 12's channels 0-2 (offsets [-1, 0, 0], [0, -1, 0],
      [0, 0, -1], boundary convention; uint8 raw n5, chunks (3, 32, 256,
      256)), n_scales 1, ``sanity_checks``, the watershed over channels
@@ -160,24 +168,57 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      phase 14's tmp folder: each fragment one sub-solution id within a
      scale-1 block; the reduced labelling its table applied to the
      watershed, a coarsening with 1 < segments < fragments;
- 16. on the first 32 planes (``FEATURE_Z``): the multicut with the filter
+ 16. on the first 16 planes (``FILTER_Z``): the multicut with the filter
      bank (all four filters, sigma 1.6, halo [6, 6, 6], ``quantile_mode``
      "approx": the default exact raw-sample merge alone takes minutes,
      ``--filter-bank-exact``), ``ImageFilterTask`` (hessian eigenvalues)
      and the region features over its watershed.  Gates: the card's filter
-     responses equal the port's on the CPU on two whole halo'd blocks
+     responses equal the port's on the CPU on block 0's whole halo'd read
      (exactly; the eigenvalues within 1e-5·max|H|), saved features equal a
      host recompute, region counts, minima and maxima equal numpy's and
      means within rtol 1e-4;
- 17. on the first 32 planes: ``InsertAffinitiesTask`` (phase 12's 8
+ 17. on the first 16 planes: ``InsertAffinitiesTask`` (phase 12's 8
      channels; objects phase 6's seeds left of x = 512), ``GradientsTask``
      and ``EmbeddingDistancesTask`` (the 8 channels as an embedding).
      Gates: the 3d flood launches; blocks without objects are copied; three
      blocks of each output equal the port's CPU recompute (uint8 byte for
      byte, float within 1e-6 relative);
- 18. one JSON line with the device functions (the accumulator, the device
+ 18. label bookkeeping on the first 64 planes of phase 3's watershed
+     (copied; 50 blocks, so z, y and x faces occur): ``UniqueWorkflow``,
+     ``RelabelWorkflow``, ``MorphologyWorkflow``, ``BlockNodeLabelsTask`` +
+     ``MergeNodeLabelsTask`` against phase 8 run 1's segmentation,
+     ``ThresholdTask`` at 0.5 with sigma 0 and 2.  Gates: the uniques are
+     numpy's; the relabelled volume has ids 1..n and the same partition;
+     sizes equal numpy's bincount, three fragments' centres of mass (within
+     1e-9) and bounding boxes numpy's; every fragment's node label is its
+     phase 8 segment; sigma 0 is ``raw > 0.5`` byte for byte, sigma 2 equals
+     the port's CPU recompute on two blocks;
+ 19. postprocessing on the same planes, ``min_size`` the 30th percentile of
+     the fragment sizes: ``SizeFilterWorkflow`` to background and with
+     filling over the boundary map (``relabel=True``, ``CTT_FLOOD_TILE``
+     pinned to the kernel phase's tile: kernel 3 and the 3d flood launch
+     once per block with discarded ids), the watershed's problem (graph,
+     boundary features, costs), ``SizeFilterAndGraphWatershedWorkflow``,
+     ``FilterLabelsWorkflow``, ``FilterByThresholdWorkflow``,
+     ``FilterOrphansWorkflow`` and ``ConnectedComponentsWorkflow``.  Gates:
+     no discarded id left and kept voxels unchanged; two blocks of the
+     filling re-run through the plain flood on the card equal it byte for
+     byte; each output is its table applied to the watershed; every
+     reassigned fragment has a RAG neighbour with its new id.  Kernel 3 and
+     the 3d flood timed at the filling filter's (1, 32, 256, 256) call;
+ 20. ``SimpleStitchingWorkflow`` and ``MulticutStitchingWorkflow`` on the
+     same planes: each output is its table applied to the watershed with
+     1 < segments < fragments; the simple stitch's segments are the
+     components of the fragment pairs touching across block faces; the
+     face agreement per axis is printed;
+ 21. one JSON line with the device functions (the accumulator, the device
      MWS, the filter bank with its ``eigvalsh``, the segment reductions,
-     the dilation), one listing the six kernels, then the result line.
+     the dilation), one with the filling filter's kernel 3 and 3d flood,
+     one listing the six kernels, then the result line.
+
+A flushed ``phase N start at ... s`` line precedes each phase, and if the
+script still runs after ``STACK_DUMP_S`` (900 s) every thread's stack is
+printed once to standard error (``faulthandler``; it changes nothing else).
 
 ``--mws-scaling`` runs only the device MWS's schedule study (no build, no
 result line): growing (36, s, s) centres of phase 12's first interior
@@ -190,6 +231,9 @@ volume; no result line) with the filter bank's default quantile mode, the
 exact raw-sample merge that the full run leaves out for time; its gates are
 phase 16's, with the saved raw samples checked too.
 
+``--label-phases`` runs only the build, the volume, phases 3 and 8 and
+phases 18-20 (no result line): the new phases measured without the rest.
+
 Without a CUDA device, or without the repository beside it, it exits non-zero
 and prints no result.
 """
@@ -198,6 +242,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import json
 import os
 import subprocess
@@ -223,7 +268,9 @@ THRESHOLD = 0.5
 SEED_THRESHOLD = 0.3  # seeds: 5.3% of the voxels, ~800 components per 40 x 250 x 250
 FLOOD_TILE = "8,64,128"  # CTT_FLOOD_TILE of the seeds run: kernel 3 tiles of 64 x 128
 HALO = (2, 8, 8)  # the watershed-from-seeds default, also given to the 3d watershed
-EARLY_Z = 64  # depth of phases 6 and 10 (two block layers), cut for the script's time
+EARLY_Z = 64  # depth of phases 18-20 (two block layers: z faces occur), cut for the script's time
+SHALLOW_Z = 32  # depth of phases 4, 6, 7, 9, 10, 14 and 15 (one block layer), cut for its time
+STACK_DUMP_S = 900  # every thread's stack is printed once if the script runs this long
 
 
 def log(msg: str) -> None:
@@ -1391,19 +1438,33 @@ def ws3d_phase(vol_np, path: str, work: str, card: str):
     return wall, vox / wall
 
 
-def chunk_files(root: str) -> dict:
-    """Every chunk file of a dataset directory (its metadata excluded) by
-    relative path, with its bytes: gzip is deterministic, so two datasets
-    hold equal arrays exactly when these are equal."""
+def chunk_files(root: str, z_chunks=None) -> dict:
+    """Every chunk file of an n5 dataset directory (its metadata excluded)
+    by relative path, with its bytes: gzip is deterministic, so two datasets
+    hold equal arrays exactly when these are equal.  ``z_chunks`` keeps the
+    chunks of the first that many chunk layers in z (n5's chunk path ends
+    with the z index), to hold a run on the first planes against a run on
+    the whole volume."""
     out = {}
     for dirpath, _, files in os.walk(root):
         for name in files:
             if name in ("attributes.json", ".zarray", ".zattrs"):
                 continue
             full = os.path.join(dirpath, name)
+            rel = os.path.relpath(full, root)
+            if z_chunks is not None and int(rel.split(os.sep)[-1]) >= z_chunks:
+                continue
             with open(full, "rb") as f:
-                out[os.path.relpath(full, root)] = f.read()
+                out[rel] = f.read()
     return out
+
+
+def same_as_phase3(path: str, key: str, ws_path: str, shape) -> bool:
+    """``path/key`` equals phase 3's ``ws_path/ws`` on its ``shape[0]``
+    planes, chunk file for chunk file (the blocks align: the depth is a
+    multiple of the block's)."""
+    return chunk_files(os.path.join(path, key)) == chunk_files(
+        os.path.join(ws_path, "ws"), z_chunks=-(-shape[0] // BLOCK[0]))
 
 
 def status_seconds(tmp_folder: str, identifier: str) -> float:
@@ -1469,8 +1530,39 @@ def rand_voi(pairs: np.ndarray, sizes: np.ndarray) -> dict:
     return {"rand_index": rand, "voi_split": h_b_given_a, "voi_merge": h_a_given_b}
 
 
+def local_ids(ws: np.ndarray, bid: int, unit: int) -> np.ndarray:
+    """Block ``bid``'s watershed ids less its offset (``bid * unit``), 0
+    kept: the watershed writes ids in (bid * unit, (bid + 1) * unit]."""
+    local = np.where(ws > 0, ws - np.uint64(bid * unit), 0).astype(np.int64)
+    if local.max(initial=0) > unit:
+        raise AssertionError(f"block {bid}: watershed ids outside its offset range")
+    return local
+
+
+def fragments_of(ws, blocking, check=None):
+    """Sorted non-zero fragment ids of a block-offset watershed (an array or
+    a dataset, read block by block) and their voxel counts, from a bincount
+    per block (numpy, independent of the port's tasks); the count of
+    background voxels.  ``check(bid, slicing, local)`` runs on each block's
+    local ids."""
+    unit = int(np.prod(blocking.block_shape))
+
+    def one(bid):
+        bb = blocking.block(bid).slicing
+        local = local_ids(ws[bb], bid, unit)
+        if check is not None:
+            check(bid, bb, local)
+        counts = np.bincount(local.reshape(-1), minlength=unit + 1)
+        present = np.nonzero(counts[1:])[0] + 1
+        return present.astype(np.uint64) + np.uint64(bid * unit), counts[present], int(counts[0])
+
+    parts = over_blocks(one, blocking)
+    return (np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts]),
+            sum(p[2] for p in parts))
+
+
 def check_segmentations(path: str, ws_key: str, runs: dict, blocking) -> dict:
-    """Gate 2 of phase 8, in one pass over the blocks: each run's
+    """Gate 2 of phase 8, in one pass over the blocks on host threads: each run's
     segmentation must be its (fragment, segment) table applied to the
     watershed — every fragment in the table, each mapped to one segment,
     background kept — with between 1 and the fragment count segments.
@@ -1479,21 +1571,10 @@ def check_segmentations(path: str, ws_key: str, runs: dict, blocking) -> dict:
     from cluster_tools_tpu_torch.utils import file_reader
 
     f = file_reader(path, "r")
-    ws_ds = f[ws_key]
     unit = int(np.prod(blocking.block_shape))
     tags = list(runs)
-    frag_ids, frag_sizes, n_zero = [], [], 0
-    for bid in range(blocking.n_blocks):
-        bb = blocking.block(bid).slicing
-        ws = ws_ds[bb]
-        local = np.where(ws > 0, ws - np.uint64(bid * unit), 0).astype(np.int64)
-        if local.max() > unit:
-            raise AssertionError(f"block {bid}: watershed ids outside its offset range")
-        counts = np.bincount(local.reshape(-1), minlength=unit + 1)
-        n_zero += int(counts[0])
-        present = np.nonzero(counts[1:])[0] + 1
-        frag_ids.append(present.astype(np.uint64) + np.uint64(bid * unit))
-        frag_sizes.append(counts[present])
+
+    def check(bid, bb, local):
         for tag in tags:
             table = runs[tag]["table"]
             lo, hi = np.searchsorted(table[:, 0], [bid * unit + 1, (bid + 1) * unit + 1])
@@ -1507,8 +1588,8 @@ def check_segmentations(path: str, ws_key: str, runs: dict, blocking) -> dict:
                 raise AssertionError(f"{tag}: block {bid} has fragments missing from the table")
             if not np.array_equal(f[runs[tag]["key"]][bb], lut[local]):
                 raise AssertionError(f"{tag}: block {bid} is not the table applied to the watershed")
-    frag_ids = np.concatenate(frag_ids)
-    frag_sizes = np.concatenate(frag_sizes)
+
+    frag_ids, frag_sizes, n_zero = fragments_of(f[ws_key], blocking, check)
     segs = []
     for tag in tags:
         table = runs[tag]["table"]
@@ -1655,9 +1736,9 @@ def multicut_phase(vol_np, path: str, work: str, card: str) -> dict:
             raise AssertionError(f"multicut run 1 never launched {name}")
     log(f"multicut host: kernel launches {launches}, by route dtws "
         f"{dtws_slices.launches_by_route}, flood {flood_slices.launches_by_route}")
-    if chunk_files(os.path.join(path, "mc_ws")) != chunk_files(os.path.join(path, "ws")):
+    if not same_as_phase3(path, "mc_ws", path, vol_np.shape):
         raise AssertionError("multicut run 1's watershed differs from phase 3's")
-    log("multicut host: watershed byte-identical to phase 3's")
+    log(f"multicut host: watershed byte-identical to phase 3's on its {vol_np.shape[0]} planes")
 
     ids = file_reader(os.path.join(host["tmp"], "data.zarr"), "r")[FEATURE_IDS_KEY]
     most = max(ids.read_chunk((bid,)).size for bid in range(blocking.n_blocks))
@@ -1694,7 +1775,8 @@ def multicut_phase(vol_np, path: str, work: str, card: str) -> dict:
     record = accumulator_check(path, "mc_ws", blocking, max_edges, card)
     record["launches"] = acc_launches
     return {"launches": launches, "walls": {k: r["wall"] for k, r in runs.items()},
-            "accumulator": record, "tmp": host["tmp"], "config_dir": host["config_dir"]}
+            "accumulator": record, "tmp": host["tmp"], "config_dir": host["config_dir"],
+            "table": host["table"], "path": path}
 
 
 def merge_check(path: str, frag_key: str, out_key: str, blocking) -> dict:
@@ -1728,11 +1810,13 @@ def merge_check(path: str, frag_key: str, out_key: str, blocking) -> dict:
     return {"n_fragments": n_frag, "n_segments": n_seg}
 
 
-def agglomeration_phase(vol_np, path: str, work: str, card: str):
-    """Phase 9: ``WatershedWorkflow(agglomeration=True)`` with the default
-    watershed and agglomerate configs, ``max_jobs`` 8.  Gates: kernels 2
+def agglomeration_phase(vol_np, path: str, work: str, card: str, ws_path: str):
+    """Phase 9: ``WatershedWorkflow(agglomeration=True)`` on ``vol_np`` (the
+    first ``SHALLOW_Z`` planes in the script) with the default watershed and
+    agglomerate configs, ``max_jobs`` 8.  Gates: kernels 2
     and 1 launched, all on the cluster route; the native solvers built;
-    ``agglo_frag`` equal to phase 3's watershed byte for byte; the output a
+    ``agglo_frag`` equal to phase 3's watershed (``ws_path/ws``) on those
+    planes byte for byte; the output a
     per-block merge of the fragments; two blocks re-run with the Python
     solver equal to the workflow's output."""
     import functools
@@ -1777,7 +1861,7 @@ def agglomeration_phase(vol_np, path: str, work: str, card: str):
     log(f"agglomeration: {vol_np.shape} in {wall:.2f} s = {vox / wall:.4g} voxels/s on {card}; "
         f"launches {launches}, all down the cluster route")
     task_seconds(wf, "agglomeration")
-    if chunk_files(os.path.join(path, "agglo_frag")) != chunk_files(os.path.join(path, "ws")):
+    if not same_as_phase3(path, "agglo_frag", ws_path, vol_np.shape):
         raise AssertionError("the agglomeration's fragments differ from phase 3's watershed")
     blocking = Blocking(vol_np.shape, BLOCK)
     t0 = time.perf_counter()
@@ -1986,7 +2070,10 @@ MWS_HALO = (2, 4, 4)  # the MWS tasks' default
 MWS_DEVICE_CROP = (36, 24, 24)  # phase 12b: the centre of a halo'd block
 MAX_MUTEX_IDS = 1024  # compute_mws_segmentation_with_seeds' default
 TWO_PASS_MWS_Z = 8  # phase 13's depth: a quarter block layer (pass 1 runs a block at a time)
-MWS_Z = 32  # phase 12's ROI depth (one block layer), cut for phases 14-17's time
+MWS_Z = 16  # phase 12's ROI depth (half a block layer), cut for the script's time
+# phase 12's stored depth: the first block layer with its z halo, so its
+# halo'd reads are the whole volume's, and a second layer outside the ROI
+MWS_STORED_Z = BLOCK[0] + MWS_HALO[0]
 
 
 def mws_offsets() -> list:
@@ -2043,14 +2130,17 @@ def same_partition(a: np.ndarray, b: np.ndarray) -> bool:
 
 def mws_phase(vol_np, work: str, card: str, dev) -> dict:
     """Phase 12: ``MwsWorkflow`` at full width on the first ``MWS_Z``
-    planes (a ``roi_end`` in the global config; the affinities are made and
-    stored for the whole volume, phase 14 reads them) on the ``cuda``
+    planes (a ``roi_end`` in the global config; the affinities are made for
+    the whole volume, for phases 12b-14 and 17, and stored for the first
+    ``MWS_STORED_Z`` planes, so the ROI selects the first of two block
+    layers and the stitching runs over that subset) on the ``cuda``
     target, blocks (32, 256, 256), the task's defaults (halo [2, 4, 4],
     strides [1, 1, 1], no noise), 8 host threads, on long-range affinities
     made on the card from the boundary map (uint8, raw n5, chunks (8, 32,
-    256, 256)).  Gates, inside the ROI: the native solver built; every
-    voxel labelled; the output is the stitch table applied to
-    ``mws_blocks``; blocks first and last recomputed with
+    256, 256)).  Gates: the native solver built; the ROI selects a strict
+    subset of the blocks and the blocks outside it stay unwritten; inside
+    the ROI every voxel labelled; the output is the stitch table applied to
+    ``mws_blocks``; the ROI's blocks first and last recomputed with
     ``compute_mws_segmentation`` from the halo'd read equal ``mws_blocks``
     after the relabel and offset; the dominant stitched id continues across
     a y face and an x face."""
@@ -2065,13 +2155,14 @@ def mws_phase(vol_np, work: str, card: str, dev) -> dict:
     affs = make_affinities(torch.from_numpy(vol_np).to(dev)).cpu().numpy()
     torch.cuda.empty_cache()
     path = os.path.join(work, "affs.n5")
-    file_reader(path).create_dataset("affs", data=affs, chunks=AFF_CHUNKS, compression="raw")
-    log(f"setup: affinities {affs.shape} uint8 ({affs.nbytes / 1e9:.2f} GB) made on the card and "
-        f"written as raw n5 in {time.perf_counter() - t0:.1f} s")
+    z, stored = min(MWS_Z, vol_np.shape[0]), min(MWS_STORED_Z, vol_np.shape[0])
+    file_reader(path).create_dataset("affs", data=np.ascontiguousarray(affs[:, :stored]),
+                                     chunks=AFF_CHUNKS, compression="raw")
+    log(f"setup: affinities {affs.shape} uint8 ({affs.nbytes / 1e9:.2f} GB) made on the card, "
+        f"the first {stored} planes written as raw n5, in {time.perf_counter() - t0:.1f} s")
     if not native.available():
         raise AssertionError(f"mws: native solvers unavailable: {native.load_error}")
     tmp, config_dir = os.path.join(work, "tmp_mws"), os.path.join(work, "configs_mws")
-    z = min(MWS_Z, vol_np.shape[0])
     cfg.write_global_config(config_dir, {
         "block_shape": list(BLOCK), "target": "cuda", "device": str(dev),
         "max_jobs": min(8, os.cpu_count() or 1),
@@ -2087,10 +2178,17 @@ def mws_phase(vol_np, work: str, card: str, dev) -> dict:
     if not build([wf]):
         raise AssertionError("mws workflow build failed")
     wall = time.perf_counter() - t0
-    log(f"mws: {roi} of {vol_np.shape} in {wall:.2f} s = {vox / wall:.6g} voxels/s on {card}")
+    log(f"mws: {roi} of {(stored,) + roi[1:]} in {wall:.2f} s = {vox / wall:.6g} voxels/s on {card}")
     task_seconds(wf, "mws")
     t0 = time.perf_counter()
     f = file_reader(path, "r")
+    blocking = Blocking((stored,) + roi[1:], BLOCK)
+    in_roi = blocking.blocks_overlapping_roi([0, 0, 0], list(roi))
+    if not len(in_roi) < blocking.n_blocks:
+        raise AssertionError(f"mws: the ROI selects all {blocking.n_blocks} blocks")
+    outside = (slice(blocking.block(in_roi[-1]).end[0], stored),)
+    if f["mws_blocks"][outside].any() or f["mws"][outside].any():
+        raise AssertionError("mws: a block outside the ROI was written")
     seg, blocks = f["mws"][:z], f["mws_blocks"][:z]
     table = np.load(os.path.join(tmp, STITCH_ASSIGNMENTS_NAME))
     if not (seg > 0).all():
@@ -2107,9 +2205,8 @@ def mws_phase(vol_np, work: str, card: str, dev) -> dict:
     n_ids, dom = int(np.count_nonzero(counts)), int(counts.argmax())
     log(f"mws: {n_blocks_ids} segments in the blocks, {n_ids} after stitching "
         f"({table.shape[0]} voted ids in the table); the output is the table applied to "
-        f"mws_blocks (checked in {time.perf_counter() - t0:.1f} s)")
-    blocking = Blocking(vol_np.shape, BLOCK)
-    in_roi = blocking.blocks_overlapping_roi([0, 0, 0], list(roi))
+        f"mws_blocks; the ROI runs {len(in_roi)} of {blocking.n_blocks} blocks, the rest "
+        f"stay unwritten (checked in {time.perf_counter() - t0:.1f} s)")
     for bid in (in_roi[0], in_roi[-1]):
         bh = blocking.block_with_halo(bid, MWS_HALO)
         a = affs[(slice(None),) + bh.outer.slicing].astype(np.float32) / 255.0
@@ -2117,7 +2214,7 @@ def mws_phase(vol_np, work: str, card: str, dev) -> dict:
         got = compute_mws_segmentation(a, conf["offsets"], strides=conf["strides"], seed=bid)
         dt = time.perf_counter() - t0
         got = relabel_outer(got, bid, blocking, MWS_HALO)[bh.inner_local.slicing]
-        if not np.array_equal(got, blocks[bh.inner.slicing]):
+        if not np.array_equal(got, f["mws_blocks"][bh.inner.slicing]):
             raise AssertionError(f"mws block {bid}: recomputed labels differ from mws_blocks")
         log(f"mws block {bid} {tuple(a.shape[1:])}: compute_mws_segmentation (edges, native "
             f"solve, relabel) {dt:.3f} s on the host; equals mws_blocks")
@@ -2421,7 +2518,8 @@ AFF_MC_CHUNKS = (3, 32, 256, 256)
 # 0.5, so every cost is attractive and the multicut returns one segment
 # (PERF.md §4); at 0.4 the cells separate
 AFF_WS_THRESHOLD = 0.4
-FEATURE_Z = 32  # depth of phases 16-17 (one block layer), cut for the script's time
+FEATURE_Z = 16  # depth of phase 17 (half a block layer), cut for the script's time
+FILTER_Z = 16  # depth of phase 16 (half a block layer), cut for the script's time
 FILTER_SIGMA = 1.6
 FILTER_HALO = [6, 6, 6]  # int(4 * 1.6 + 0.5): the filters' radius at FILTER_SIGMA
 # phase 16's quantile merge: the filter bank's default, the exact raw-sample
@@ -2473,8 +2571,9 @@ def saved_block_features(tmp: str, bid: int, edges: np.ndarray):
 
 
 def affinity_multicut_phase(affs: np.ndarray, work: str, card: str) -> dict:
-    """Phase 14: ``MulticutSegmentationWorkflow`` from affinities at the whole
-    shape on the ``cuda`` target: the boundary-convention nearest-neighbour
+    """Phase 14: ``MulticutSegmentationWorkflow`` from affinities (the first
+    ``SHALLOW_Z`` planes of phase 12's, a cut for the script's time) on the
+    ``cuda`` target: the boundary-convention nearest-neighbour
     affinities ``255 -`` phase 12's channels 0-2 (offsets ``AFF_MC_OFFSETS``,
     uint8 raw n5, chunks (3, 32, 256, 256)); blocks (32, 256, 256), n_scales
     1, ``sanity_checks``; the watershed over channels 0-3, mean, threshold
@@ -2631,7 +2730,7 @@ def solutions_phase(mc: dict, card: str) -> dict:
 
 
 def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTILE_MODE) -> dict:
-    """Phase 16 on the first ``FEATURE_Z`` planes at full width:
+    """Phase 16 on the first ``FILTER_Z`` planes at full width:
     ``MulticutSegmentationWorkflow`` with the filter bank (all four filters,
     sigma 1.6, halo [6, 6, 6]; ``quantile_mode`` as given, None for the
     task's default, which for the filter bank is the exact raw-sample
@@ -2639,10 +2738,10 @@ def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTIL
     (hessian eigenvalues, sigma 1.6), then ``RegionFeaturesTask`` +
     ``MergeRegionFeaturesTask`` over the multicut's watershed and the
     boundary map.  Gates: the filter bank launched; on the whole halo'd
-    reads of block 0 and the last block the card's responses equal the
-    port's on the CPU — exactly for the gaussian, gradient magnitude and
-    LoG, within 1e-5·max|H| for the eigenvalues; those blocks' saved
-    features (and, in the exact mode, raw samples) equal
+    read of block 0 (the one ``ImageFilterTask`` reuses) the card's
+    responses equal the port's on the CPU — exactly for the gaussian,
+    gradient magnitude and LoG, within 1e-5·max|H| for the eigenvalues; its
+    saved features (and, in the exact mode, raw samples) equal
     ``filter_edge_features`` on the host over the card's responses within
     1e-6; the image filter's eigenvalues finite
     and descending, its block 0 (the same halo'd read) within 1e-5·max|H| of
@@ -2662,7 +2761,7 @@ def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTIL
     from cluster_tools_tpu_torch.utils import file_reader
     from cluster_tools_tpu_torch.utils.blocking import Blocking
 
-    z = min(FEATURE_Z, vol_np.shape[0])
+    z = min(FILTER_Z, vol_np.shape[0])
     raw = np.ascontiguousarray(vol_np[:z])
     shape = raw.shape
     vox = int(np.prod(shape))
@@ -2707,7 +2806,7 @@ def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTIL
         saved_samples = file_reader(os.path.join(tmp, "data.zarr"), "r")[FEATURE_SAMPLES_KEY]
     errs = {name: 0.0 for name in F.FILTERS}
     regions, cpu_s = {}, 0.0
-    for bid in (0, blocking.n_blocks - 1):
+    for bid in (0,):
         block = blocking.block(bid)
         ob = [max(b - h, 0) for b, h in zip(block.begin, FILTER_HALO)]
         oe = [min(e + h + 1, s) for e, h, s in zip(block.end, FILTER_HALO, shape)]
@@ -2742,7 +2841,7 @@ def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTIL
                 raise AssertionError(f"filter features block {bid}: saved raw samples differ "
                                      "from the host recompute")
     log(f"filter bank ({quantile_mode or 'default'} quantile mode): card vs CPU on the whole "
-        f"halo'd blocks 0 and {blocking.n_blocks - 1}, max abs err {errs} (the CPU's responses "
+        f"halo'd block 0, max abs err {errs} (the CPU's responses "
         f"{cpu_s:.1f} s); saved features{' and raw samples' if exact else ''} equal the host "
         f"recompute ({time.perf_counter() - t0:.1f} s)")
 
@@ -3062,6 +3161,525 @@ def slice_device_functions(fb: dict, at: dict, card: str) -> list:
     return records
 
 
+# -- phases 18-20: label bookkeeping, postprocessing, stitching ------------------
+# On the first EARLY_Z planes at full width: 50 blocks in two block layers, so
+# stitching sees z faces as well as y and x faces.  The label input is phase
+# 3's watershed, its first EARLY_Z planes copied into the cut container as
+# ``ws``; the workflows run in one tmp folder (``tmp_labels``) where they can
+# share what is complete (the morphology, the size filter, the problem graph,
+# its features and costs), in folders of their own where task names would
+# collide (two relabels, two block filters, two stitching writes).
+MIN_SIZE_PERCENTILE = 30  # of the fragment sizes: the size filters' min_size
+
+
+def slice_threads() -> int:
+    return min(8, os.cpu_count() or 1)
+
+
+def over_blocks(fn, blocking) -> list:
+    """``fn(block_id)`` for every block over ``slice_threads()`` host
+    threads (numpy and the chunk codecs release the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(slice_threads()) as pool:
+        return list(pool.map(fn, range(blocking.n_blocks)))
+
+
+def read_volume(ds, blocking) -> np.ndarray:
+    """The blocks of ``blocking`` (the whole dataset, or its first planes)
+    read over host threads."""
+    out = np.empty(tuple(blocking.shape), dtype=ds.dtype)
+
+    def one(bid):
+        bb = blocking.block(bid).slicing
+        out[bb] = ds[bb]
+
+    over_blocks(one, blocking)
+    return out
+
+
+def check_applied(ws: np.ndarray, out: np.ndarray, table: np.ndarray, blocking, what: str,
+                  identity: bool = False) -> None:
+    """``out`` must be the (id, new id) ``table`` applied to the block-offset
+    ``ws``: checked block by block through a dense lookup over the block's
+    offset range; ids absent from the table keep themselves (``identity``)
+    or become 0, as the write task's ``table_default`` says."""
+    unit = int(np.prod(BLOCK))
+    table = table[np.argsort(table[:, 0], kind="stable")].astype(np.uint64)
+    zero = table[table[:, 0] == 0]
+
+    def one(bid):
+        bb = blocking.block(bid).slicing
+        base = bid * unit
+        local = local_ids(ws[bb], bid, unit)
+        lut = (np.arange(unit + 1, dtype=np.uint64) + np.uint64(base) if identity
+               else np.zeros(unit + 1, dtype=np.uint64))
+        lut[0] = zero[0, 1] if zero.size else 0
+        lo, hi = np.searchsorted(table[:, 0], [base + 1, base + unit + 1])
+        lut[(table[lo:hi, 0] - np.uint64(base)).astype(np.int64)] = table[lo:hi, 1]
+        if not np.array_equal(out[bb], lut[local]):
+            raise AssertionError(f"{what}: block {bid} is not its table applied to the watershed")
+
+    over_blocks(one, blocking)
+
+
+def slice_config(work: str, tag: str) -> str:
+    """A config dir of the new phases: the ``cuda`` target, 8 host threads."""
+    from cluster_tools_tpu_torch.runtime import config as cfg
+
+    config_dir = os.path.join(work, f"configs_{tag}")
+    cfg.write_global_config(config_dir, {
+        "block_shape": list(BLOCK), "target": "cuda", "device": "cuda",
+        "max_jobs": slice_threads(),
+    })
+    return config_dir
+
+
+def run_workflow(wf, tag: str, vox: int, card: str, walls: dict) -> None:
+    """Build ``wf`` on the card; its wall, voxels/s and seconds per task."""
+    from cluster_tools_tpu_torch import build
+
+    t0 = time.perf_counter()
+    if not build([wf]):
+        raise AssertionError(f"{tag} build failed")
+    torch.cuda.synchronize()
+    walls[tag] = time.perf_counter() - t0
+    log(f"{tag}: {vox} voxels in {walls[tag]:.3f} s = {vox / walls[tag]:.6g} voxels/s on {card}")
+    task_seconds(wf, tag)
+
+
+def bookkeeping_phase(cut_np, path: str, ws_path: str, work: str, card: str, mc: dict) -> dict:
+    """Phase 18, label bookkeeping on phase 3's watershed (``ws_path/ws``,
+    its first planes copied to ``path/ws``): ``UniqueWorkflow`` and
+    ``RelabelWorkflow`` (one tmp folder: the relabel reuses the uniques),
+    ``MorphologyWorkflow``, ``BlockNodeLabelsTask`` + ``MergeNodeLabelsTask``
+    against phase 8 run 1's segmentation of the whole volume
+    (``mc_seg_host``), ``ThresholdTask`` on the boundary map at 0.5, sigma
+    0 and 2.
+    Gates: the uniques are numpy's; the relabelled volume has ids 1..n and
+    is the consecutive map applied to the watershed; the morphology's sizes
+    are numpy's bincount, and three fragments' centres of mass (within 1e-9
+    voxels) and bounding boxes (exactly) numpy's over the volume; every
+    fragment's node label is its segment in phase 8 run 1's table; the
+    sigma-0 mask is ``raw > 0.5`` byte for byte, and two blocks of the
+    sigma-2 mask equal the port's recompute on the CPU."""
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks import BlockNodeLabelsTask, MergeNodeLabelsTask, ThresholdTask
+    from cluster_tools_tpu_torch.tasks.morphology import MORPHOLOGY_NAME
+    from cluster_tools_tpu_torch.tasks.node_labels import NODE_LABELS_NAME
+    from cluster_tools_tpu_torch.tasks.relabel import LABELING_NAME
+    from cluster_tools_tpu_torch.tasks.threshold import _threshold_batch
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+    from cluster_tools_tpu_torch.workflows import MorphologyWorkflow, RelabelWorkflow, UniqueWorkflow
+
+    shape = cut_np.shape
+    vox = int(np.prod(shape))
+    blocking = Blocking(shape, BLOCK)
+    t0 = time.perf_counter()
+    ws = read_volume(file_reader(ws_path, "r")["ws"], blocking)
+    copy = file_reader(path).create_dataset("ws", shape=shape, dtype="uint64", chunks=BLOCK,
+                                            compression="gzip")
+
+    def write(bid):
+        bb = blocking.block(bid).slicing
+        copy[bb] = ws[bb]
+
+    over_blocks(write, blocking)
+    f = file_reader(path, "r")
+    frag, sizes, n_bg = fragments_of(ws, blocking)
+    log(f"setup: phase 3's watershed on the first {shape[0]} planes copied, {frag.size} "
+        f"fragments counted per block, in {time.perf_counter() - t0:.1f} s")
+    walls = {}
+    config_dir = slice_config(work, "labels")
+    tmp = os.path.join(work, "tmp_relabel")
+    io = {"input_path": path, "input_key": "ws", "output_path": path}
+    run_workflow(UniqueWorkflow(tmp, config_dir, output_key="uniques", **io), "UniqueWorkflow",
+                 vox, card, walls)
+    run_workflow(RelabelWorkflow(tmp, config_dir, output_key="relabelled", **io),
+                 "RelabelWorkflow (uniques reused)", vox, card, walls)
+    t0 = time.perf_counter()
+    want = np.concatenate([[0], frag]).astype(np.uint64) if n_bg else frag
+    if not np.array_equal(f["uniques"][:], want):
+        raise AssertionError("UniqueWorkflow: the uniques are not numpy's")
+    table = np.load(os.path.join(tmp, LABELING_NAME))
+    if not (np.array_equal(table[:, 0], frag)
+            and np.array_equal(table[:, 1], np.arange(1, frag.size + 1, dtype=np.uint64))):
+        raise AssertionError("RelabelWorkflow: the labelling is not consecutive over the fragments")
+    check_applied(ws, read_volume(f["relabelled"], blocking), table, blocking, "RelabelWorkflow")
+    log(f"bookkeeping: uniques equal numpy's ({want.size} ids); the relabelled volume has ids "
+        f"1..{frag.size}, the consecutive map applied to the watershed (checked in "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    mc_tmp = os.path.join(work, "tmp_labels")
+    run_workflow(MorphologyWorkflow(mc_tmp, config_dir, input_path=path, input_key="ws"),
+                 "MorphologyWorkflow", vox, card, walls)
+    t0 = time.perf_counter()
+    morpho = np.load(os.path.join(mc_tmp, MORPHOLOGY_NAME))
+    ids = morpho[:, 0].astype(np.uint64)
+    nz = ids != 0
+    if not (np.array_equal(ids[nz], frag) and np.array_equal(morpho[nz, 1], sizes)):
+        raise AssertionError("MorphologyWorkflow: ids or sizes differ from numpy's bincount")
+    picks = [int(frag[int(np.argmax(sizes))]), int(frag[frag.size // 2]), int(frag[-1])]
+    for pick in picks:
+        coords = np.nonzero(ws == np.uint64(pick))
+        row = morpho[np.searchsorted(ids, np.uint64(pick))]
+        com = np.array([c.mean() for c in coords])
+        bb = np.array([c.min() for c in coords] + [c.max() + 1 for c in coords], dtype=np.float64)
+        if np.abs(row[2:5] - com).max() > 1e-9 or not np.array_equal(row[5:11], bb):
+            raise AssertionError(f"MorphologyWorkflow: fragment {pick}: com {row[2:5]} bb "
+                                 f"{row[5:11]}, numpy {com} {bb}")
+    log(f"morphology: {ids.size} rows; sizes equal numpy's bincount, fragments {picks}: centres "
+        f"of mass within 1e-9 and bounding boxes equal numpy's (checked in "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    block = BlockNodeLabelsTask(mc_tmp, config_dir, input_path=path, input_key="ws",
+                                labels_path=mc["path"], labels_key="mc_seg_host")
+    merge = MergeNodeLabelsTask(mc_tmp, config_dir, dependencies=[block], input_path=path,
+                                input_key="ws")
+    run_workflow(merge, "node labels (block + merge)", vox, card, walls)
+    labels = np.load(os.path.join(mc_tmp, NODE_LABELS_NAME))
+    seg_table = mc["table"]
+    if not np.array_equal(labels[labels[:, 0] > 0, 0], frag) or not np.array_equal(
+            labels[labels[:, 0] > 0, 1], seg_table[np.searchsorted(seg_table[:, 0], frag), 1]):
+        raise AssertionError("node labels: a fragment's label is not its phase 8 segment")
+    log(f"node labels: each of {labels.shape[0]} fragments labelled with its segment in phase 8 "
+        f"run 1's table")
+
+    raw = cut_np
+    for sigma in (0.0, 2.0):
+        cfg.write_config(config_dir, "threshold", {"threshold": THRESHOLD, "sigma": sigma})
+        key = f"mask_sigma{sigma:g}"
+        task = ThresholdTask(os.path.join(work, f"tmp_threshold_{sigma:g}"), config_dir,
+                             input_path=path, input_key="raw", output_path=path, output_key=key)
+        run_workflow(task, f"ThresholdTask sigma {sigma:g}", vox, card, walls)
+        out = read_volume(f[key], blocking)
+        if sigma == 0:
+            if not np.array_equal(out, (raw > THRESHOLD).astype(np.uint8)):
+                raise AssertionError("ThresholdTask sigma 0: not raw > 0.5 byte for byte")
+            continue
+        for bid in (0, blocking.n_blocks - 1):
+            bh = blocking.block_with_halo(bid, [0, 0, 0])
+            x = np.zeros(BLOCK, np.float32)
+            x[tuple(slice(0, s) for s in bh.outer.shape)] = raw[bh.outer.slicing]
+            cpu = _threshold_batch(torch.from_numpy(x)[None], THRESHOLD, "greater", sigma)[0]
+            if not np.array_equal(out[bh.inner.slicing], cpu.numpy()[bh.inner_local.slicing]):
+                raise AssertionError(f"ThresholdTask sigma {sigma}: block {bid} differs from "
+                                     "the CPU's")
+    log(f"threshold: sigma 0 equals raw > {THRESHOLD} byte for byte; sigma 2 blocks 0 and "
+        f"{blocking.n_blocks - 1} equal the port's CPU recompute")
+    return {"walls": walls, "shape": shape, "ws": ws, "frag": frag, "sizes": sizes,
+            "morpho": morpho, "config_dir": config_dir, "tmp": mc_tmp}
+
+
+def postprocess_phase(cut_np, path: str, work: str, card: str, bk: dict) -> dict:
+    """Phase 19, the postprocessing workflows on phase 18's watershed,
+    ``min_size`` the 30th percentile of the morphology's fragment sizes.
+    ``SizeFilterWorkflow`` to background, then with filling over the
+    boundary map (``relabel=True``, ``CTT_FLOOD_TILE`` pinned to
+    ``FLOOD_TILE``); the problem (graph, boundary features, costs) of the
+    watershed; ``SizeFilterAndGraphWatershedWorkflow``,
+    ``FilterOrphansWorkflow`` and ``ConnectedComponentsWorkflow`` (all in
+    phase 18's tmp folder: morphology, size filter, graph and costs
+    reused), ``FilterLabelsWorkflow`` (every tenth fragment) and
+    ``FilterByThresholdWorkflow`` (mean boundary value under the fragments'
+    median).  Gates: kernel 3 and the 3d flood launched in the filling run,
+    once per block with discarded ids; no discarded id left; kept voxels
+    keep their ids; the relabelled output is the consecutive map of the
+    filled one; two blocks with discarded ids re-run through the plain
+    flood on the card equal the output byte for byte; every output is its
+    table applied to the watershed; every fragment the graph watershed
+    reassigns has a RAG neighbour with its new id.  The kernels' ms at the
+    filling filter's shape, with their bounds."""
+    from cluster_tools_tpu_torch.ops import cuda_flood
+    from cluster_tools_tpu_torch.tasks import FillingSizeFilterTask, ProbsToCostsTask
+    from cluster_tools_tpu_torch.tasks.graph import load_graph
+    from cluster_tools_tpu_torch.tasks.postprocess import (
+        GRAPH_CC_NAME, GRAPH_WS_NAME, ORPHANS_NAME, SIZE_FILTER_DISCARD_NAME)
+    from cluster_tools_tpu_torch.tasks.relabel import LABELING_NAME
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+    from cluster_tools_tpu_torch.workflows import (
+        ConnectedComponentsWorkflow, EdgeFeaturesWorkflow, FilterByThresholdWorkflow,
+        FilterLabelsWorkflow, FilterOrphansWorkflow, GraphWorkflow,
+        SizeFilterAndGraphWatershedWorkflow, SizeFilterWorkflow)
+
+    shape = cut_np.shape
+    vox = int(np.prod(shape))
+    blocking = Blocking(shape, BLOCK)
+    unit = int(np.prod(BLOCK))
+    ws, frag, sizes = bk["ws"], bk["frag"], bk["sizes"]
+    config_dir, mc_tmp = bk["config_dir"], bk["tmp"]
+    f = file_reader(path, "r")
+    walls = {}
+    min_size = int(np.percentile(bk["morpho"][bk["morpho"][:, 0] > 0, 1], MIN_SIZE_PERCENTILE))
+    io = {"input_path": path, "input_key": "ws", "output_path": path}
+    run_workflow(SizeFilterWorkflow(mc_tmp, config_dir, output_key="sf_background",
+                                    min_size=min_size, **io),
+                 "SizeFilterWorkflow background", vox, card, walls)
+    discard = np.load(os.path.join(mc_tmp, SIZE_FILTER_DISCARD_NAME)).astype(np.uint64)
+    if not np.array_equal(discard, frag[sizes < min_size]):
+        raise AssertionError("size filter: the discarded ids are not the fragments under min_size")
+    log(f"size filter: min_size {min_size} (the {MIN_SIZE_PERCENTILE}th percentile of the "
+        f"fragment sizes) discards {discard.size} of {frag.size} fragments "
+        f"({discard.size / frag.size:.4f}), {int(sizes[sizes < min_size].sum())} voxels")
+    t0 = time.perf_counter()
+    zero_discard = np.stack([discard, np.zeros_like(discard)], axis=1)
+    check_applied(ws, read_volume(f["sf_background"], blocking), zero_discard, blocking,
+                  "SizeFilterWorkflow background", identity=True)
+    log(f"size filter background: no discarded id left, kept voxels unchanged (checked in "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # the filling filter: kernel 3 and the 3d flood on the card
+    reset_counts(cuda_flood.flood_tiles_warm, cuda_flood.flood_volume)
+    os.environ["CTT_FLOOD_TILE"] = FLOOD_TILE
+    try:
+        run_workflow(SizeFilterWorkflow(mc_tmp, config_dir, output_key="sf_filled",
+                                        min_size=min_size, hmap_path=path, hmap_key="raw",
+                                        relabel=True, **io),
+                     "SizeFilterWorkflow filling", vox, card, walls)
+    finally:
+        del os.environ["CTT_FLOOD_TILE"]
+    launches = {"flood_tiles_warm": cuda_flood.flood_tiles_warm.launches,
+                "flood_volume": cuda_flood.flood_volume.launches}
+    unit_discard = (discard - np.uint64(1)) // np.uint64(unit)
+    with_discard = np.unique(unit_discard).astype(np.int64)
+    if launches != {"flood_tiles_warm": with_discard.size, "flood_volume": with_discard.size}:
+        raise AssertionError(f"filling filter: launches {launches}, not one each per block with "
+                             f"discarded ids ({with_discard.size})")
+    log(f"filling filter: launches {launches}, one each per block with discarded ids "
+        f"({with_discard.size} of {blocking.n_blocks})")
+    t0 = time.perf_counter()
+    filled = read_volume(f["sf_filled_unrelabeled"], blocking)
+    if np.isin(filled, discard).any():
+        raise AssertionError("filling filter: a discarded id is left")
+    kept = (ws > 0) & ~np.isin(ws, discard)
+    if not np.array_equal(filled[kept], ws[kept]):
+        raise AssertionError("filling filter: kept voxels changed their ids")
+    table = np.load(os.path.join(mc_tmp, LABELING_NAME))
+    if not np.array_equal(table[:, 1], np.arange(1, table.shape[0] + 1, dtype=np.uint64)):
+        raise AssertionError("filling filter: the relabelling is not consecutive")
+    check_applied(filled, read_volume(f["sf_filled"], blocking), table, blocking,
+                  "SizeFilterWorkflow filling (relabel)")
+    task = FillingSizeFilterTask(
+        mc_tmp, config_dir, input_path=path, input_key="ws", output_path=path,
+        output_key="sf_filled_plain", hmap_path=path, hmap_key="raw",
+        res_path=os.path.join(mc_tmp, SIZE_FILTER_DISCARD_NAME))
+    config = {**task.global_config(), **task.get_task_config()}
+    task.prepare(blocking, config)
+    checks = sorted({int(with_discard[0]), int(with_discard[-1])})
+    with plain_kernels():
+        for bid in checks:
+            task.process_block(bid, blocking, config)
+    torch.cuda.synchronize()
+    for bid in checks:
+        bb = blocking.block(bid).slicing
+        if not np.array_equal(f["sf_filled_plain"][bb], filled[bb]):
+            raise AssertionError(f"filling filter block {bid}: the plain flood differs")
+    log(f"filling filter: no discarded id left, {int(kept.sum())} kept voxels keep their ids, "
+        f"the output relabelled to 1..{table.shape[0]}; blocks {checks} re-run through the "
+        f"plain flood on the card byte-identical (checked in {time.perf_counter() - t0:.1f} s)")
+    kernels = filling_kernels(cut_np, ws, discard, blocking, int(checks[0]), launches, card)
+
+    graph = GraphWorkflow(mc_tmp, config_dir, input_path=path, input_key="ws")
+    feats = EdgeFeaturesWorkflow(mc_tmp, config_dir, input_path=path, input_key="raw",
+                                 labels_path=path, labels_key="ws", dependencies=[graph])
+    run_workflow(ProbsToCostsTask(mc_tmp, config_dir, dependencies=[feats]),
+                 "problem (graph, boundary features, costs)", vox, card, walls)
+
+    run_workflow(SizeFilterAndGraphWatershedWorkflow(mc_tmp, config_dir, output_key="sf_graph_ws",
+                                                     min_size=min_size, **io),
+                 "SizeFilterAndGraphWatershedWorkflow", vox, card, walls)
+    t0 = time.perf_counter()
+    gtable = np.load(os.path.join(mc_tmp, GRAPH_WS_NAME))
+    check_applied(ws, read_volume(f["sf_graph_ws"], blocking), gtable, blocking,
+                  "SizeFilterAndGraphWatershedWorkflow", identity=True)
+    nodes, edges = load_graph(file_reader(os.path.join(mc_tmp, "data.zarr"), "r"))
+    if not np.array_equal(gtable[:, 0], nodes):
+        raise AssertionError("graph watershed: the table's rows are not the graph's nodes")
+    final = gtable[:, 1]
+    same = final[edges[:, 0]] == final[edges[:, 1]]
+    has_same = np.zeros(nodes.size, bool)
+    has_same[edges[same, 0]] = True
+    has_same[edges[same, 1]] = True
+    moved = np.isin(nodes, discard) & (final != 0) & (final != nodes)
+    if not moved.any() or not has_same[moved].all():
+        raise AssertionError("graph watershed: a reassigned fragment has no RAG neighbour with "
+                             "its new id")
+    log(f"graph watershed: {int(moved.sum())} of {discard.size} discarded fragments reassigned, "
+        f"each to the id of a RAG neighbour; the output is its table applied to the watershed "
+        f"(checked in {time.perf_counter() - t0:.1f} s)")
+
+    drop = frag[::10]
+    run_workflow(FilterLabelsWorkflow(os.path.join(work, "tmp_filter_labels"), config_dir,
+                                      output_key="filter_labels", filter_labels=drop.tolist(),
+                                      **io), "FilterLabelsWorkflow", vox, card, walls)
+    check_applied(ws, read_volume(f["filter_labels"], blocking),
+                  np.stack([drop, np.zeros_like(drop)], axis=1), blocking,
+                  "FilterLabelsWorkflow", identity=True)
+
+    def block_means(bid):
+        bb = blocking.block(bid).slicing
+        local = local_ids(ws[bb], bid, unit).reshape(-1)
+        s = np.bincount(local, weights=cut_np[bb].reshape(-1).astype(np.float64),
+                        minlength=unit + 1)
+        c = np.bincount(local, minlength=unit + 1)
+        return s[1:][c[1:] > 0] / c[1:][c[1:] > 0]
+
+    threshold = float(np.median(np.concatenate(over_blocks(block_means, blocking))))
+    tmp = os.path.join(work, "tmp_filter_threshold")
+    run_workflow(FilterByThresholdWorkflow(tmp, config_dir, input_path=path, input_key="raw",
+                                           seg_path=path, seg_key="ws", output_path=path,
+                                           output_key="filter_threshold", threshold=threshold,
+                                           threshold_mode="less", feature="mean"),
+                 "FilterByThresholdWorkflow", vox, card, walls)
+    ids = np.load(os.path.join(tmp, "feature_filter_ids.npy")).astype(np.uint64)
+    check_applied(ws, read_volume(f["filter_threshold"], blocking),
+                  np.stack([ids, np.zeros_like(ids)], axis=1), blocking,
+                  "FilterByThresholdWorkflow", identity=True)
+    log(f"feature filter: mean boundary value under {threshold:.6g} (the fragments' median) "
+        f"drops {ids.size} of {frag.size}; FilterLabelsWorkflow drops {drop.size}; each output "
+        f"is its table applied to the watershed")
+
+    for tag, cls, name, key in (
+            ("FilterOrphansWorkflow", FilterOrphansWorkflow, ORPHANS_NAME, "orphans"),
+            ("ConnectedComponentsWorkflow", ConnectedComponentsWorkflow, GRAPH_CC_NAME, "graph_cc")):
+        run_workflow(cls(mc_tmp, config_dir, output_key=key, **io), tag, vox, card, walls)
+        table = np.load(os.path.join(mc_tmp, name))
+        check_applied(ws, read_volume(f[key], blocking), table, blocking, tag, identity=True)
+        log(f"{tag}: {len(np.unique(table[:, 1]))} ids for {table.shape[0]} nodes, "
+            f"{int((table[:, 0] != table[:, 1]).sum())} changed; the output is its table "
+            f"applied to the watershed")
+    return {"walls": walls, "shape": shape, "kernels": kernels, "launches": launches}
+
+
+def filling_kernels(cut_np, ws, discard, blocking, bid: int, launches: dict, card: str) -> list:
+    """Kernel 3 and the 3d flood timed on the card at the filling filter's
+    call: block ``bid`` (un-halo'd), its kept fragments as compact int32
+    seeds, the boundary map as height map, tile ``FLOOD_TILE``; against
+    their plain versions on the same inputs.  Bounds: bytes (f32 height
+    map, i32 seeds, byte mask in; f32 altitudes, or i32 labels, out; the 3d
+    flood also reads the f32 warm start) over 3.35 TB/s."""
+    from cluster_tools_tpu_torch.ops import cuda_flood
+    from cluster_tools_tpu_torch.ops.watershed import resolve_flood_tile
+
+    bb = blocking.block(bid).slicing
+    labels = ws[bb].copy()
+    labels[np.isin(labels, discard)] = 0
+    uniq = np.unique(labels)
+    h = torch.from_numpy(np.ascontiguousarray(cut_np[bb], dtype=np.float32)).cuda()[None]
+    s = torch.from_numpy(np.searchsorted(uniq, labels).astype(np.int32)).cuda()[None]
+    m = torch.ones_like(h, dtype=torch.bool)
+    os.environ["CTT_FLOOD_TILE"] = FLOOD_TILE
+    tile = resolve_flood_tile(h.shape[1:])[1:]
+    del os.environ["CTT_FLOOD_TILE"]
+    hw = h.shape[2:]
+    flat = [t.view((-1,) + hw) for t in (h, s, m)]
+    before = cuda_flood.flood_tiles_warm.launches, cuda_flood.flood_volume.launches
+    warm = cuda_flood.flood_tiles_warm(*flat, tile)
+    if not torch.equal(warm, cuda_flood.flood_tiles_warm_plain(*flat, tile)):
+        raise AssertionError("filling filter: kernel 3 differs from its plain version")
+    warm = warm.view(h.shape)
+    got = cuda_flood.flood_volume(h, s, m, warm=warm)
+    if not torch.equal(got, cuda_flood.flood_volume_plain(h, s, m, warm=warm)):
+        raise AssertionError("filling filter: the 3d flood differs from its plain version")
+    k3_ms = cuda_ms(lambda: cuda_flood.flood_tiles_warm(*flat, tile), 5)
+    fv_ms = cuda_ms(lambda: cuda_flood.flood_volume(h, s, m, warm=warm), 5)
+    k3_plain = cuda_ms(lambda: cuda_flood.flood_tiles_warm_plain(*flat, tile), 1)
+    fv_plain = cuda_ms(lambda: cuda_flood.flood_volume_plain(h, s, m, warm=warm), 1)
+    cuda_flood.flood_tiles_warm.launches, cuda_flood.flood_volume.launches = before
+    vox = h.numel()
+    records = [
+        {"name": "flood_tiles_warm", "shape": list(h.shape), "tile": list(tile),
+         "launches": launches["flood_tiles_warm"], "ms": k3_ms, "plain_ms": k3_plain,
+         "bound_ms": 13 * vox / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None},
+        {"name": "flood_volume", "shape": list(h.shape), "launches": launches["flood_volume"],
+         "ms": fv_ms, "plain_ms": fv_plain, "bound_ms": 17 * vox / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes", "library_ms": None},
+    ]
+    for rec in records:
+        log(f"filling filter kernel on {card}: {rec}")
+    return records
+
+
+def stitching_phase(cut_np, path: str, work: str, card: str, bk: dict) -> dict:
+    """Phase 20: ``SimpleStitchingWorkflow`` (its own tmp folder: graph,
+    boundary edges, merge) and ``MulticutStitchingWorkflow`` (phase 18's tmp
+    folder: graph and edge features reused; beta 0.5 on the boundary edges,
+    0.75 inside) on phase 18's watershed with the boundary map.  Gates:
+    each output is its table applied to the watershed, with 1 < segments <
+    fragments; the simple stitch's segments are the components of the
+    fragment pairs that touch across a block face (numpy over the face
+    planes, scipy's graph components), so every merged pair touches across
+    a face.  Printed: the face agreement per axis."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from cluster_tools_tpu_torch.tasks.stitching import SIMPLE_STITCH_NAME, STITCH_MC_NAME
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+    from cluster_tools_tpu_torch.workflows import MulticutStitchingWorkflow, SimpleStitchingWorkflow
+
+    shape = cut_np.shape
+    vox = int(np.prod(shape))
+    blocking = Blocking(shape, BLOCK)
+    ws, frag = bk["ws"], bk["frag"]
+    config_dir = bk["config_dir"]
+    f = file_reader(path, "r")
+    walls, agree = {}, {}
+    io = {"input_path": path, "input_key": "raw", "labels_path": path, "labels_key": "ws",
+          "output_path": path}
+    runs = (("SimpleStitchingWorkflow", SimpleStitchingWorkflow, os.path.join(work, "tmp_stitch"),
+             SIMPLE_STITCH_NAME, "stitch_simple"),
+            ("MulticutStitchingWorkflow", MulticutStitchingWorkflow, bk["tmp"], STITCH_MC_NAME,
+             "stitch_mc"))
+    for tag, cls, tmp, name, key in runs:
+        run_workflow(cls(tmp, config_dir, output_key=key, **io), tag, vox, card, walls)
+        t0 = time.perf_counter()
+        table = np.load(os.path.join(tmp, name))
+        out = read_volume(f[key], blocking)
+        check_applied(ws, out, table, blocking, tag)
+        seg = table[np.isin(table[:, 0], frag), 1]
+        n_seg = len(np.unique(seg))
+        if not 1 < n_seg < frag.size:
+            raise AssertionError(f"{tag}: {n_seg} segments of {frag.size} fragments")
+        agree[tag] = [face_agreement(out, [axis]) for axis in range(3)]
+        if tag.startswith("Simple"):
+            pairs = []
+            for axis in range(3):
+                for pos in range(BLOCK[axis], shape[axis], BLOCK[axis]):
+                    a, b = np.take(ws, pos - 1, axis), np.take(ws, pos, axis)
+                    sel = (a > 0) & (b > 0) & (a != b)
+                    pairs.append(np.stack([a[sel], b[sel]], axis=1))
+            pairs = np.unique(np.concatenate(pairs), axis=0)
+            idx = np.searchsorted(frag, pairs)
+            n = frag.size
+            graph = coo_matrix((np.ones(len(idx)), (idx[:, 0], idx[:, 1])), shape=(n, n))
+            _, comp = connected_components(graph, directed=False)
+            by_frag = table[np.searchsorted(table[:, 0], frag), 1]
+            key_pairs = np.unique(np.stack([comp, by_frag], axis=1), axis=0)
+            if not len(key_pairs) == len(np.unique(comp)) == len(np.unique(by_frag)):
+                raise AssertionError(f"{tag}: the segments are not the components of the "
+                                     "fragments touching across block faces")
+            log(f"{tag}: {pairs.shape[0]} fragment pairs touch across block faces; the segments "
+                f"are their components")
+        log(f"{tag}: {n_seg} segments of {frag.size} fragments; the output is its table applied "
+            f"to the watershed; face agreement (z, y, x) {agree[tag]} (checked in "
+            f"{time.perf_counter() - t0:.1f} s)")
+    return {"walls": walls, "shape": shape, "agree": agree}
+
+
+@contextlib.contextmanager
+def failed_blocks_printed(work: str):
+    """On any failure inside, print the failed-block tracebacks of every
+    task log under ``work`` (the folder is gone afterwards), then raise."""
+    try:
+        yield
+    except Exception:
+        log_failed_blocks(work)
+        raise
+
+
 def log_failed_blocks(work: str) -> None:
     """The failed-block tracebacks of every task log under ``work``."""
     import glob
@@ -3072,6 +3690,29 @@ def log_failed_blocks(work: str) -> None:
         at = text.find("failed: ")
         if at >= 0:
             log(f"--- {os.path.basename(path)}:\n{text[max(0, at - 200):at + 6000]}")
+
+
+def label_phases(cut_np, path: str, ws_path: str, work: str, card: str, mc: dict,
+                 t_start: float) -> dict:
+    """Phases 18-20 on the first planes of phase 3's watershed
+    (``ws_path/ws``) and phase 8 run 1's segmentation; their walls, the
+    filling filter's kernel records, and the phases' seconds."""
+    t0 = time.perf_counter()
+    phase_start(18, t_start)
+    bk = bookkeeping_phase(cut_np, path, ws_path, work, card, mc)
+    phase_start(19, t_start)
+    pp = postprocess_phase(cut_np, path, work, card, bk)
+    phase_start(20, t_start)
+    st = stitching_phase(cut_np, path, work, card, bk)
+    seconds = time.perf_counter() - t0
+    log(f"phases 18-20 done at {time.perf_counter() - t_start:.1f} s ({seconds:.1f} s)")
+    return {"walls": {**bk["walls"], **pp["walls"], **st["walls"]}, "kernels": pp["kernels"],
+            "seconds": seconds}
+
+
+def phase_start(name, t_start: float) -> None:
+    """A flushed line before each phase: where a hang happened shows."""
+    log(f"phase {name} start at {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -3092,12 +3733,18 @@ def main() -> int:
     ap.add_argument("--mws-scaling", action="store_true",
                     help="only the device MWS's rounds and round cost on growing centres of a "
                          "halo'd block, up to the whole block (no build, no result line)")
+    ap.add_argument("--label-phases", action="store_true",
+                    help="only the build, the volume, phases 3 and 8 and phases 18-20 (no "
+                         "result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from cluster_tools_tpu_torch.ops import _build
 
+    # a hang shows where it is: every thread's stack, once, if the script
+    # still runs after STACK_DUMP_S (it only prints)
+    faulthandler.dump_traceback_later(STACK_DUMP_S, exit=False)
     t_start = time.perf_counter()
     card = card_line()
     log(card)
@@ -3105,7 +3752,9 @@ def main() -> int:
     if args.mws_scaling:
         log(json.dumps({"mws_scaling": mws_scaling_phase(card, torch.device("cuda"), args.seed)}))
         log(f"script: {time.perf_counter() - t_start:.1f} s")
+        faulthandler.cancel_dump_traceback_later()
         return 0
+    phase_start(1, t_start)
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"setup: built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
@@ -3125,83 +3774,118 @@ def main() -> int:
         vol_np = vol.cpu().numpy()
         del vol
         torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work, \
+                failed_blocks_printed(work):
             t0 = time.perf_counter()
-            try:
-                fb = filter_bank_phase(vol_np, work, card, quantile_mode=None)
-            except Exception:
-                log_failed_blocks(work)
-                raise
+            fb = filter_bank_phase(vol_np, work, card, quantile_mode=None)
             log(f"phase 16 (exact merge): {time.perf_counter() - t0:.1f} s; walls {fb['walls']}")
         log(f"script: {time.perf_counter() - t_start:.1f} s")
+        faulthandler.cancel_dump_traceback_later()
         return 0
-    records = kernel_phase(vol, dev, args.batch)
-    records.update(cc_kernel_phase(vol, dev, args.batch, args.compare))
-    records.update(flood3d_kernel_phase(vol, dev, args.compare))
-    log(f"phases 1-5 done at {time.perf_counter() - t_start:.1f} s")
+    if not args.label_phases:
+        phase_start(2, t_start)
+        records = kernel_phase(vol, dev, args.batch)
+        records.update(cc_kernel_phase(vol, dev, args.batch, args.compare))
+        phase_start(5, t_start)
+        records.update(flood3d_kernel_phase(vol, dev, args.compare))
+        log(f"phases 1-5 done at {time.perf_counter() - t_start:.1f} s")
     if args.kernels_only:
         log("kernels only: no workflow run")
+        faulthandler.cancel_dump_traceback_later()
         return 0
     vol_np = vol.cpu().numpy()
     del vol
     torch.cuda.empty_cache()
-    # phases 6 and 10 run on the first EARLY_Z planes so that the later
-    # phases fit the time limit; the rest on the whole
+    # phases 18-20 run on the first EARLY_Z planes, 4, 6, 7, 9, 10, 14 and 15
+    # on the first SHALLOW_Z, so that the script fits its time; 3, 8, 11 and
+    # 12's affinities on the whole
     cut_np = vol_np[:EARLY_Z]
+    shallow_np = vol_np[:SHALLOW_Z]
     from scipy import ndimage
 
     from cluster_tools_tpu_torch.utils import file_reader
 
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work, \
+            failed_blocks_printed(work):
         path = os.path.join(work, "cremi_a.n5")
         cut_path = os.path.join(work, "cremi_a_cut.n5")
+        shallow_path = os.path.join(work, "cremi_a_shallow.n5")
         t0 = time.perf_counter()
         file_reader(path).create_dataset("raw", data=vol_np, chunks=BLOCK, compression="raw")
         file_reader(cut_path).create_dataset("raw", data=cut_np, chunks=BLOCK, compression="raw")
-        log(f"setup: wrote {vol_np.shape} and {cut_np.shape} raw n5 in "
-            f"{time.perf_counter() - t0:.1f} s")
+        file_reader(shallow_path).create_dataset("raw", data=shallow_np, chunks=BLOCK,
+                                                 compression="raw")
+        log(f"setup: wrote the raw n5 in {time.perf_counter() - t0:.1f} s")
+        if args.label_phases:
+            phase_start(3, t_start)
+            workflow_phase(vol_np, path, work, card)
+            phase_start(8, t_start)
+            mc = multicut_phase(vol_np, path, work, card)
+            slice_walls = label_phases(cut_np, cut_path, path, work, card, mc, t_start)
+            log(f"label phases: {slice_walls}")
+            log(f"script: {time.perf_counter() - t_start:.1f} s")
+            faulthandler.cancel_dump_traceback_later()
+            return 0
+        phase_start(3, t_start)
         launches, wall, rate = workflow_phase(vol_np, path, work, card)
+        phase_start(4, t_start)
         t0 = time.perf_counter()
-        fg = vol_np < THRESHOLD
+        fg = shallow_np < THRESHOLD
         ref, n_ref = ndimage.label(fg)
-        log(f"setup: scipy labelled vol < {THRESHOLD}: {n_ref} components in "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"setup: scipy labelled vol < {THRESHOLD} on the first {SHALLOW_Z} planes: {n_ref} "
+            f"components in {time.perf_counter() - t0:.1f} s")
         rates = {}
         for block, kernel in ((BLOCK, "cc_slices"), (BLOCK_WIDE, "cc_tiles")):
             cc_launches, cc_wall, cc_rate = components_phase(
-                path, work, block, card, fg, ref, n_ref, kernel)
+                shallow_path, work, block, card, fg, ref, n_ref, kernel)
             launches[kernel] = cc_launches[kernel]
             rates[block] = (cc_wall, cc_rate)
         del ref, fg
-        cache_budget_phase(path, work, BLOCK)
+        cache_budget_phase(shallow_path, work, BLOCK)
         log(f"phases 3-4 done at {time.perf_counter() - t_start:.1f} s")
-        seed_launches, seeds_wall, seeds_rate = seeds_phase(cut_np, cut_path, work, card)
+        phase_start(6, t_start)
+        seed_launches, seeds_wall, seeds_rate = seeds_phase(shallow_np, shallow_path, work, card)
         for name in ("flood_tiles_warm", "flood_volume"):
             launches[name] = seed_launches[name]
-        ws3d_wall, ws3d_rate = ws3d_phase(vol_np, path, work, card)
+        phase_start(7, t_start)
+        ws3d_wall, ws3d_rate = ws3d_phase(shallow_np, shallow_path, work, card)
         log(f"phases 6-7 done at {time.perf_counter() - t_start:.1f} s")
+        phase_start(8, t_start)
         mc = multicut_phase(vol_np, path, work, card)
         log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
-        agglo_launches, agglo_wall, agglo_rate = agglomeration_phase(vol_np, path, work, card)
+        phase_start(9, t_start)
+        agglo_launches, agglo_wall, agglo_rate = agglomeration_phase(
+            shallow_np, shallow_path, work, card, ws_path=path)
+        phase_start(10, t_start)
         tp_launches, tp_wall, tp_rate = two_pass_phase(
-            cut_np, cut_path, work, card, file_reader(path, "r")["ws"][:EARLY_Z])
+            shallow_np, shallow_path, work, card, file_reader(path, "r")["ws"][:SHALLOW_Z])
+        phase_start(11, t_start)
         ac_wall, ac_rate = clustering_phase(vol_np, path, work, card, mc)
         log(f"phases 9-11 done at {time.perf_counter() - t_start:.1f} s")
+        phase_start(12, t_start)
         mws = mws_phase(vol_np, work, card, dev)
         log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+        phase_start("12b", t_start)
         device_mws = device_mws_phase(mws["affs"], card, dev)
         log(f"phase 12b done at {time.perf_counter() - t_start:.1f} s")
+        phase_start(13, t_start)
         tp_mws = two_pass_mws_phase(mws["affs"], mws["path"], work, card, dev,
                                     min(TWO_PASS_MWS_Z, vol_np.shape[0]))
         log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
-        mc_aff = affinity_multicut_phase(mws["affs"], work, card)
+        phase_start(14, t_start)
+        mc_aff = affinity_multicut_phase(mws["affs"][:, :SHALLOW_Z], work, card)
         log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+        phase_start(15, t_start)
         sol_walls = solutions_phase(mc_aff, card)
         log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
+        phase_start(16, t_start)
         fb = filter_bank_phase(vol_np, work, card)
         log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
-        at = affinity_tasks_phase(mws["affs"], vol_np, cut_path, work, card)
+        phase_start(17, t_start)
+        at = affinity_tasks_phase(mws["affs"], vol_np, shallow_path, work, card)
         log(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
+        slice_walls = label_phases(cut_np, cut_path, path, work, card, mc, t_start)
+        phase_start(21, t_start)
         slice_records = slice_device_functions(fb, at, card)
     for name, rec in records.items():
         rec["launches"] = launches[name]
@@ -3210,18 +3894,18 @@ def main() -> int:
             f"({rec['bound_by']}), max abs err {rec['max_abs_err']}")
     log(f"{card}: WatershedWorkflow {vol_np.shape} {rate:.6g} voxels/s ({wall:.3f} s)")
     for block, (cc_wall, cc_rate) in rates.items():
-        log(f"{card}: ThresholdedComponentsWorkflow {vol_np.shape} blocks {block} "
+        log(f"{card}: ThresholdedComponentsWorkflow {shallow_np.shape} blocks {block} "
             f"{cc_rate:.6g} voxels/s ({cc_wall:.3f} s)")
-    log(f"{card}: ThresholdAndWatershedWorkflow {cut_np.shape} {seeds_rate:.6g} voxels/s "
+    log(f"{card}: ThresholdAndWatershedWorkflow {shallow_np.shape} {seeds_rate:.6g} voxels/s "
         f"({seeds_wall:.3f} s)")
-    log(f"{card}: WatershedWorkflow 3d {vol_np.shape} {ws3d_rate:.6g} voxels/s ({ws3d_wall:.3f} s)")
+    log(f"{card}: WatershedWorkflow 3d {shallow_np.shape} {ws3d_rate:.6g} voxels/s ({ws3d_wall:.3f} s)")
     for tag, wall in mc["walls"].items():
         log(f"{card}: MulticutSegmentationWorkflow {tag} {vol_np.shape} "
             f"{int(np.prod(vol_np.shape)) / wall:.6g} voxels/s ({wall:.3f} s)")
     log(f"multicut run 1 kernel launches {mc['launches']}")
-    log(f"{card}: WatershedWorkflow agglomeration {vol_np.shape} {agglo_rate:.6g} voxels/s "
+    log(f"{card}: WatershedWorkflow agglomeration {shallow_np.shape} {agglo_rate:.6g} voxels/s "
         f"({agglo_wall:.3f} s); kernel launches {agglo_launches}")
-    log(f"{card}: WatershedWorkflow two-pass {cut_np.shape} {tp_rate:.6g} voxels/s "
+    log(f"{card}: WatershedWorkflow two-pass {shallow_np.shape} {tp_rate:.6g} voxels/s "
         f"({tp_wall:.3f} s); kernel launches {tp_launches}")
     log(f"{card}: AgglomerativeClusteringWorkflow {vol_np.shape} {ac_rate:.6g} voxels/s "
         f"({ac_wall:.3f} s, graph and features reused)")
@@ -3238,8 +3922,13 @@ def main() -> int:
     for tag, wall in {**fb["walls"], **at["walls"]}.items():
         shape = fb["shape"] if tag in fb["walls"] else at["shape"]
         log(f"{card}: {tag} {shape} {int(np.prod(shape)) / wall:.6g} voxels/s ({wall:.3f} s)")
+    for tag, wall in slice_walls["walls"].items():
+        log(f"{card}: {tag} {cut_np.shape} {int(np.prod(cut_np.shape)) / wall:.6g} voxels/s "
+            f"({wall:.3f} s)")
+    faulthandler.cancel_dump_traceback_later()
     log(f"script: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"device_functions": [mc["accumulator"], device_mws] + slice_records}))
+    log(json.dumps({"filling_filter_kernels": slice_walls["kernels"]}))
     log(json.dumps({"kernels": [records[k] for k in (
         "flood_slices", "dtws_slices", "flood_tiles_warm", "cc_slices", "cc_tiles",
         "flood_volume")]}))

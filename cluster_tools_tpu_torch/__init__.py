@@ -8,7 +8,9 @@ and ``ThresholdAndWatershedWorkflow`` with the 3d seeded flood, and
 costs → hierarchical GAEC multicut → write), the two-pass and agglomerating
 branches of ``WatershedWorkflow``, ``AgglomerativeClusteringWorkflow``, and the
 mutex watershed's ``MwsWorkflow`` (blockwise MWS, face stitching) and
-``TwoPassMwsWorkflow``; all five TPU kernels are
+``TwoPassMwsWorkflow``, and the label bookkeeping, postprocessing and graph
+stitching workflows (``workflows/relabel.py``, ``morphology.py``,
+``postprocessing.py``, ``stitching.py``); all five TPU kernels are
 hand-written CUDA for Hopper (``csrc/``), built with ``nvcc`` at first use,
 the multicut and mutex-watershed solvers C++ built with ``g++`` at first
 use (``native/``), the device MWS plain PyTorch (``ops/mws_device.py``).

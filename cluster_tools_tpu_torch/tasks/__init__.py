@@ -11,9 +11,30 @@ from .multicut import (
     SolveSubproblemsTask,
     SubSolutionsTask,
 )
+from .morphology import BlockMorphologyTask, MergeMorphologyTask, RegionCentersTask
 from .mws import MwsBlocksTask, TwoPassMwsTask
+from .node_labels import BlockNodeLabelsTask, MergeNodeLabelsTask
+from .postprocess import (
+    BackgroundSizeFilterTask,
+    FillingSizeFilterTask,
+    FilterBlocksTask,
+    GraphConnectedComponentsTask,
+    GraphWatershedAssignmentsTask,
+    IdFilterTask,
+    OrphanAssignmentsTask,
+    SizeFilterTask,
+)
 from .region_features import ImageFilterTask, MergeRegionFeaturesTask, RegionFeaturesTask
-from .stitching import STITCH_ASSIGNMENTS_NAME, StitchAssignmentsTask, StitchFacesTask
+from .relabel import FindLabelingTask, FindUniquesTask, MergeUniquesTask
+from .stitching import (
+    STITCH_ASSIGNMENTS_NAME,
+    SimpleStitchAssignmentsTask,
+    SimpleStitchEdgesTask,
+    StitchAssignmentsTask,
+    StitchFacesTask,
+    StitchingMulticutTask,
+)
+from .threshold import ThresholdTask
 from .thresholded_components import (
     BlockComponentsTask,
     BlockFacesTask,
@@ -32,14 +53,20 @@ from .write import WriteTask
 
 __all__ = [
     "AGGLO_ASSIGNMENTS_NAME", "AgglomerateTask", "AgglomerativeClusteringTask",
-    "BlockComponentsTask", "BlockEdgeFeaturesTask", "BlockFacesTask", "CheckComponentsTask",
-    "CheckSubGraphsTask", "EmbeddingDistancesTask", "GradientsTask", "ImageFilterTask",
-    "InitialSubGraphsTask", "InsertAffinitiesTask",
+    "BackgroundSizeFilterTask", "BlockComponentsTask", "BlockEdgeFeaturesTask",
+    "BlockFacesTask", "BlockMorphologyTask", "BlockNodeLabelsTask", "CheckComponentsTask",
+    "CheckSubGraphsTask", "EmbeddingDistancesTask", "FillingSizeFilterTask",
+    "FilterBlocksTask", "FindLabelingTask", "FindUniquesTask", "GradientsTask",
+    "GraphConnectedComponentsTask", "GraphWatershedAssignmentsTask", "IdFilterTask",
+    "ImageFilterTask", "InitialSubGraphsTask", "InsertAffinitiesTask",
     "MAX_IDS_KEY", "MapEdgeIdsTask", "MergeAssignmentsTask", "MergeEdgeFeaturesTask",
-    "MergeOffsetsTask", "MergeRegionFeaturesTask", "MergeScaleSubGraphsTask",
-    "MergeSubGraphsTask", "MwsBlocksTask", "ProbsToCostsTask", "ReduceProblemTask",
-    "ReducedAssignmentsTask", "RegionFeaturesTask", "STITCH_ASSIGNMENTS_NAME",
-    "SolveGlobalTask", "SolveSubproblemsTask", "StitchAssignmentsTask", "StitchFacesTask",
-    "SubSolutionsTask", "TwoPassMwsTask", "TwoPassWatershedTask",
+    "MergeMorphologyTask", "MergeNodeLabelsTask", "MergeOffsetsTask",
+    "MergeRegionFeaturesTask", "MergeScaleSubGraphsTask", "MergeSubGraphsTask",
+    "MergeUniquesTask", "MwsBlocksTask", "OrphanAssignmentsTask", "ProbsToCostsTask",
+    "ReduceProblemTask", "ReducedAssignmentsTask", "RegionCentersTask",
+    "RegionFeaturesTask", "STITCH_ASSIGNMENTS_NAME", "SimpleStitchAssignmentsTask",
+    "SimpleStitchEdgesTask", "SizeFilterTask", "SolveGlobalTask", "SolveSubproblemsTask",
+    "StitchAssignmentsTask", "StitchFacesTask", "StitchingMulticutTask", "SubSolutionsTask",
+    "ThresholdTask", "TwoPassMwsTask", "TwoPassWatershedTask",
     "WatershedFromSeedsTask", "WatershedTask", "WriteTask", "kernel_params",
 ]

@@ -1,5 +1,6 @@
-"""Stitching of block-wise segmentations by face overlaps (port of the
-mutual-max part of ``cluster_tools_tpu/tasks/stitching.py``).
+"""Stitching of block-wise segmentations (port of
+``cluster_tools_tpu/tasks/stitching.py``), by face overlaps or over the
+region graph.
 
 Each block saves its labelling of its halo'd outer region
 (``save_block_overlap``).  For the face between blocks A and B, A's and B's
@@ -9,6 +10,11 @@ boundary plane, and the mean normalised overlap exceeds
 ``overlap_threshold``.  ``StitchAssignmentsTask`` joins the votes by
 union-find into an (id, merged id) table that ``WriteTask`` applies with
 ``table_default="identity"``.
+
+Over the graph, ``SimpleStitchEdgesTask`` marks the edges whose endpoints
+touch across a block face; ``SimpleStitchAssignmentsTask`` merges all of
+them (above an edge-size threshold) and ``StitchingMulticutTask`` solves a
+multicut with one beta for them and another for the inner edges.
 """
 
 from __future__ import annotations
@@ -162,3 +168,172 @@ class StitchAssignmentsTask(VolumeSimpleTask):
         )
         np.save(path, table)
         self.log(f"stitching merged {ids.size} voted ids")
+
+
+BOUNDARY_EDGES_KEY = "stitching/boundary_edges"
+SIMPLE_STITCH_NAME = "simple_stitch_assignments.npy"
+STITCH_MC_NAME = "stitching_multicut_assignments.npy"
+
+
+class SimpleStitchEdgesTask(VolumeTask):
+    """Mark graph edges whose endpoints touch across a block boundary
+    (reference simple_stitch_edges.py:23 via ndist.findBlockBoundaryEdges).
+
+    ``input_path/key`` is the (block-offset) label volume the graph was
+    extracted from; per block, every touching label pair on a lower face is
+    looked up in the global edge list and its dense edge id recorded."""
+
+    task_name = "simple_stitch_edges"
+    output_dtype = None
+    _graph_cache = None
+
+    def _graph(self):
+        if self._graph_cache is None:  # once per task, not once per block
+            from .graph import load_graph
+
+            self._graph_cache = load_graph(self.tmp_store())
+        return self._graph_cache
+
+    def process_block(self, block_id: int, blocking: Blocking, config):
+        nodes, edges = self._graph()
+        labels_ds = self.input_ds()
+        pairs = []
+        for axis, ngb_id, face in blocking.iterate_faces(block_id, halo=1):
+            slab = np.asarray(labels_ds[face.slicing])
+            lo, hi = np.split(slab, 2, axis=axis)
+            both = (lo > 0) & (hi > 0) & (lo != hi)
+            if not both.any():
+                continue
+            a = lo[both]
+            b = hi[both]
+            pairs.append(np.unique(np.stack([a, b], axis=1), axis=0))
+        out = self.tmp_ragged(BOUNDARY_EDGES_KEY, blocking.n_blocks, np.int64)
+        if not pairs:
+            out.write_chunk((block_id,), np.zeros(0, dtype=np.int64))
+            return
+        uv = np.unique(np.concatenate(pairs, axis=0), axis=0)
+        # labels → dense node ids → edge ids (edges are sorted lex)
+        du = np.searchsorted(nodes, uv[:, 0])
+        dv = np.searchsorted(nodes, uv[:, 1])
+        ok = (du < nodes.size) & (dv < nodes.size)
+        ok &= nodes[np.clip(du, 0, nodes.size - 1)] == uv[:, 0]
+        ok &= nodes[np.clip(dv, 0, nodes.size - 1)] == uv[:, 1]
+        duv = np.stack([du[ok], dv[ok]], axis=1)
+        duv.sort(axis=1)
+        # lookup in the sorted edge table
+        edge_keys = edges[:, 0] * (edges.max() + 1) + edges[:, 1]
+        q = duv[:, 0] * (edges.max() + 1) + duv[:, 1]
+        pos = np.searchsorted(edge_keys, q)
+        found = pos < edge_keys.size
+        found &= edge_keys[np.clip(pos, 0, edge_keys.size - 1)] == q
+        out.write_chunk((block_id,), pos[found].astype(np.int64))
+
+
+class SimpleStitchAssignmentsTask(VolumeSimpleTask):
+    """Merge every block-boundary edge above the edge-size threshold
+    (reference simple_stitch_assignments.py:24)."""
+
+    task_name = "simple_stitch_assignments"
+
+    def __init__(self, *args, input_path: str = None, input_key: str = None,
+                 edge_size_threshold: int = 0, **kwargs):
+        super().__init__(*args, input_path=input_path, input_key=input_key,
+                         edge_size_threshold=edge_size_threshold, **kwargs)
+
+    def run_impl(self) -> None:
+        from ..ops.unionfind import UnionFindNp
+        from .features import FEATURES_KEY
+        from .graph import load_graph
+
+        nodes, edges = load_graph(self.tmp_store())
+        n_blocks = resolve_n_blocks(
+            self.config_dir, self.input_path, self.input_key
+        )
+        ds = self.tmp_store()[BOUNDARY_EDGES_KEY]
+        merge = np.zeros(edges.shape[0], dtype=bool)
+        for chunk in read_ragged_chunks(ds, n_blocks, merge_threads(self)):
+            if chunk is not None and chunk.size:
+                merge[chunk] = True
+        if self.edge_size_threshold > 0:
+            if FEATURES_KEY not in self.tmp_store():
+                raise ValueError(
+                    "edge_size_threshold needs edge features — run "
+                    "EdgeFeaturesWorkflow (or MulticutStitchingWorkflow) first"
+                )
+            sizes = self.tmp_store()[FEATURES_KEY][:, -1]
+            if sizes.size != edges.shape[0]:
+                raise ValueError(
+                    f"stale edge features: {sizes.size} rows for "
+                    f"{edges.shape[0]} edges"
+                )
+            merge &= sizes > self.edge_size_threshold
+        uf = UnionFindNp(nodes.size)
+        if merge.any():
+            uf.merge(edges[merge, 0], edges[merge, 1])
+        roots = uf.compress()
+        _, comp = np.unique(roots, return_inverse=True)
+        table = np.stack(
+            [nodes, (comp + 1).astype(np.uint64)], axis=1
+        ).astype(np.uint64)
+        if nodes.size and nodes[0] == 0:
+            table[0, 1] = 0
+        np.save(os.path.join(self.tmp_folder, SIMPLE_STITCH_NAME), table)
+        self.log(
+            f"simple stitching merged {int(merge.sum())} boundary edges"
+        )
+
+
+class StitchingMulticutTask(VolumeSimpleTask):
+    """Multicut with two betas: boundary (stitch) edges get ``beta1``, inner
+    edges ``beta2`` (reference stitching_multicut.py:18,135-139)."""
+
+    task_name = "stitching_multicut"
+
+    def __init__(self, *args, input_path: str = None, input_key: str = None,
+                 **kwargs):
+        super().__init__(*args, input_path=input_path, input_key=input_key,
+                         **kwargs)
+
+    @classmethod
+    def default_task_config(cls) -> Dict[str, Any]:
+        conf = super().default_task_config()
+        conf.update({"beta1": 0.5, "beta2": 0.75})
+        return conf
+
+    def run_impl(self) -> None:
+        from ..ops.multicut import solve_multicut, transform_probabilities_to_costs
+        from .features import FEATURES_KEY
+        from .graph import load_graph
+        from .multicut import write_assignment_table
+
+        conf = self.get_task_config()
+        nodes, edges = load_graph(self.tmp_store())
+        feats = self.tmp_store()[FEATURES_KEY][:]
+        n_blocks = resolve_n_blocks(
+            self.config_dir, self.input_path, self.input_key
+        )
+        ds = self.tmp_store()[BOUNDARY_EDGES_KEY]
+        stitch = np.zeros(edges.shape[0], dtype=bool)
+        for chunk in read_ragged_chunks(ds, n_blocks, merge_threads(self)):
+            if chunk is not None and chunk.size:
+                stitch[chunk] = True
+
+        probs, sizes = feats[:, 0], feats[:, -1]
+        costs = np.zeros(edges.shape[0], dtype=np.float64)
+        if stitch.any():
+            costs[stitch] = transform_probabilities_to_costs(
+                probs[stitch], beta=float(conf.get("beta1", 0.5)),
+                edge_sizes=sizes[stitch],
+            )
+        if (~stitch).any():
+            costs[~stitch] = transform_probabilities_to_costs(
+                probs[~stitch], beta=float(conf.get("beta2", 0.75)),
+                edge_sizes=sizes[~stitch],
+            )
+        result = solve_multicut(nodes.size, edges, costs)
+        write_assignment_table(self, result, STITCH_MC_NAME)
+        self.log(
+            f"stitching multicut: {nodes.size} nodes → "
+            f"{int(result.max()) + 1} segments "
+            f"({int(stitch.sum())} stitch edges)"
+        )

@@ -9,15 +9,29 @@ from .multicut import (
     ReducedSolutionWorkflow,
     SubSolutionsWorkflow,
 )
+from .morphology import MorphologyWorkflow, RegionCentersWorkflow
 from .mws import MwsWorkflow, TwoPassMwsWorkflow
+from .postprocessing import (
+    ConnectedComponentsWorkflow,
+    FilterByThresholdWorkflow,
+    FilterLabelsWorkflow,
+    FilterOrphansWorkflow,
+    SizeFilterAndGraphWatershedWorkflow,
+    SizeFilterWorkflow,
+)
+from .relabel import RelabelWorkflow, UniqueWorkflow
+from .stitching import MulticutStitchingWorkflow, SimpleStitchingWorkflow
 from .thresholded_components import ThresholdAndWatershedWorkflow, ThresholdedComponentsWorkflow
 from .watershed import WatershedWorkflow
 
 __all__ = [
     "AgglomerativeClusteringWorkflow", "CheckComponentsWorkflow", "CheckSubGraphsWorkflow",
-    "EdgeFeaturesWorkflow", "GraphWorkflow",
-    "MulticutSegmentationWorkflow", "MulticutWorkflow", "MwsWorkflow", "ProblemWorkflow",
-    "ReducedSolutionWorkflow", "SubSolutionsWorkflow",
+    "ConnectedComponentsWorkflow", "EdgeFeaturesWorkflow", "FilterByThresholdWorkflow",
+    "FilterLabelsWorkflow", "FilterOrphansWorkflow", "GraphWorkflow", "MorphologyWorkflow",
+    "MulticutSegmentationWorkflow", "MulticutStitchingWorkflow", "MulticutWorkflow",
+    "MwsWorkflow", "ProblemWorkflow", "ReducedSolutionWorkflow", "RegionCentersWorkflow",
+    "RelabelWorkflow", "SimpleStitchingWorkflow", "SizeFilterAndGraphWatershedWorkflow",
+    "SizeFilterWorkflow", "SubSolutionsWorkflow",
     "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "TwoPassMwsWorkflow",
-    "WatershedWorkflow",
+    "UniqueWorkflow", "WatershedWorkflow",
 ]

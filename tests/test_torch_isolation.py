@@ -62,6 +62,25 @@ def test_port_imports_no_jax(entry):
                 CheckComponentsWorkflow, CheckSubGraphsWorkflow, ReducedSolutionWorkflow,
                 SubSolutionsWorkflow,
             )
+            from cluster_tools_tpu_torch.ops import evaluation, relabel
+            from cluster_tools_tpu_torch.ops.relabel import apply_mapping, relabel_consecutive
+            from cluster_tools_tpu_torch.tasks import morphology, node_labels, postprocess
+            from cluster_tools_tpu_torch.tasks import threshold
+            from cluster_tools_tpu_torch.tasks import (
+                BackgroundSizeFilterTask, BlockMorphologyTask, BlockNodeLabelsTask,
+                FillingSizeFilterTask, FilterBlocksTask, FindLabelingTask, FindUniquesTask,
+                GraphConnectedComponentsTask, GraphWatershedAssignmentsTask, IdFilterTask,
+                MergeMorphologyTask, MergeNodeLabelsTask, MergeUniquesTask,
+                OrphanAssignmentsTask, RegionCentersTask, SimpleStitchAssignmentsTask,
+                SimpleStitchEdgesTask, SizeFilterTask, StitchingMulticutTask, ThresholdTask,
+            )
+            from cluster_tools_tpu_torch.workflows import (
+                ConnectedComponentsWorkflow, FilterByThresholdWorkflow, FilterLabelsWorkflow,
+                FilterOrphansWorkflow, MorphologyWorkflow, MulticutStitchingWorkflow,
+                RegionCentersWorkflow, RelabelWorkflow, SimpleStitchingWorkflow,
+                SizeFilterAndGraphWatershedWorkflow, SizeFilterWorkflow, UniqueWorkflow,
+            )
+            from cluster_tools_tpu_torch.workflows import postprocessing, relabel, stitching
             assert native.available(), native.load_error
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
                 importlib.import_module(m.name)

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --mws-scaling
     python3 chip_smoke.py --filter-bank-exact
     python3 chip_smoke.py --label-phases
+    python3 chip_smoke.py --container-phases
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
 
@@ -148,8 +149,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      script's time (``--mws-scaling``) — k/256 weights give the native
      partition, the workflow's k/255 weights Rand > 0.99 and VI < 0.1
      against it; rounds, ms and the native solve's ms;
- 13. ``TwoPassMwsWorkflow`` at full width on the first 8 planes (a quarter of a
-     block layer); gates: every voxel labelled, two pass-1 blocks
+ 13. ``TwoPassMwsWorkflow`` at full width on the first 4 planes (``TWO_PASS_MWS_Z``);
+     gates: every voxel labelled, two pass-1 blocks
      recomputed equal to what was written, seeded voxels keep seed ids
      (their own where a block has at most 1024 seed ids).  Printed: wall, the passes' seconds, face
      agreement;
@@ -168,7 +169,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      phase 14's tmp folder: each fragment one sub-solution id within a
      scale-1 block; the reduced labelling its table applied to the
      watershed, a coarsening with 1 < segments < fragments;
- 16. on the first 16 planes (``FILTER_Z``): the multicut with the filter
+ 16. on the first 8 planes (``FILTER_Z``): the multicut with the filter
      bank (all four filters, sigma 1.6, halo [6, 6, 6], ``quantile_mode``
      "approx": the default exact raw-sample merge alone takes minutes,
      ``--filter-bank-exact``), ``ImageFilterTask`` (hessian eigenvalues)
@@ -177,7 +178,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      (exactly; the eigenvalues within 1e-5·max|H|), saved features equal a
      host recompute, region counts, minima and maxima equal numpy's and
      means within rtol 1e-4;
- 17. on the first 16 planes: ``InsertAffinitiesTask`` (phase 12's 8
+ 17. on the first 8 planes: ``InsertAffinitiesTask`` (phase 12's 8
      channels; objects phase 6's seeds left of x = 512), ``GradientsTask``
      and ``EmbeddingDistancesTask`` (the 8 channels as an embedding).
      Gates: the 3d flood launches; blocks without objects are copied; three
@@ -211,6 +212,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      1 < segments < fragments; the simple stitch's segments are the
      components of the fragment pairs touching across block faces; the
      face agreement per axis is printed;
+ 22. the first 32 planes of the boundary map (``SHALLOW_Z``) in three
+     containers: a blosc-lz4 byte-shuffle ``.zarr``, a blosc-zstd
+     bit-shuffle ``.n5`` and an ``.h5`` written by h5py under CREMI's
+     ``volumes/boundaries`` (chunks (32, 256, 256), gzip);
+     ``WatershedWorkflow`` from each on the card.  Gates: kernels 2 and 1
+     launch; each output equals phase 3's watershed on those planes byte
+     for byte and is gzip; the runs' chunked scratch datasets carry the codec
+     that ``default_compression()`` names on the host;
+ 23. ``LiftedMulticutSegmentationWorkflow`` from the ``.zarr`` leg (phase
+     3's watershed config, n_scales 1), the prior the class volume ``1 + x
+     // 256`` made on the card (5 classes), costs from node labels +4 / -4.
+     Gates: kernels 2 and 1 launch; the watershed equals phase 3's; the
+     output is the lifted assignment table applied to it; below half of
+     the segments have voxels in two class bands; the graph's and features'
+     scratch datasets carry the house codec; the native lifted GAEC and the
+     Python one give one partition on the nodes below 1,500; the lifted
+     energy is at most 0 and at most the plain multicut's.  Printed: nodes,
+     edges, lifted edges, segments, every task's seconds;
+ 24. ``LearningWorkflow`` on phase 23's problem (its graph, features and
+     node votes reused, their status files untouched) with the class
+     volume as the ground truth, ``n_trees`` 10, then
+     ``PredictEdgeProbabilitiesTask`` and ``ProbsToCostsTask`` with
+     ``probs_path``.  Gates: edge labels in {0, 1}, both present; mean
+     probability above 0.7 on label-1 edges, below 0.3 on label-0 edges.
+     The host's optional libraries are probed first and printed on an early
+     line (h5py, scikit-learn, libblosc): without libblosc phase 22 writes
+     its ``.zarr`` and ``.n5`` with the house codec (gzip there), without
+     h5py it leaves the ``.h5`` leg out, without scikit-learn phase 24 runs
+     up to ``EdgeLabelsTask``; each such cut is printed on its own line.
+     Phases 22-24 run after 20, before 21's lines;
  21. one JSON line with the device functions (the accumulator, the device
      MWS, the filter bank with its ``eigvalsh``, the segment reductions,
      the dilation), one with the filling filter's kernel 3 and 3d flood,
@@ -233,6 +264,8 @@ phase 16's, with the saved raw samples checked too.
 
 ``--label-phases`` runs only the build, the volume, phases 3 and 8 and
 phases 18-20 (no result line): the new phases measured without the rest.
+``--container-phases`` runs only the build, the volume, phase 3 and phases
+22-24 (no result line).
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -269,7 +302,7 @@ SEED_THRESHOLD = 0.3  # seeds: 5.3% of the voxels, ~800 components per 40 x 250 
 FLOOD_TILE = "8,64,128"  # CTT_FLOOD_TILE of the seeds run: kernel 3 tiles of 64 x 128
 HALO = (2, 8, 8)  # the watershed-from-seeds default, also given to the 3d watershed
 EARLY_Z = 64  # depth of phases 18-20 (two block layers: z faces occur), cut for the script's time
-SHALLOW_Z = 32  # depth of phases 4, 6, 7, 9, 10, 14 and 15 (one block layer), cut for its time
+SHALLOW_Z = 32  # depth of phases 4, 6, 7, 9, 10, 14, 15 and 22-24 (one block layer), cut for time
 STACK_DUMP_S = 900  # every thread's stack is printed once if the script runs this long
 
 
@@ -1240,9 +1273,13 @@ def flood3d_kernel_phase(vol, dev, compare=()):
 def task_seconds(wf, tag: str) -> None:
     """Seconds per task of a workflow run, upstream first, with the cuda
     target's stage sums."""
-    chain, todo = [], [wf]
+    chain, todo, seen = [], [wf], set()
     while todo:
         node = todo.pop()
+        key = (node.tmp_folder, node.identifier)
+        if key in seen:
+            continue
+        seen.add(key)
         chain.append(node)
         todo.extend(node.requires())
     for node in reversed(chain):
@@ -2069,8 +2106,8 @@ AFF_CHUNKS = (8, 32, 256, 256)
 MWS_HALO = (2, 4, 4)  # the MWS tasks' default
 MWS_DEVICE_CROP = (36, 24, 24)  # phase 12b: the centre of a halo'd block
 MAX_MUTEX_IDS = 1024  # compute_mws_segmentation_with_seeds' default
-TWO_PASS_MWS_Z = 8  # phase 13's depth: a quarter block layer (pass 1 runs a block at a time)
-MWS_Z = 16  # phase 12's ROI depth (half a block layer), cut for the script's time
+TWO_PASS_MWS_Z = 4  # phase 13's depth (pass 1 runs a block at a time), cut for the script's time
+MWS_Z = 16  # phase 12's ROI depth (half a block layer); the ROI's blocks run whole
 # phase 12's stored depth: the first block layer with its z halo, so its
 # halo'd reads are the whole volume's, and a second layer outside the ROI
 MWS_STORED_Z = BLOCK[0] + MWS_HALO[0]
@@ -2518,8 +2555,8 @@ AFF_MC_CHUNKS = (3, 32, 256, 256)
 # 0.5, so every cost is attractive and the multicut returns one segment
 # (PERF.md §4); at 0.4 the cells separate
 AFF_WS_THRESHOLD = 0.4
-FEATURE_Z = 16  # depth of phase 17 (half a block layer), cut for the script's time
-FILTER_Z = 16  # depth of phase 16 (half a block layer), cut for the script's time
+FEATURE_Z = 8  # depth of phase 17 (a quarter block layer), cut for the script's time
+FILTER_Z = 8  # depth of phase 16 (a quarter block layer), cut for the script's time
 FILTER_SIGMA = 1.6
 FILTER_HALO = [6, 6, 6]  # int(4 * 1.6 + 0.5): the filters' radius at FILTER_SIGMA
 # phase 16's quantile merge: the filter bank's default, the exact raw-sample
@@ -3669,6 +3706,368 @@ def stitching_phase(cut_np, path: str, work: str, card: str, bk: dict) -> dict:
     return {"walls": walls, "shape": shape, "agree": agree}
 
 
+# phase 23: the native and Python lifted GAEC on the nodes below this id (5,000 took the
+# Python solver 27.4 s beside an NVIDIA H100 80GB HBM3, 700.00 W: PERF.md §6)
+LIFTED_SUB_NODES = 1500
+CLASS_WIDTH = 256  # phase 23's prior: class 1 + x // 256 (5 classes at CREMI-A's width)
+H5_KEY = "volumes/boundaries"  # CREMI's own key and layout for the boundary map
+
+
+def host_libraries() -> dict:
+    """The optional libraries this host has: h5py (hdf5 containers),
+    scikit-learn (the random forest) and the system libblosc (blosc chunks)."""
+    import importlib.util
+
+    from cluster_tools_tpu_torch.utils import blosc
+
+    return {"h5py": importlib.util.find_spec("h5py") is not None,
+            "sklearn": importlib.util.find_spec("sklearn") is not None,
+            "libblosc": blosc.available()}
+
+
+def codec_of(ds) -> str:
+    """A chunked dataset's codec in the store's vocabulary (zarr calls its
+    deflate stream zlib)."""
+    comp = ds.compression
+    if isinstance(comp, dict):
+        return comp["id"]
+    return "raw" if comp is None else "gzip" if comp in ("gzip", "zlib") else str(comp)
+
+
+def scratch_codecs(tmp: str) -> dict:
+    """The codec of every chunked dataset in a tmp folder's scratch store
+    (ragged ``.npy`` datasets take none), by key."""
+    from cluster_tools_tpu_torch.utils import file_reader
+
+    root = os.path.join(tmp, "data.zarr")
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        if ".zarray" in names:
+            key = os.path.relpath(dirpath, root)
+            out[key] = codec_of(file_reader(root, "r")[key])
+    return out
+
+
+def write_blocks(ds, arr: np.ndarray, blocking) -> None:
+    """``arr`` into ``ds`` block by block over host threads (the blocks are
+    whole chunks, so the writes are disjoint)."""
+    def one(bid):
+        bb = blocking.block(bid).slicing
+        ds[bb] = arr[bb]
+
+    over_blocks(one, blocking)
+
+
+def launches_rose(wrappers, what: str) -> dict:
+    """Each wrapper's launches since ``reset_counts``; a wrapper that never
+    launched fails the phase."""
+    counts = {w.__name__: w.launches for w in wrappers}
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"{what} never launched {name}")
+    return counts
+
+
+def containers_phase(shallow_np, ws_path: str, work: str, card: str, libs: dict) -> dict:
+    """Phase 22: the first ``SHALLOW_Z`` planes of the boundary map in three
+    containers — a blosc-lz4 byte-shuffle ``.zarr``, a blosc-zstd
+    bit-shuffle ``.n5`` and, with h5py, an ``.h5`` under CREMI's
+    ``volumes/boundaries`` (chunks (32, 256, 256), gzip) — and
+    ``WatershedWorkflow`` (the default config) from each on the card.  A host
+    without libblosc writes the ``.zarr`` and ``.n5`` with the codec that
+    ``default_compression()`` names there; one without h5py leaves the
+    ``.h5`` out.  Gates: kernels 2 and 1 launch in each run; each output
+    equals phase 3's watershed on those planes byte for byte and stays
+    gzip; every chunked scratch dataset of the runs carries
+    ``default_compression()``'s codec.  Returns the walls, launches and
+    the ``.zarr`` leg's path."""
+    from cluster_tools_tpu_torch import WatershedWorkflow
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedTask
+    from cluster_tools_tpu_torch.utils import file_reader, store
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    shape = shallow_np.shape
+    vox = int(np.prod(shape))
+    blocking = Blocking(shape, BLOCK)
+    house = store.default_compression()
+    blosc_ok = libs["libblosc"]
+    forms = {
+        ".zarr": {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 1, "blocksize": 0}
+        if blosc_ok else house,
+        ".n5": {"id": "blosc", "cname": "zstd", "clevel": 5, "shuffle": 2, "blocksize": 0}
+        if blosc_ok else house,
+    }
+    if not blosc_ok:
+        log(f"phase 22: no libblosc on this host: the .zarr and .n5 legs are written with "
+            f"{house!r}, the codec default_compression() names here")
+    if not libs["h5py"]:
+        log("phase 22: no h5py on this host: the .h5 leg is left out")
+    t0 = time.perf_counter()
+    paths = {}
+    for ext, comp in forms.items():
+        paths[ext] = os.path.join(work, f"containers{ext}")
+        ds = file_reader(paths[ext]).create_dataset(
+            "raw", shape=shape, dtype="float32", chunks=BLOCK, compression=comp)
+        write_blocks(ds, shallow_np, blocking)
+    if libs["h5py"]:
+        import h5py
+
+        paths[".h5"] = os.path.join(work, "containers.h5")
+        with h5py.File(paths[".h5"], "w") as f:
+            f.create_dataset(H5_KEY, data=shallow_np, chunks=BLOCK, compression="gzip")
+    log(f"setup: the first {shape[0]} planes in {sorted(paths)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    config_dir = os.path.join(work, "configs_containers")
+    cfg.write_global_config(config_dir, {"block_shape": list(BLOCK), "target": "cuda",
+                                         "device": "cuda"})
+    cfg.write_config(config_dir, "watershed", WatershedTask.default_task_config())
+    out_path = os.path.join(work, "containers_out.n5")
+    walls, launches = {}, {}
+    for ext, path in paths.items():
+        tag = f"WatershedWorkflow from {ext}"
+        key = f"ws{ext.replace('.', '_')}"
+        tmp = os.path.join(work, f"tmp_containers{ext.replace('.', '_')}")
+        wf = WatershedWorkflow(tmp, config_dir, input_path=path,
+                               input_key=H5_KEY if ext == ".h5" else "raw",
+                               output_path=out_path, output_key=key)
+        reset_counts(dtws_slices, flood_slices)
+        run_workflow(wf, tag, vox, card, walls)
+        launches[tag] = launches_rose((dtws_slices, flood_slices), tag)
+        if ext == ".h5":
+            store.release_h5_handles()
+        in_codec = "gzip" if ext == ".h5" else codec_of(file_reader(path, "r")["raw"])
+        out_codec = codec_of(file_reader(out_path, "r")[key])
+        scratch = scratch_codecs(tmp)
+        if out_codec != "gzip":
+            raise AssertionError(f"{tag}: the output's codec is {out_codec}, not gzip")
+        if any(c != house for c in scratch.values()):
+            raise AssertionError(f"{tag}: scratch codecs {scratch}, not {house!r}")
+        if not same_as_phase3(out_path, key, ws_path, shape):
+            raise AssertionError(f"{tag}: the output differs from phase 3's watershed")
+        log(f"{tag}: input {in_codec}, output {out_codec}, chunked scratch datasets {scratch} "
+            f"(house codec {house!r}); byte-identical to phase 3's watershed on its "
+            f"{shape[0]} planes; kernel launches {launches[tag]}")
+    return {"walls": walls, "launches": launches, "zarr": paths[".zarr"], "house": house,
+            "shape": shape}
+
+
+def straddle_share(seg: np.ndarray, n_classes: int, dev) -> float:
+    """The share of ``seg``'s segments with voxels in two or more of the
+    class bands (``CLASS_WIDTH`` columns each), counted on the card."""
+    seg_dev = torch.from_numpy(seg.view(np.int64)).to(dev)
+    if bool((seg_dev < 0).any()):
+        raise AssertionError("segment ids past 2**63")
+    bands = [torch.unique(seg_dev[..., c * CLASS_WIDTH:(c + 1) * CLASS_WIDTH])
+             for c in range(n_classes)]
+    ids, n_bands = torch.unique(torch.cat([b[b > 0] for b in bands]), return_counts=True)
+    return int((n_bands > 1).sum()) / max(int(ids.numel()), 1)
+
+
+def lifted_phase(shallow_np, ws_path: str, work: str, card: str, cont: dict, dev) -> dict:
+    """Phase 23: ``LiftedMulticutSegmentationWorkflow`` from phase 22's
+    ``.zarr`` leg on the card: the 2d watershed config of phase 3, n_scales
+    1, the prior a class volume made on the card from the map's shape
+    (``1 + x // 256``, 5 classes, uint8), costs from node labels +4 / -4.
+    Its tmp folder is ``tmp_learning/cremi`` so that phase 24 reuses its
+    problem.  Gates: kernels 2 and 1 launch; the watershed equals phase 3's
+    on these planes byte for byte; the output is the lifted assignment
+    table applied to it; below half of the segments straddle two classes;
+    the graph's and features' scratch datasets carry the house codec; the
+    native lifted GAEC and ``_lifted_gaec_python`` give one partition on
+    the problem's nodes below ``LIFTED_SUB_NODES``; the solution's lifted
+    energy is at most 0 and at most that of the plain multicut's solution
+    of the same problem."""
+    from cluster_tools_tpu_torch import LiftedMulticutSegmentationWorkflow, native
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
+    from cluster_tools_tpu_torch.ops.lifted import (
+        _lifted_gaec_python, lifted_multicut_energy, solve_lifted_multicut,
+    )
+    from cluster_tools_tpu_torch.ops.multicut import solve_multicut
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks.lifted_features import dense_node_labels, load_lifted_problem
+    from cluster_tools_tpu_torch.tasks.lifted_multicut import LIFTED_ASSIGNMENTS_NAME
+    from cluster_tools_tpu_torch.tasks.node_labels import NODE_LABELS_NAME
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedTask
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    shape = shallow_np.shape
+    vox = int(np.prod(shape))
+    blocking = Blocking(shape, BLOCK)
+    if not native.available():
+        raise AssertionError(f"the native solvers did not build: {native.load_error}")
+    t0 = time.perf_counter()
+    classes_path = os.path.join(work, "classes.n5")
+    band = (torch.arange(shape[2], device=dev) // CLASS_WIDTH + 1).to(torch.uint8)
+    classes = band.expand(shape).contiguous().cpu().numpy()
+    write_blocks(file_reader(classes_path).create_dataset(
+        "classes", shape=shape, dtype="uint8", chunks=BLOCK, compression="raw"), classes, blocking)
+    n_classes = int(band.max())
+    log(f"setup: the class prior ({n_classes} classes of {CLASS_WIDTH} columns) made on the "
+        f"card and written in {time.perf_counter() - t0:.1f} s")
+    config_dir = slice_config(work, "lifted")
+    cfg.write_config(config_dir, "watershed", WatershedTask.default_task_config())
+    cfg.write_config(config_dir, "costs_from_node_labels",
+                     {"same_cost": 4.0, "different_cost": -4.0})
+    tmp = os.path.join(work, "tmp_learning", "cremi")
+    out_path = os.path.join(work, "lifted_out.n5")
+    wf = LiftedMulticutSegmentationWorkflow(
+        tmp, config_dir, input_path=cont["zarr"], input_key="raw", ws_path=out_path,
+        ws_key="ws", labels_path=classes_path, labels_key="classes", output_path=out_path,
+        output_key="seg", n_scales=1)
+    walls = {}
+    reset_counts(dtws_slices, flood_slices)
+    run_workflow(wf, "LiftedMulticutSegmentationWorkflow", vox, card, walls)
+    launches = launches_rose((dtws_slices, flood_slices), "the lifted multicut")
+
+    t0 = time.perf_counter()
+    if not same_as_phase3(out_path, "ws", ws_path, shape):
+        raise AssertionError("the lifted multicut's watershed differs from phase 3's")
+    f = file_reader(out_path, "r")
+    ws = read_volume(f["ws"], blocking)
+    seg = read_volume(f["seg"], blocking)
+    table = np.load(os.path.join(tmp, LIFTED_ASSIGNMENTS_NAME))
+    check_applied(ws, seg, table, blocking, "the lifted multicut")
+    straddle = straddle_share(seg, n_classes, dev)
+    node_class = dense_node_labels(None, table[:, 0], os.path.join(tmp, NODE_LABELS_NAME))
+    seg_of_node = table[:, 1]
+    pairs = np.unique(np.stack([seg_of_node, node_class.astype(np.uint64)], axis=1), axis=0)
+    seg_ids, n_node_classes = np.unique(pairs[:, 0], return_counts=True)
+    node_straddle = float((n_node_classes > 1).mean())
+    _, seg_sizes = np.unique(seg[seg > 0], return_counts=True)
+    log(f"lifted multicut: {seg_ids.size} segments (largest {np.sort(seg_sizes)[::-1][:5]} "
+        f"voxels); {straddle:.4f} of them have voxels in two class bands, {node_straddle:.4f} "
+        f"hold fragments of two classes (the node labels)")
+    if not straddle < 0.5:
+        raise AssertionError(f"{straddle:.4f} of the segments straddle two classes")
+    scratch = scratch_codecs(tmp)
+    if not scratch or any(c != cont["house"] for c in scratch.values()):
+        raise AssertionError(f"scratch codecs {scratch}, not {cont['house']!r}")
+
+    scratch_store = file_reader(os.path.join(tmp, "data.zarr"), "r")
+    nodes, edges = scratch_store["graph/nodes"][:], scratch_store["graph/edges"][:]
+    costs = np.load(os.path.join(tmp, "costs.npy"))
+    luv, lcosts = load_lifted_problem(tmp, "lifted")
+    if not np.array_equal(table[:, 0], nodes):
+        raise AssertionError("the table's rows are not the graph's nodes")
+    labels = table[:, 1].astype(np.int64)
+    energy = lifted_multicut_energy(edges, costs, luv, lcosts, labels)
+    t1 = time.perf_counter()
+    plain = solve_multicut(nodes.size, edges, costs)
+    plain_energy = lifted_multicut_energy(edges, costs, luv, lcosts, plain)
+    plain_s = time.perf_counter() - t1
+    if not (energy <= 0 and energy <= plain_energy):
+        raise AssertionError(f"lifted energy {energy:.6g}, the plain multicut's {plain_energy:.6g}")
+    n_sub = min(LIFTED_SUB_NODES, nodes.size)
+    sub = (edges < n_sub).all(axis=1)
+    lsub = (luv < n_sub).all(axis=1)
+    t1 = time.perf_counter()
+    by_native = solve_lifted_multicut(n_sub, edges[sub], costs[sub], luv[lsub], lcosts[lsub])
+    native_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    by_python = _lifted_gaec_python(n_sub, edges[sub], costs[sub], luv[lsub], lcosts[lsub])
+    python_s = time.perf_counter() - t1
+    if not same_partition(by_native, by_python):
+        raise AssertionError(f"native and Python lifted GAEC differ on {n_sub} nodes")
+    n_seg = len(np.unique(table[:, 1]))
+    log(f"lifted multicut: {nodes.size} nodes, {edges.shape[0]} edges, {luv.shape[0]} lifted "
+        f"edges ({int((lcosts > 0).sum())} attractive), {n_seg} segments; {straddle:.4f} of them "
+        f"straddle two classes; the output is its table applied to the watershed; scratch "
+        f"codecs {scratch}; lifted energy {energy:.6g} (plain multicut's {plain_energy:.6g}, "
+        f"{plain_s:.2f} s); native and Python lifted GAEC agree on {n_sub} nodes, "
+        f"{int(sub.sum())} edges, {int(lsub.sum())} lifted ({native_s:.3f} s against "
+        f"{python_s:.2f} s); kernel launches {launches} (checked in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return {"walls": walls, "launches": launches, "tmp": tmp, "classes": classes_path,
+            "ws_path": out_path, "config_dir": config_dir, "shape": shape}
+
+
+def learning_phase(work: str, card: str, cont: dict, lmc: dict, libs: dict) -> dict:
+    """Phase 24: ``LearningWorkflow`` on phase 23's problem (its tmp folder
+    is this workflow's dataset folder, so graph, features and node votes are
+    reused) with the class volume as the ground truth, ``n_trees`` 10; then
+    ``PredictEdgeProbabilitiesTask`` and ``ProbsToCostsTask`` with
+    ``probs_path``.  A host without scikit-learn runs the workflow up to
+    ``EdgeLabelsTask``.  Gates: the reused tasks did not run again; the
+    labels lie in {0, 1} with both present; with the forest, the mean
+    probability exceeds 0.7 on label-1 edges and stays below 0.3 on
+    label-0 edges."""
+    from cluster_tools_tpu_torch import LearningWorkflow
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks import PredictEdgeProbabilitiesTask, ProbsToCostsTask
+    from cluster_tools_tpu_torch.tasks.learning import EDGE_LABELS_NAME, EDGE_PROBS_NAME
+
+    shape = lmc["shape"]
+    vox = int(np.prod(shape))
+    config_dir = lmc["config_dir"]
+    cfg.write_config(config_dir, "learn_rf", {"n_trees": 10})
+    tmp = lmc["tmp"]
+    status = os.path.join(tmp, "status")
+    before = {name: os.stat(os.path.join(status, name)).st_mtime_ns
+              for name in os.listdir(status)}
+    wf = LearningWorkflow(
+        os.path.dirname(tmp), config_dir, input_dict={"cremi": (cont["zarr"], "raw")},
+        labels_dict={"cremi": (lmc["ws_path"], "ws")},
+        groundtruth_dict={"cremi": (lmc["classes"], "classes")},
+        output_path=os.path.join(work, "rf.pkl"))
+    walls = {}
+    if libs["sklearn"]:
+        run_workflow(wf, "LearningWorkflow", vox, card, walls)
+    else:
+        log("phase 24: no scikit-learn on this host: LearningWorkflow runs up to "
+            "EdgeLabelsTask, without the forest, the prediction and its costs")
+        learn = wf.requires()[0]
+        for edge_labels in learn.dependencies:
+            run_workflow(edge_labels, "LearningWorkflow up to EdgeLabelsTask", vox, card, walls)
+    rerun = sorted(n for n, t in before.items()
+                   if os.stat(os.path.join(status, n)).st_mtime_ns != t)
+    if rerun:
+        raise AssertionError(f"phase 23's tasks ran again: {rerun}")
+    labels = np.load(os.path.join(tmp, EDGE_LABELS_NAME))
+    if set(np.unique(labels).tolist()) != {0, 1}:
+        raise AssertionError(f"edge labels {np.unique(labels)}, not both of 0 and 1")
+    summary = (f"{labels.size} edge labels, {int(labels.sum())} across classes; phase 23's "
+               f"{len(before)} tasks reused")
+    if libs["sklearn"]:
+        for task, tag in ((PredictEdgeProbabilitiesTask(tmp, config_dir,
+                                                        rf_path=os.path.join(work, "rf.pkl")),
+                           "PredictEdgeProbabilitiesTask"),
+                          (ProbsToCostsTask(tmp, config_dir,
+                                            probs_path=os.path.join(tmp, EDGE_PROBS_NAME)),
+                           "ProbsToCostsTask (probs_path)")):
+            run_workflow(task, tag, vox, card, walls)
+        probs = np.load(os.path.join(tmp, EDGE_PROBS_NAME))
+        p1, p0 = float(probs[labels == 1].mean()), float(probs[labels == 0].mean())
+        if not (p1 > 0.7 and p0 < 0.3):
+            raise AssertionError(f"mean probability {p1:.4f} on label 1, {p0:.4f} on label 0")
+        summary += f"; mean probability {p1:.4f} on label-1 edges, {p0:.4f} on label-0 edges"
+    log(f"learning: {summary}")
+    return {"walls": walls, "shape": shape}
+
+
+def slice13_phases(shallow_np, ws_path: str, work: str, card: str, libs: dict, dev,
+                   t_start: float) -> dict:
+    """Phases 22-24 on the first ``SHALLOW_Z`` planes; their walls, the
+    kernel launches of their watershed runs, and the phases' seconds."""
+    t0 = time.perf_counter()
+    phase_start(22, t_start)
+    cont = containers_phase(shallow_np, ws_path, work, card, libs)
+    phase_start(23, t_start)
+    lmc = lifted_phase(shallow_np, ws_path, work, card, cont, dev)
+    phase_start(24, t_start)
+    learn = learning_phase(work, card, cont, lmc, libs)
+    seconds = time.perf_counter() - t0
+    log(f"phases 22-24 done at {time.perf_counter() - t_start:.1f} s ({seconds:.1f} s)")
+    return {"walls": {**cont["walls"], **lmc["walls"], **learn["walls"]},
+            "launches": {**cont["launches"], "LiftedMulticutSegmentationWorkflow":
+                         lmc["launches"]},
+            "seconds": seconds}
+
+
 @contextlib.contextmanager
 def failed_blocks_printed(work: str):
     """On any failure inside, print the failed-block tracebacks of every
@@ -3736,6 +4135,9 @@ def main() -> int:
     ap.add_argument("--label-phases", action="store_true",
                     help="only the build, the volume, phases 3 and 8 and phases 18-20 (no "
                          "result line)")
+    ap.add_argument("--container-phases", action="store_true",
+                    help="only the build, the volume, phase 3 and phases 22-24 (no result "
+                         "line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3749,6 +4151,9 @@ def main() -> int:
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    libs = host_libraries()
+    log("host libraries: " + ", ".join(f"{name} {'found' if ok else 'missing'}"
+                                       for name, ok in libs.items()))
     if args.mws_scaling:
         log(json.dumps({"mws_scaling": mws_scaling_phase(card, torch.device("cuda"), args.seed)}))
         log(f"script: {time.perf_counter() - t_start:.1f} s")
@@ -3782,7 +4187,7 @@ def main() -> int:
         log(f"script: {time.perf_counter() - t_start:.1f} s")
         faulthandler.cancel_dump_traceback_later()
         return 0
-    if not args.label_phases:
+    if not (args.label_phases or args.container_phases):
         phase_start(2, t_start)
         records = kernel_phase(vol, dev, args.batch)
         records.update(cc_kernel_phase(vol, dev, args.batch, args.compare))
@@ -3823,6 +4228,14 @@ def main() -> int:
             mc = multicut_phase(vol_np, path, work, card)
             slice_walls = label_phases(cut_np, cut_path, path, work, card, mc, t_start)
             log(f"label phases: {slice_walls}")
+            log(f"script: {time.perf_counter() - t_start:.1f} s")
+            faulthandler.cancel_dump_traceback_later()
+            return 0
+        if args.container_phases:
+            phase_start(3, t_start)
+            workflow_phase(vol_np, path, work, card)
+            new_walls = slice13_phases(shallow_np, path, work, card, libs, dev, t_start)
+            log(f"container, lifted and learning phases: {new_walls}")
             log(f"script: {time.perf_counter() - t_start:.1f} s")
             faulthandler.cancel_dump_traceback_later()
             return 0
@@ -3885,6 +4298,7 @@ def main() -> int:
         at = affinity_tasks_phase(mws["affs"], vol_np, shallow_path, work, card)
         log(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
         slice_walls = label_phases(cut_np, cut_path, path, work, card, mc, t_start)
+        new_walls = slice13_phases(shallow_np, path, work, card, libs, dev, t_start)
         phase_start(21, t_start)
         slice_records = slice_device_functions(fb, at, card)
     for name, rec in records.items():
@@ -3925,6 +4339,10 @@ def main() -> int:
     for tag, wall in slice_walls["walls"].items():
         log(f"{card}: {tag} {cut_np.shape} {int(np.prod(cut_np.shape)) / wall:.6g} voxels/s "
             f"({wall:.3f} s)")
+    for tag, wall in new_walls["walls"].items():
+        log(f"{card}: {tag} {shallow_np.shape} {int(np.prod(shallow_np.shape)) / wall:.6g} "
+            f"voxels/s ({wall:.3f} s)")
+    log(f"phases 22-24 kernel launches {new_walls['launches']}")
     faulthandler.cancel_dump_traceback_later()
     log(f"script: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"device_functions": [mc["accumulator"], device_mws] + slice_records}))

@@ -10,7 +10,10 @@ branches of ``WatershedWorkflow``, ``AgglomerativeClusteringWorkflow``, and the
 mutex watershed's ``MwsWorkflow`` (blockwise MWS, face stitching) and
 ``TwoPassMwsWorkflow``, and the label bookkeeping, postprocessing and graph
 stitching workflows (``workflows/relabel.py``, ``morphology.py``,
-``postprocessing.py``, ``stitching.py``); all five TPU kernels are
+``postprocessing.py``, ``stitching.py``), the lifted multicut
+(``LiftedMulticutSegmentationWorkflow``) and the edge-classifier
+``LearningWorkflow``; the store reads and writes raw, gzip and blosc chunks
+in n5 and zarr and opens hdf5 files; all five TPU kernels are
 hand-written CUDA for Hopper (``csrc/``), built with ``nvcc`` at first use,
 the multicut and mutex-watershed solvers C++ built with ``g++`` at first
 use (``native/``), the device MWS plain PyTorch (``ops/mws_device.py``).
@@ -25,12 +28,15 @@ from .workflows.thresholded_components import (
     ThresholdedComponentsWorkflow,
 )
 from .workflows.agglomerative_clustering import AgglomerativeClusteringWorkflow
+from .workflows.learning import LearningWorkflow
+from .workflows.lifted_multicut import LiftedMulticutSegmentationWorkflow
 from .workflows.multicut import MulticutSegmentationWorkflow
 from .workflows.mws import MwsWorkflow, TwoPassMwsWorkflow
 from .workflows.watershed import WatershedWorkflow
 
 __all__ = [
     "config", "build", "WorkflowBase", "AgglomerativeClusteringWorkflow",
+    "LearningWorkflow", "LiftedMulticutSegmentationWorkflow",
     "MulticutSegmentationWorkflow", "MwsWorkflow",
     "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "TwoPassMwsWorkflow",
     "WatershedWorkflow",

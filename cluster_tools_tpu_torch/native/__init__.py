@@ -90,6 +90,10 @@ def _load() -> Optional[ctypes.CDLL]:
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         lib.mutex_watershed.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p, f64p, u8p, i64p]
         lib.mutex_watershed.restype = None
+        lib.lifted_gaec.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, i64p, f64p, ctypes.c_int64, i64p, f64p, i64p,
+        ]
+        lib.lifted_gaec.restype = None
         _lib = lib
         return _lib
 
@@ -148,6 +152,34 @@ def agglomerative_clustering(
     lib.agglomerative_clustering(
         n_nodes, uv.shape[0], uv.reshape(-1), weights, sizes_ptr,
         float(threshold), labels,
+    )
+    return labels
+
+
+def lifted_gaec(
+    n_nodes: int,
+    uv: np.ndarray,
+    costs: np.ndarray,
+    lifted_uv: np.ndarray,
+    lifted_costs: np.ndarray,
+) -> np.ndarray:
+    """Greedy additive edge contraction with lifted costs: clusters contract
+    along local edges only, by the combined local + lifted cost; returns a
+    root per node."""
+    lib = _require()
+    uv = _edges(uv, n_nodes)
+    lifted_uv = _edges(lifted_uv, n_nodes)
+    costs = np.ascontiguousarray(costs, dtype=np.float64)
+    lifted_costs = np.ascontiguousarray(lifted_costs, dtype=np.float64)
+    if costs.shape != (uv.shape[0],) or lifted_costs.shape != (lifted_uv.shape[0],):
+        raise ValueError(
+            f"{costs.shape} costs for {uv.shape[0]} edges, {lifted_costs.shape} for "
+            f"{lifted_uv.shape[0]} lifted edges"
+        )
+    labels = np.empty(n_nodes, dtype=np.int64)
+    lib.lifted_gaec(
+        n_nodes, uv.shape[0], uv.reshape(-1), costs,
+        lifted_uv.shape[0], lifted_uv.reshape(-1), lifted_costs, labels,
     )
     return labels
 

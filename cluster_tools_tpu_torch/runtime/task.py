@@ -19,7 +19,27 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from . import config as cfg
 from ..utils.blocking import Blocking, blocks_in_volume
-from ..utils.store import atomic_write_bytes
+from ..utils.store import atomic_write_bytes, is_hdf5_path
+
+
+def touches_hdf5(task) -> bool:
+    """True when any path the task was given (``*_path``, ``input_paths``)
+    is an hdf5 file."""
+    for value in vars(task).values():
+        paths = value if isinstance(value, (list, tuple)) else [value]
+        if any(isinstance(v, str) and is_hdf5_path(v) for v in paths):
+            return True
+    return False
+
+
+def hdf5_single_thread(task, config: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package reads an h5py dataset with one thread (h5py takes one
+    lock for every call, so threads only add overhead): a task that touches
+    an hdf5 file reads its batches one at a time (``pipeline_depth`` 1) and
+    each batch's blocks one after another (``read_threads`` 1)."""
+    if not touches_hdf5(task):
+        return config
+    return {**config, "read_threads": 1, "pipeline_depth": 1}
 
 
 class FailedBlocksError(RuntimeError):
@@ -176,7 +196,7 @@ class BlockTask(Task):
 
         t_start = time.perf_counter()
         gconf = self.global_config()
-        config = {**gconf, **self.get_task_config()}
+        config = hdf5_single_thread(self, {**gconf, **self.get_task_config()})
         resolve_device(config)  # no card where one is asked for: raise here
         blocking = Blocking(tuple(self.get_shape()), self.get_block_shape(gconf))
         block_ids = self.get_block_list(blocking, gconf)

@@ -4,6 +4,19 @@ from .costs import ProbsToCostsTask
 from .debugging import CheckComponentsTask, CheckSubGraphsTask
 from .features import BlockEdgeFeaturesTask, MergeEdgeFeaturesTask
 from .graph import InitialSubGraphsTask, MapEdgeIdsTask, MergeScaleSubGraphsTask, MergeSubGraphsTask
+from .learning import EdgeLabelsTask, LearnRFTask, PredictEdgeProbabilitiesTask
+from .lifted_features import (
+    ClearLiftedEdgesFromLabelsTask,
+    LiftedCostsFromNodeLabelsTask,
+    MergeLiftedProblemsTask,
+    SparseLiftedNeighborhoodTask,
+)
+from .lifted_multicut import (
+    LIFTED_ASSIGNMENTS_NAME,
+    ReduceLiftedProblemTask,
+    SolveLiftedGlobalTask,
+    SolveLiftedSubproblemsTask,
+)
 from .multicut import (
     ReduceProblemTask,
     ReducedAssignmentsTask,
@@ -55,17 +68,21 @@ __all__ = [
     "AGGLO_ASSIGNMENTS_NAME", "AgglomerateTask", "AgglomerativeClusteringTask",
     "BackgroundSizeFilterTask", "BlockComponentsTask", "BlockEdgeFeaturesTask",
     "BlockFacesTask", "BlockMorphologyTask", "BlockNodeLabelsTask", "CheckComponentsTask",
-    "CheckSubGraphsTask", "EmbeddingDistancesTask", "FillingSizeFilterTask",
+    "CheckSubGraphsTask", "ClearLiftedEdgesFromLabelsTask", "EdgeLabelsTask",
+    "EmbeddingDistancesTask", "FillingSizeFilterTask",
     "FilterBlocksTask", "FindLabelingTask", "FindUniquesTask", "GradientsTask",
     "GraphConnectedComponentsTask", "GraphWatershedAssignmentsTask", "IdFilterTask",
     "ImageFilterTask", "InitialSubGraphsTask", "InsertAffinitiesTask",
+    "LIFTED_ASSIGNMENTS_NAME", "LearnRFTask", "LiftedCostsFromNodeLabelsTask",
     "MAX_IDS_KEY", "MapEdgeIdsTask", "MergeAssignmentsTask", "MergeEdgeFeaturesTask",
-    "MergeMorphologyTask", "MergeNodeLabelsTask", "MergeOffsetsTask",
+    "MergeLiftedProblemsTask", "MergeMorphologyTask", "MergeNodeLabelsTask", "MergeOffsetsTask",
     "MergeRegionFeaturesTask", "MergeScaleSubGraphsTask", "MergeSubGraphsTask",
-    "MergeUniquesTask", "MwsBlocksTask", "OrphanAssignmentsTask", "ProbsToCostsTask",
+    "MergeUniquesTask", "MwsBlocksTask", "OrphanAssignmentsTask",
+    "PredictEdgeProbabilitiesTask", "ProbsToCostsTask", "ReduceLiftedProblemTask",
     "ReduceProblemTask", "ReducedAssignmentsTask", "RegionCentersTask",
     "RegionFeaturesTask", "STITCH_ASSIGNMENTS_NAME", "SimpleStitchAssignmentsTask",
-    "SimpleStitchEdgesTask", "SizeFilterTask", "SolveGlobalTask", "SolveSubproblemsTask",
+    "SimpleStitchEdgesTask", "SizeFilterTask", "SolveGlobalTask", "SolveLiftedGlobalTask",
+    "SolveLiftedSubproblemsTask", "SolveSubproblemsTask", "SparseLiftedNeighborhoodTask",
     "StitchAssignmentsTask", "StitchFacesTask", "StitchingMulticutTask", "SubSolutionsTask",
     "ThresholdTask", "TwoPassMwsTask", "TwoPassWatershedTask",
     "WatershedFromSeedsTask", "WatershedTask", "WriteTask", "kernel_params",

@@ -1,12 +1,22 @@
-"""Chunked-array storage: local zarr v2 and n5 directory stores.
+"""Chunked-array storage: local zarr v2 and n5 directory stores and an hdf5
+passthrough.
 
-The port's own copy of the part of ``cluster_tools_tpu/utils/store.py`` the
-watershed path needs, with the same on-disk formats, so a volume written by
-either package is read by the other:
+The port's own copy of ``cluster_tools_tpu/utils/store.py``'s local part,
+with the same on-disk formats, so a volume written by either package is read
+by the other:
 
-  * ``.zarr`` → zarr v2 (``.zarray``, ``i.j.k`` chunk files, raw/zlib/gzip);
+  * ``.zarr`` → zarr v2 (``.zarray``, ``i.j.k`` chunk files, raw/zlib/gzip/
+    blosc);
   * ``.n5``   → n5 (``attributes.json``, reversed dimension order, big-endian
-    mode-0 chunks, raw/gzip);
+    mode-0 chunks and mode-1 varlength chunks, raw/gzip/blosc);
+  * blosc through the system ``libblosc`` (``utils/blosc.py``): every cname,
+    byte and bit shuffle; equal arrays and parameters give the JAX package's
+    chunk bytes.  ``"default"`` — the house codec of scratch datasets — is
+    blosc-lz4 where the library loads and gzip where it does not
+    (``default_compression``, pinned by ``CTT_DEFAULT_COMPRESSION``);
+  * ``.h5`` / ``.hdf5`` / ``.hdf`` → h5py behind a process-wide handle cache,
+    so one task may read and write the same file (``_h5_open``); a task
+    with an hdf5 path reads with one thread (``runtime/task.py``);
   * region read/write (read-modify-write on partially covered chunks),
     ``read_chunk`` / ``write_chunk``;
   * ``RaggedDataset``: one ``.npy`` array per grid position (the per-block
@@ -17,9 +27,8 @@ either package is read by the other:
     block reads share are decoded once.
 
 Gzip is deterministic (level 1, mtime 0), so equal arrays give equal chunk
-bytes.  Blosc, hdf5 and the object-store backend are not ported yet (ROADMAP
-Queue A 12(b)); opening a dataset that needs them raises.  Parallel writers
-must write disjoint chunk-aligned regions.
+bytes.  The object-store backend is not ported (ROADMAP Queue A 13).
+Parallel writers must write disjoint chunk-aligned regions.
 """
 
 from __future__ import annotations
@@ -40,10 +49,15 @@ import numpy as np
 
 from .blocking import _ceil_div
 
+try:  # optional: without h5py an .h5 path raises as in the JAX package
+    import h5py
+except ImportError:
+    h5py = None
+
 __all__ = [
     "file_reader", "File", "Group", "Dataset", "RaggedDataset", "Attributes",
     "atomic_write_bytes", "set_chunk_cache_budget", "chunk_cache_budget",
-    "chunk_cache_counts",
+    "chunk_cache_counts", "default_compression", "release_h5_handles",
 ]
 
 
@@ -204,10 +218,72 @@ class Attributes:
         return key not in self._reserved and key in self._load()
 
 
-def _unsupported_codec(what: str, path: str):
-    return NotImplementedError(
-        f"{what} in {path}: the PyTorch port's store reads raw, zlib and gzip "
-        "chunks only (blosc is ROADMAP Queue A work)"
+def _blosc_mod():
+    from . import blosc
+
+    return blosc
+
+
+# internal compression spec: None | "zlib" | "gzip" | blosc dict
+def _is_blosc(compression) -> bool:
+    return isinstance(compression, dict) and compression.get("id") == "blosc"
+
+
+def _clamp_chunks(chunks, shape):
+    """Chunk dims never exceed the shape; zero-size dims keep the chunk
+    (h5py and zarr both reject zero chunks)."""
+    return tuple(min(c, s) if s > 0 else c for c, s in zip(chunks, shape))
+
+
+def default_compression() -> str:
+    """The house codec of the datasets the tasks create as scratch: blosc
+    (lz4) where the system libblosc loads, else gzip.  An explicit
+    ``compression=`` always wins; the string ``"default"`` resolves here.
+    ``CTT_DEFAULT_COMPRESSION`` (``gzip`` or ``blosc``) pins the resolution
+    where nodes differ in what they have installed."""
+    pinned = os.environ.get("CTT_DEFAULT_COMPRESSION")
+    if pinned in ("gzip", "blosc"):
+        return pinned
+    return "blosc" if _blosc_mod().available() else "gzip"
+
+
+def _normalize_blosc(spec, itemsize: Optional[int] = None) -> dict:
+    """A blosc spec with the ecosystem's defaults (zarr-python: lz4, clevel
+    5, byte shuffle, automatic block size) filled in; ``spec`` is the string
+    ``"blosc"``, a zarr compressor dict or an n5 compression dict.  The
+    shuffle -1 (numcodecs' automatic one, which reads fine but cannot be
+    written) becomes what it resolves to: byte shuffle above one byte per
+    item, none for single bytes."""
+    src = spec if isinstance(spec, dict) else {}
+    shuffle = int(src.get("shuffle", 1))
+    if shuffle == -1:
+        shuffle = 1 if (itemsize or 0) > 1 else 0
+    if shuffle not in (0, 1, 2):
+        raise ValueError(
+            f"unsupported blosc shuffle {src.get('shuffle')!r} "
+            "(supported: 0=none, 1=byte, 2=bit, -1=auto)"
+        )
+    return {
+        "id": "blosc",
+        "cname": src.get("cname", "lz4"),
+        "clevel": int(src.get("clevel", 5)),
+        "shuffle": shuffle,
+        "blocksize": int(src.get("blocksize", 0)),
+    }
+
+
+def _blosc_compress(raw: bytes, itemsize: int, compression: dict) -> bytes:
+    return _blosc_mod().compress(
+        raw, itemsize, cname=compression["cname"], clevel=compression["clevel"],
+        shuffle=compression["shuffle"], blocksize=compression["blocksize"],
+    )
+
+
+def _blosc_decompress(payload: bytes, chunk_shape, dtype: np.dtype) -> bytes:
+    """Bounded by what the chunk may hold: a forged header cannot make a
+    multi-GB buffer."""
+    return _blosc_mod().decompress(
+        payload, expected_nbytes=int(np.prod(chunk_shape)) * dtype.itemsize
     )
 
 
@@ -223,12 +299,18 @@ class _ZarrFormat:
 
     @staticmethod
     def write_meta(path, shape, chunks, dtype: np.dtype, compression) -> None:
+        if compression is None:
+            compressor = None
+        elif _is_blosc(compression):
+            compressor = dict(compression)
+        else:
+            compressor = {"id": "zlib", "level": 1}
         _write_json(os.path.join(path, _ZarrFormat.array_meta), {
             "zarr_format": 2,
             "shape": list(shape),
             "chunks": list(chunks),
             "dtype": dtype.str,
-            "compressor": None if compression is None else {"id": "zlib", "level": 1},
+            "compressor": compressor,
             "fill_value": 0,
             "order": "C",
             "filters": None,
@@ -243,8 +325,13 @@ class _ZarrFormat:
             compression = None
         elif comp.get("id") in ("zlib", "gzip"):
             compression = comp["id"]
+        elif comp.get("id") == "blosc":
+            compression = _normalize_blosc(comp, itemsize=np.dtype(meta["dtype"]).itemsize)
         else:
-            raise _unsupported_codec(f"zarr compressor {comp.get('id')!r}", path)
+            raise ValueError(
+                f"unsupported zarr compressor {comp.get('id')!r} in {path} "
+                "(supported: null, zlib, gzip, blosc)"
+            )
         if meta.get("filters"):
             raise ValueError(f"zarr filters are not supported ({path})")
         if meta.get("order", "C") != "C":
@@ -267,13 +354,17 @@ class _ZarrFormat:
             full[tuple(slice(0, s) for s in data.shape)] = data
             data = full
         raw = np.ascontiguousarray(data).tobytes()
+        if _is_blosc(compression):
+            return _blosc_compress(raw, data.dtype.itemsize, compression)
         if compression == "gzip":
             return _gzip_compress(raw)
         return zlib.compress(raw, 1) if compression else raw
 
     @staticmethod
     def decode_chunk(payload: bytes, chunk_shape, dtype: np.dtype, compression):
-        if compression == "gzip":
+        if _is_blosc(compression):
+            payload = _blosc_decompress(payload, chunk_shape, dtype)
+        elif compression == "gzip":
             payload = gzip.decompress(payload)
         elif compression:
             payload = zlib.decompress(payload)
@@ -308,48 +399,76 @@ class _N5Format:
     def write_meta(path, shape, chunks, dtype: np.dtype, compression) -> None:
         meta_path = os.path.join(path, _N5Format.array_meta)
         meta = _read_json(meta_path) if os.path.exists(meta_path) else {}
+        if compression is None:
+            n5_comp = {"type": "raw"}
+        elif _is_blosc(compression):
+            n5_comp = {"type": "blosc", **{k: v for k, v in compression.items() if k != "id"},
+                       "nthreads": 1}
+        else:
+            n5_comp = {"type": "gzip", "level": 1}
         meta.update({
             "dimensions": list(reversed(shape)),
             "blockSize": list(reversed(chunks)),
             "dataType": dtype.name,
-            "compression": {"type": "raw"} if compression is None
-            else {"type": "gzip", "level": 1},
+            "compression": n5_comp,
         })
         _write_json(meta_path, meta)
 
     @staticmethod
     def read_meta(path: str):
         meta = _read_json(os.path.join(path, _N5Format.array_meta))
-        ctype = meta.get("compression", {"type": "raw"})["type"]
-        if ctype not in ("raw", "gzip"):
-            raise _unsupported_codec(f"n5 compression {ctype!r}", path)
+        n5_comp = meta.get("compression", {"type": "raw"})
+        ctype = n5_comp["type"]
+        if ctype == "raw":
+            compression = None
+        elif ctype == "gzip":
+            compression = "gzip"
+        elif ctype == "blosc":
+            compression = _normalize_blosc(n5_comp, itemsize=np.dtype(meta["dataType"]).itemsize)
+        else:
+            raise ValueError(f"unsupported n5 compression {ctype!r} in {path}")
         return {
             "shape": tuple(reversed(meta["dimensions"])),
             "chunks": tuple(reversed(meta["blockSize"])),
             "dtype": np.dtype(meta["dataType"]),
-            "compression": None if ctype == "raw" else "gzip",
+            "compression": compression,
             "separator": "/",
             "fill_value": 0,
         }
 
     @staticmethod
-    def encode_chunk(data: np.ndarray, chunks, compression) -> bytes:
-        # mode-0 header: mode, ndim, then the dims in n5 (reversed) order, BE
-        header = struct.pack(">HH", 0, data.ndim) + struct.pack(
-            f">{data.ndim}I", *reversed(data.shape)
+    def pack_chunk(data: np.ndarray, dims, compression, n_varlen=None) -> bytes:
+        """The chunk wire format: a mode-0 header (mode, ndim, the dims in n5's
+        reversed order, big-endian) or a mode-1 (varlength) one with the
+        element count ``n_varlen`` after the dims, then the big-endian
+        payload, compressed."""
+        mode = 0 if n_varlen is None else 1
+        header = struct.pack(">HH", mode, len(dims)) + struct.pack(
+            f">{len(dims)}I", *reversed(tuple(dims))
         )
+        if n_varlen is not None:
+            header += struct.pack(">I", n_varlen)
         be = data.astype(_N5Format._DTYPES[data.dtype.name], copy=False)
         raw = np.ascontiguousarray(be).tobytes()
-        return header + (_gzip_compress(raw) if compression else raw)
+        if _is_blosc(compression):
+            raw = _blosc_compress(raw, be.dtype.itemsize, compression)
+        elif compression:
+            raw = _gzip_compress(raw)
+        return header + raw
+
+    @staticmethod
+    def encode_chunk(data: np.ndarray, chunks, compression) -> bytes:
+        return _N5Format.pack_chunk(data, data.shape, compression)
 
     @staticmethod
     def decode_chunk(payload: bytes, chunk_shape, dtype: np.dtype, compression):
         mode, ndim = struct.unpack(">HH", payload[:4])
-        if mode != 0:
-            raise ValueError(f"n5 chunk mode {mode} (varlength) is not supported")
         dims = struct.unpack(f">{ndim}I", payload[4: 4 + 4 * ndim])
-        raw = payload[4 + 4 * ndim:]
-        if compression:
+        offset = 4 + 4 * ndim + (4 if mode == 1 else 0)  # mode 1 adds an element count
+        raw = payload[offset:]
+        if _is_blosc(compression):
+            raw = _blosc_decompress(raw, chunk_shape, dtype)
+        elif compression:
             raw = gzip.decompress(raw)
         arr = np.frombuffer(raw, dtype=_N5Format._DTYPES[dtype.name]).astype(dtype)
         shape = tuple(reversed(dims))
@@ -377,10 +496,7 @@ def _format_for(path: str):
         return _ZarrFormat
     if ext == ".n5":
         return _N5Format
-    raise ValueError(
-        f"unsupported container extension: {path} (the PyTorch port reads "
-        ".zarr and .n5; hdf5 is ROADMAP Queue A work)"
-    )
+    raise ValueError(f"unsupported container extension: {path}")
 
 
 class Dataset:
@@ -463,6 +579,49 @@ class Dataset:
             ))
         finally:
             _CHUNK_CACHE.invalidate(p)
+
+    def write_chunk_varlen(self, grid_pos, data: np.ndarray) -> None:
+        """Write a 1d payload of any length as an n5 mode-1 (varlength)
+        chunk (the JAX package's label multisets are stored this way)."""
+        if self._readonly:
+            raise PermissionError(f"dataset opened read-only: {self.path}")
+        if self._fmt is not _N5Format:
+            raise NotImplementedError("varlength chunks are n5-only")
+        data = np.ascontiguousarray(data, dtype=self.dtype)
+        p = self._chunk_path(grid_pos)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        try:
+            atomic_write_bytes(p, _N5Format.pack_chunk(
+                data, self.chunks, self.compression, n_varlen=data.size))
+        finally:
+            _CHUNK_CACHE.invalidate(p)
+
+    def read_chunk_varlen(self, grid_pos) -> Optional[np.ndarray]:
+        """A mode-1 (varlength) chunk as a flat array, or None if unwritten."""
+        if self._fmt is not _N5Format:
+            raise NotImplementedError("varlength chunks are n5-only")
+        try:
+            with open(self._chunk_path(grid_pos), "rb") as f:
+                payload = f.read()
+        except FileNotFoundError:
+            return None
+        mode, ndim = struct.unpack(">HH", payload[:4])
+        if mode != 1:
+            raise ValueError(f"chunk {tuple(grid_pos)} is not varlength")
+        offset = 4 + 4 * ndim
+        (n_elements,) = struct.unpack(">I", payload[offset: offset + 4])
+        raw = payload[offset + 4:]
+        if _is_blosc(self.compression):
+            raw = _blosc_mod().decompress(raw)
+        elif self.compression:
+            raw = gzip.decompress(raw)
+        out = np.frombuffer(raw, dtype=_N5Format._DTYPES[self.dtype.name])
+        if out.size < n_elements:
+            raise ValueError(
+                f"varlen chunk {tuple(grid_pos)} holds {out.size} elements, "
+                f"its header promises {n_elements}"
+            )
+        return out[:n_elements].astype(self.dtype)
 
     def _normalize_bb(self, bb):
         if not isinstance(bb, tuple):
@@ -620,12 +779,14 @@ class Group:
         shape: Optional[Sequence[int]] = None,
         dtype=None,
         chunks: Optional[Sequence[int]] = None,
-        compression: Optional[str] = "gzip",
+        compression: Optional[str] = "default",
         data: Optional[np.ndarray] = None,
         exist_ok: bool = False,
     ) -> Dataset:
-        """``compression``: None/"raw" or "gzip" (the default; "default",
-        the JAX package's house codec, resolves to gzip here)."""
+        """``compression``: None/"raw", "gzip" (any other name but blosc's
+        becomes gzip), "blosc" or a blosc dict, or "default", the house codec
+        (``default_compression()``).  It is checked before an existing
+        dataset is overwritten, so a missing libblosc deletes nothing."""
         if self._readonly:
             raise PermissionError(f"container opened read-only: {self.path}")
         if data is not None:
@@ -636,13 +797,17 @@ class Group:
             raise ValueError("shape and dtype (or data) are required")
         if chunks is None:
             chunks = tuple(min(s, 64) for s in shape)
-        chunks = tuple(min(c, s) if s > 0 else c for c, s in zip(chunks, shape))
-        if compression in ("raw", None):
+        chunks = _clamp_chunks(chunks, shape)
+        if compression == "default":
+            compression = default_compression()
+        if compression == "blosc" or _is_blosc(compression):
+            compression = _normalize_blosc(compression, itemsize=np.dtype(dtype).itemsize)
+            if not _blosc_mod().available():
+                raise RuntimeError("compression='blosc' requires the system libblosc")
+        elif compression in ("raw", None):
             compression = None
-        elif compression in ("gzip", "zlib", "default"):
-            compression = "gzip"
         else:
-            raise _unsupported_codec(f"compression {compression!r}", key)
+            compression = "gzip"
         p = os.path.join(self.path, key)
         if self._fmt.is_array(p):
             if not exist_ok:
@@ -663,7 +828,7 @@ class Group:
         return ds
 
     def require_dataset(self, key: str, shape=None, dtype=None, chunks=None,
-                        compression="gzip") -> Dataset:
+                        compression="default") -> Dataset:
         p = os.path.join(self.path, key)
         if self._fmt.is_array(p):
             ds = Dataset(p, self._fmt)
@@ -700,6 +865,236 @@ class File(Group):
         pass
 
 
-def file_reader(path: str, mode: str = "a") -> File:
-    """Open a local ``.zarr`` / ``.n5`` container."""
+_H5_HANDLES: Dict[str, Any] = {}
+# open façades per path: the last close really closes the cached handle (and
+# releases the HDF5 file lock); handles opened without close() stay cached
+_H5_REFS: Dict[str, int] = {}
+# re-entrant: dataset proxies reopen through _h5_cached_handle under it
+_H5_LOCK = threading.RLock()
+
+
+def is_hdf5_path(path: Optional[str]) -> bool:
+    return bool(path) and os.path.splitext(str(path))[1].lower() in (".h5", ".hdf5", ".hdf")
+
+
+def _h5_cached_handle(key: str):
+    """The cached read handle for a proxy's re-resolution (the refcount is
+    left alone: nobody closes a proxy's implicit reopen)."""
+    cached = _H5_HANDLES.get(key)
+    if cached is None or not bool(cached):
+        cached = h5py.File(key, "r")
+        _H5_HANDLES[key] = cached
+    return cached
+
+
+class _H5DatasetProxy:
+    """A dataset handle that re-resolves through the handle cache on every
+    access, so reopening its file writable cannot leave the caller with a
+    dead HDF5 id.  Every access holds the cache lock: a concurrent upgrade
+    or release cannot close the handle between resolution and use."""
+
+    def __init__(self, path: str, name: str):
+        self._path = path
+        self._name = name
+
+    def _ds(self):
+        # the cached handle may have been released: reopen read-only (a
+        # proxy is only handed out for reads)
+        return _h5_cached_handle(self._path)[self._name]
+
+    def __getitem__(self, key):
+        with _H5_LOCK:
+            return self._ds()[key]
+
+    def __setitem__(self, key, value):
+        with _H5_LOCK:
+            self._ds()[key] = value
+
+    def __getattr__(self, name):
+        with _H5_LOCK:
+            return getattr(self._ds(), name)
+
+    def __len__(self):
+        with _H5_LOCK:
+            return len(self._ds())
+
+
+class _CachedH5File:
+    """A façade over a process-cached ``h5py.File``.
+
+    HDF5 refuses to open one file twice with different modes in a process,
+    so a task reading its input and writing its output in the same ``.h5``
+    would fail with "file is already open".  The cache keeps one real handle
+    per path, counted per façade: ``close`` and ``with`` flush, and the last
+    close for a path really closes it.  ``release_h5_handles()`` closes
+    every handle.  Datasets of a read-only handle come back as proxies that
+    re-resolve (a later writable open reopens the file underneath); those of
+    a writable handle come back raw, as writable handles are never reopened.
+    """
+
+    def __init__(self, f, path: str):
+        object.__setattr__(self, "_f", f)
+        object.__setattr__(self, "_path", path)
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+    @staticmethod
+    def _h5_compression(compression):
+        """The store's codec names on h5py's: ``default``, ``blosc`` and
+        ``zlib`` become gzip (h5py has no blosc without a plugin), ``raw``
+        and None uncompressed."""
+        if compression in (None, "raw"):
+            return {}
+        if compression in ("gzip", "zlib", "default", "blosc") or _is_blosc(compression):
+            return {"compression": "gzip"}
+        return {"compression": compression}
+
+    def create_dataset(self, key, shape=None, dtype=None, chunks=None,
+                       compression="default", data=None, **kw):
+        if data is not None and not isinstance(data, (str, bytes)):
+            # str and bytes stay raw: h5py stores them as vlen strings
+            data = np.asarray(data)
+            if shape is None:
+                shape = data.shape
+            elif tuple(shape) != data.shape:
+                data = data.reshape(shape)  # h5py's rule: the shape wins
+        if chunks is not None and shape is not None:
+            chunks = _clamp_chunks(chunks, shape)
+        scalar = (data is not None and np.ndim(data) == 0) or (
+            shape is not None and (len(shape) == 0 or any(s == 0 for s in shape))
+        )
+        if scalar:  # h5py: scalar and empty datasets take no chunks or filters
+            args = dict(kw)
+        else:
+            args = dict(kw, **self._h5_compression(compression))
+            if chunks is not None:
+                args["chunks"] = chunks
+        if dtype is not None:
+            args["dtype"] = dtype
+        if data is not None:
+            return self._f.create_dataset(key, data=data, **args)
+        return self._f.create_dataset(key, shape=shape, **args)
+
+    def require_dataset(self, key, shape=None, dtype=None, chunks=None,
+                        compression="default", **kw):
+        if key in self._f:
+            ds = self._f[key]
+            if shape is not None and tuple(shape) != tuple(ds.shape):
+                raise ValueError(f"shape mismatch for {key}: {shape} vs {ds.shape}")
+            if dtype is not None and not np.can_cast(np.dtype(dtype), ds.dtype, "safe"):
+                raise TypeError(
+                    f"existing dataset {key} has dtype {ds.dtype}, cannot safely hold {dtype}"
+                )
+            return ds
+        return self.create_dataset(key, shape=shape, dtype=dtype, chunks=chunks,
+                                   compression=compression, **kw)
+
+    def __getitem__(self, key):
+        obj = self._f[key]
+        if self._f.mode == "r" and isinstance(obj, h5py.Dataset):
+            return _H5DatasetProxy(self._path, key)
+        return obj
+
+    def __setitem__(self, key, value):
+        self._f[key] = value
+
+    def __contains__(self, key):
+        return key in self._f
+
+    def __iter__(self):
+        return iter(self._f)
+
+    def __len__(self):
+        return len(self._f)
+
+    def get(self, key, default=None):
+        if key not in self._f:
+            return default
+        return self[key]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def close(self):
+        """Flush; the last close for a path closes the cached handle.  A
+        second close of one façade, or a close of a façade whose handle a
+        read-to-write reopen replaced, does nothing."""
+        with _H5_LOCK:
+            if getattr(self, "_released", False):
+                return
+            object.__setattr__(self, "_released", True)
+            f = self._f
+            if f and f.mode != "r":
+                f.flush()
+            key = self._path
+            if _H5_HANDLES.get(key) is not f:
+                return
+            n = _H5_REFS.get(key, 1) - 1
+            if n > 0:
+                _H5_REFS[key] = n
+                return
+            _H5_REFS.pop(key, None)
+            _H5_HANDLES.pop(key, None)
+            if f:
+                f.close()
+
+
+def release_h5_handles() -> None:
+    """Close every cached h5 handle (writers flushed), before handing a file
+    to another process: a held writable handle blocks its open."""
+    with _H5_LOCK:
+        for f in _H5_HANDLES.values():
+            if f:
+                f.close()
+        _H5_HANDLES.clear()
+        _H5_REFS.clear()
+
+
+def _h5_open(path: str, mode: str):
+    key = os.path.abspath(path)
+    with _H5_LOCK:
+        cached = _H5_HANDLES.get(key)
+        if cached is not None and not bool(cached):  # closed underneath
+            _H5_HANDLES.pop(key, None)
+            _H5_REFS.pop(key, None)
+            cached = None
+        if mode in ("w", "w-", "x"):
+            # truncate or exclusive create: never from a cached handle
+            if cached is not None:
+                raise OSError(
+                    f"cannot open {path!r} with mode {mode!r}: the file is open elsewhere "
+                    "in this process (store.release_h5_handles() closes cached handles)"
+                )
+            f = h5py.File(path, mode)
+            _H5_HANDLES[key] = f
+            _H5_REFS[key] = _H5_REFS.get(key, 0) + 1
+            return _CachedH5File(f, key)
+        if cached is not None and mode in ("a", "r+") and cached.mode == "r":
+            # read-only to writable: earlier reads were handed out as
+            # proxies, so nothing dies; the count restarts (stale façades
+            # over the old handle fail the identity check in close)
+            cached.close()
+            _H5_HANDLES.pop(key, None)
+            _H5_REFS.pop(key, None)
+            cached = None
+            mode = "a"
+        if cached is None:
+            cached = h5py.File(path, mode)
+            _H5_HANDLES[key] = cached
+        _H5_REFS[key] = _H5_REFS.get(key, 0) + 1
+        return _CachedH5File(cached, key)
+
+
+def file_reader(path: str, mode: str = "a"):
+    """Open a container by extension: ``.zarr``/``.zr``, ``.n5``,
+    ``.h5``/``.hdf5``/``.hdf``."""
+    if is_hdf5_path(path):
+        if h5py is None:
+            raise RuntimeError("h5py is not available")
+        return _h5_open(path, mode)
     return File(path, mode)

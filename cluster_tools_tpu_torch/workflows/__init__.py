@@ -1,5 +1,11 @@
 from .agglomerative_clustering import AgglomerativeClusteringWorkflow
 from .debugging import CheckComponentsWorkflow, CheckSubGraphsWorkflow
+from .learning import LearningWorkflow
+from .lifted_multicut import (
+    LiftedFeaturesFromNodeLabelsWorkflow,
+    LiftedMulticutSegmentationWorkflow,
+    LiftedMulticutWorkflow,
+)
 from .multicut import (
     EdgeFeaturesWorkflow,
     GraphWorkflow,
@@ -27,7 +33,9 @@ from .watershed import WatershedWorkflow
 __all__ = [
     "AgglomerativeClusteringWorkflow", "CheckComponentsWorkflow", "CheckSubGraphsWorkflow",
     "ConnectedComponentsWorkflow", "EdgeFeaturesWorkflow", "FilterByThresholdWorkflow",
-    "FilterLabelsWorkflow", "FilterOrphansWorkflow", "GraphWorkflow", "MorphologyWorkflow",
+    "FilterLabelsWorkflow", "FilterOrphansWorkflow", "GraphWorkflow", "LearningWorkflow",
+    "LiftedFeaturesFromNodeLabelsWorkflow", "LiftedMulticutSegmentationWorkflow",
+    "LiftedMulticutWorkflow", "MorphologyWorkflow",
     "MulticutSegmentationWorkflow", "MulticutStitchingWorkflow", "MulticutWorkflow",
     "MwsWorkflow", "ProblemWorkflow", "ReducedSolutionWorkflow", "RegionCentersWorkflow",
     "RelabelWorkflow", "SimpleStitchingWorkflow", "SizeFilterAndGraphWatershedWorkflow",

@@ -81,7 +81,22 @@ def test_port_imports_no_jax(entry):
                 SizeFilterAndGraphWatershedWorkflow, SizeFilterWorkflow, UniqueWorkflow,
             )
             from cluster_tools_tpu_torch.workflows import postprocessing, relabel, stitching
+            from cluster_tools_tpu_torch.utils import blosc, store
+            from cluster_tools_tpu_torch.utils.store import default_compression, release_h5_handles
+            from cluster_tools_tpu_torch.ops.lifted import lifted_neighborhood, solve_lifted_multicut
+            from cluster_tools_tpu_torch.tasks import (
+                ClearLiftedEdgesFromLabelsTask, EdgeLabelsTask, LearnRFTask,
+                LiftedCostsFromNodeLabelsTask, MergeLiftedProblemsTask,
+                PredictEdgeProbabilitiesTask, ReduceLiftedProblemTask, SolveLiftedGlobalTask,
+                SolveLiftedSubproblemsTask, SparseLiftedNeighborhoodTask,
+            )
+            from cluster_tools_tpu_torch.workflows import (
+                LearningWorkflow, LiftedFeaturesFromNodeLabelsWorkflow,
+                LiftedMulticutSegmentationWorkflow, LiftedMulticutWorkflow,
+            )
+            from cluster_tools_tpu_torch.workflows import learning, lifted_multicut
             assert native.available(), native.load_error
+            assert hasattr(native, "lifted_gaec")
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
                 importlib.import_module(m.name)
         """
@@ -275,3 +290,39 @@ def test_new_tasks_default_to_card_and_run_on_cpu(tmp_path, monkeypatch, kind):
     roots = _new_task_roots(kind, tmp, config_dir, path)
     assert build(roots)
     assert roots[0].complete()
+
+
+@pytest.mark.parametrize("workflow", ["lifted_segmentation", "lifted_features", "lifted_solve",
+                                      "learning"])
+def test_lifted_and_learning_workflows_raise_without_card(tmp_path, monkeypatch, workflow):
+    """The lifted multicut's and the learning workflow's entry points ask
+    for the card by default; without one the build raises."""
+    from cluster_tools_tpu_torch.workflows import (
+        LearningWorkflow, LiftedFeaturesFromNodeLabelsWorkflow,
+        LiftedMulticutSegmentationWorkflow, LiftedMulticutWorkflow,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "d.n5")
+    f = file_reader(path)
+    f.create_dataset("bnd", data=np.random.default_rng(0).random((8, 16, 16)).astype("float32"),
+                     chunks=(8, 16, 16))
+    f.create_dataset("ws", shape=(8, 16, 16), dtype="uint64", chunks=(8, 16, 16))
+    config_dir = str(tmp_path / "configs")
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16], "target": "cuda"})
+    tmp = str(tmp_path / "tmp")
+    wf = {
+        "lifted_segmentation": lambda: LiftedMulticutSegmentationWorkflow(
+            tmp, config_dir, input_path=path, input_key="bnd", ws_path=path, ws_key="ws2",
+            labels_path=path, labels_key="ws", output_path=path, output_key="seg"),
+        "lifted_features": lambda: LiftedFeaturesFromNodeLabelsWorkflow(
+            tmp, config_dir, ws_path=path, ws_key="ws", labels_path=path, labels_key="ws"),
+        "lifted_solve": lambda: LiftedMulticutWorkflow(
+            tmp, config_dir, input_path=path, input_key="ws"),
+        "learning": lambda: LearningWorkflow(
+            tmp, config_dir, input_dict={"a": (path, "bnd")}, labels_dict={"a": (path, "ws")},
+            groundtruth_dict={"a": (path, "ws")}, output_path=str(tmp_path / "rf.pkl")),
+    }[workflow]()
+    with pytest.raises(Exception, match="no CUDA device"):
+        build([wf])
+    assert not wf.complete()

@@ -76,15 +76,6 @@ def test_store_partial_write_and_ragged(tmp_path, rng):
     )
 
 
-def test_store_refuses_unported_codecs(tmp_path):
-    with pytest.raises(NotImplementedError, match="blosc"):
-        file_reader(str(tmp_path / "b.n5")).create_dataset(
-            "x", shape=(4, 4), dtype="uint8", compression="blosc"
-        )
-    with pytest.raises(ValueError, match="hdf5"):
-        file_reader(str(tmp_path / "x.h5"))
-
-
 def test_jax_written_config_drives_port(tmp_path):
     config_dir = str(tmp_path / "configs")
     jax_cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16]})

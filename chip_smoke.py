@@ -2,10 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--z 125] [--batch 8] [--seed 0] [--compare DIR] [--kernels-only]
+                          [--fixpoint-paths]
     python3 chip_smoke.py --mws-scaling
     python3 chip_smoke.py --filter-bank-exact
     python3 chip_smoke.py --label-phases
     python3 chip_smoke.py --container-phases
+    python3 chip_smoke.py --volume-phases
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
 
@@ -242,9 +244,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      h5py it leaves the ``.h5`` leg out, without scikit-learn phase 24 runs
      up to ``EdgeLabelsTask``; each such cut is printed on its own line.
      Phases 22-24 run after 20, before 21's lines;
+ 25. volume ops and exports on the first 32 planes, the ``cuda`` target
+     (``volume_phase``): ``round(255·b)`` as a uint8 n5 into
+     ``DownscalingWorkflow`` (paintera, factors [1, 2, 2], [1, 2, 2],
+     [2, 2, 2], "interpolate"), a second prefix with "skimage" (mean), then
+     ``PainteraToBdvWorkflow`` to ``bdv.n5``; phase 3's watershed down by
+     [1, 2, 2] and up again (nearest); ``ScaleToBoundariesTask`` from the
+     coarse labels onto the boundary map with its defaults and again eroding
+     by 2 in plane, ``CTT_FLOOD_TILE`` pinned (the 3d flood and kernel 3
+     must launch; every id is a coarse id plus the offset; the in-plane
+     run's blocks 0 and last hold objects and equal a re-run through the
+     plain floods, and its kernels are timed at an interior block with
+     object seeds); ``CopyVolumeTask`` float32 to uint8
+     over an ROI, ``BlocksFromMaskTask`` and ``MinfilterTask`` on ``b < 0.5``
+     at half resolution, ``LinearTransformationTask`` per slice under that
+     mask; ``PainteraConversionWorkflow`` over a two-block ROI (with h5py
+     also the ``bdv.hdf5`` copy and ``BigcatWorkflow``).  Gates in
+     ``volume_phase``'s docstring; it runs after 24, before 21's lines;
  21. one JSON line with the device functions (the accumulator, the device
      MWS, the filter bank with its ``eigvalsh``, the segment reductions,
-     the dilation), one with the filling filter's kernel 3 and 3d flood,
+     the dilation, phase 25's resamplers, minimum filter and affine step),
+     one with the filling filter's kernel 3 and 3d flood,
      one listing the six kernels, then the result line.
 
 A flushed ``phase N start at ... s`` line precedes each phase, and if the
@@ -266,6 +286,8 @@ phase 16's, with the saved raw samples checked too.
 phases 18-20 (no result line): the new phases measured without the rest.
 ``--container-phases`` runs only the build, the volume, phase 3 and phases
 22-24 (no result line).
+``--volume-phases`` runs only the build, the volume, phase 3 and phase 25
+(no result line).
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -303,6 +325,7 @@ FLOOD_TILE = "8,64,128"  # CTT_FLOOD_TILE of the seeds run: kernel 3 tiles of 64
 HALO = (2, 8, 8)  # the watershed-from-seeds default, also given to the 3d watershed
 EARLY_Z = 64  # depth of phases 18-20 (two block layers: z faces occur), cut for the script's time
 SHALLOW_Z = 32  # depth of phases 4, 6, 7, 9, 10, 14, 15 and 22-24 (one block layer), cut for time
+FIXPOINT_PATHS = False  # --fixpoint-paths: time the plain floods down each card path
 STACK_DUMP_S = 900  # every thread's stack is printed once if the script runs this long
 
 
@@ -355,6 +378,45 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_call(fn):
+    """``fn()`` once between two CUDA events: its result and milliseconds
+    (a gate's own reference call, timed where it is made)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def fixpoint_paths(name: str, fn, turns: bool = True) -> dict:
+    """The plain flood ``fn()`` timed (``timed_call``, warm) down the card
+    paths of ``cuda_flood._fixpoint``: "default" (round by round, graphs
+    after ``GRAPH_AFTER_ROUNDS``), "graph" (graphs from the first round)
+    and "launched" (round by round to the end), in turns (default, graph,
+    launched, then back) or, without ``turns``, once each; the outputs must
+    be equal.  Run with ``--fixpoint-paths``."""
+    from cluster_tools_tpu_torch.ops import cuda_flood
+
+    saved = cuda_flood.GRAPH_AFTER_ROUNDS
+    after = {"default": saved, "graph": 0, "launched": 1 << 62}
+    order = list(after) + (list(after)[::-1] if turns else [])
+    ms, outs = {path: [] for path in after}, {}
+    try:
+        for path in order:
+            cuda_flood.GRAPH_AFTER_ROUNDS = after[path]
+            outs[path], t = timed_call(fn)
+            ms[path].append(t)
+    finally:
+        cuda_flood.GRAPH_AFTER_ROUNDS = saved
+    if not all(torch.equal(outs["default"], o) for o in outs.values()):
+        raise AssertionError(f"fixpoint paths {name}: the paths' outputs differ")
+    log(f"fixpoint paths {name}: " + ", ".join(f"{k} {v} ms" for k, v in ms.items())
+        + f" (GRAPH_AFTER_ROUNDS {saved})")
+    return ms
 
 
 @contextlib.contextmanager
@@ -515,12 +577,13 @@ def kernel_phase(vol, dev, batch: int):
     }
     dt_err = 0.0
     main_out = None
+    plain_s = {}  # seconds of each gate's plain reference
     for name, (x, m, v) in cases.items():
         route = dtws_route(x.shape[2], x.shape[3], 17)
         before = dict(dtws_slices.launches_by_route)
         got = dtws_slices(x, m, v, threshold=THRESHOLD)
-        want = dtws_slices_plain(x, m, v, threshold=THRESHOLD)
-        torch.cuda.synchronize()
+        want, plain_ms = timed_call(lambda: dtws_slices_plain(x, m, v, threshold=THRESHOLD))
+        plain_s[f"dtws_slices {name}"] = plain_ms / 1e3
         check_route(dtws_slices, before, route, f"dtws_slices {name}")
         for what, g, w in zip(("labels", "roots", "hmap"), got, want):
             if not torch.equal(g, w):
@@ -559,8 +622,8 @@ def kernel_phase(vol, dev, batch: int):
         route = flood_route(h.shape[1], h.shape[2])
         before = dict(flood_slices.launches_by_route)
         got = flood_slices(h, s, m)
-        want = flood_slices_plain(h, s, m)
-        torch.cuda.synchronize()
+        want, plain_ms = timed_call(lambda: flood_slices_plain(h, s, m))
+        plain_s[f"flood_slices {name}"] = plain_ms / 1e3
         check_route(flood_slices, before, route, f"flood_slices {name}")
         if not torch.equal(got, want):
             raise AssertionError(f"flood_slices {name}: differs from the plain version")
@@ -599,8 +662,18 @@ def kernel_phase(vol, dev, batch: int):
         ms[(design, "f")].append(cuda_ms(lambda: flood_slices(*flood_main, force_global=fg), 5))
     ms = {k: sum(v) / len(v) for k, v in ms.items()}
     dtws_ms, flood_ms = ms[("new", "d")], ms[("new", "f")]
-    dtws_plain_ms = cuda_ms(lambda: dtws_slices_plain(x_main, ones, ones, threshold=THRESHOLD), 1)
-    flood_plain_ms = cuda_ms(lambda: flood_slices_plain(*flood_main), 1)
+    log("plain references, s per gate call (the first call of each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in plain_s.items()))
+    # plain_ms of the kernels line: one warm call at the main shape, the
+    # gate's call above having been the first
+    dtws_plain_ms = timed_call(lambda: dtws_slices_plain(x_main, ones, ones, threshold=THRESHOLD))[1]
+    flood_plain_ms = timed_call(lambda: flood_slices_plain(*flood_main))[1]
+    if FIXPOINT_PATHS:
+        fixpoint_paths(f"flood_slices_plain {tuple(flood_main[0].shape)}",
+                       lambda: flood_slices_plain(*flood_main))
+        h, s, m = flood_cases["serpentine rows 256"]
+        fixpoint_paths(f"flood_slices_plain serpentine rows {tuple(h.shape)}",
+                       lambda: flood_slices_plain(h, s, m), turns=False)
     for design in ("parent", "new"):
         d_stamps = torch.zeros((n_sl, DTWS_STAMPS), dtype=torch.int64, device=dev)
         f_stamps = torch.zeros((n_sl, FLOOD_STAMPS), dtype=torch.int64, device=dev)
@@ -980,20 +1053,67 @@ def halo_block(vol, corner, dev):
     return gaussian(blk, 2.0), seeds[0], torch.ones(shape, dtype=torch.bool, device=dev)
 
 
-def check_flood_rounds(name: str, args, stats: dict) -> tuple:
-    """The kernel's rounds of each phase (``stats``) must be those of its
-    schedule in plain PyTorch (``flood_volume_scan``, the JAX package's
-    counts) on the same inputs ``(h, s, m, warm)``.  Returns them."""
-    from cluster_tools_tpu_torch.ops.cuda_flood import flood_volume_scan
+def flood_references(gates: dict) -> dict:
+    """The references of the 3d flood's gates: ``gates`` maps a gate's name
+    to the single blocks ``(h, s, m, warm or None)`` of the batch it gave
+    the kernel.  Each distinct block is computed once, one call per block
+    shape: the plain flood's labels (blocks never interact, so a batch's
+    labels are its blocks') and the rounds of the flood's schedule in plain
+    PyTorch (``flood_volume_scan``, the JAX package's counts; a batch's
+    rounds are the most of its blocks', ``per_item``).  A cold block runs
+    warm from ``BIG`` everywhere, which leaves its start unchanged.  Returns
+    each gate's (stacked labels, (phase 1, phase 2) rounds)."""
+    from cluster_tools_tpu_torch.ops.cuda_flood import BIG, flood_volume_plain, flood_volume_scan
 
-    got = (stats["flood_alt_iters"], stats["flood_assign_iters"])
-    want = flood_volume_scan(*args[:3], warm=args[3])[2]
-    if got != want:
-        raise AssertionError(f"flood_volume {name}: rounds alt/assign {got}, the sequential "
-                             f"sweeps' {want}")
-    log(f"flood_volume {name}: equal to plain, rounds alt/assign {got[0]}/{got[1]} equal to "
-        f"the sequential sweeps'")
-    return got
+    def same(a, b):
+        return a is b or (a is not None and b is not None and a.shape == b.shape
+                          and bool(torch.equal(a, b)))
+
+    blocks, index = [], {}
+    for name, items in gates.items():
+        index[name] = []
+        for item in items:
+            at = next((i for i, u in enumerate(blocks)
+                       if all(same(a, b) for a, b in zip(u, item))), None)
+            if at is None:
+                at = len(blocks)
+                blocks.append(item)
+            index[name].append(at)
+    labels, rounds = [None] * len(blocks), [None] * len(blocks)
+    for shape in dict.fromkeys(tuple(b[0].shape) for b in blocks):
+        ids = [i for i, b in enumerate(blocks) if tuple(b[0].shape) == shape]
+        h, s, m = (torch.stack([blocks[i][k] for i in ids]) for k in range(3))
+        w = torch.stack([blocks[i][3] if blocks[i][3] is not None
+                         else torch.full(shape, BIG, device=h.device) for i in ids])
+        t0 = time.perf_counter()
+        plain = flood_volume_plain(h, s, m, warm=w)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scan = flood_volume_scan(h, s, m, warm=w, per_item=True)[2]
+        log(f"flood_volume references of {len(ids)} distinct blocks {shape}: plain "
+            f"{t1 - t0:.1f} s, schedule (flood_volume_scan) {time.perf_counter() - t1:.1f} s")
+        for k, i in enumerate(ids):
+            labels[i], rounds[i] = plain[k], scan[k]
+    return {name: (torch.stack([labels[i] for i in idx]),
+                   (max(rounds[i][0] for i in idx), max(rounds[i][1] for i in idx)))
+            for name, idx in index.items()}
+
+
+def check_flood(name: str, got: torch.Tensor, stats: dict, ref: tuple) -> tuple:
+    """The kernel's labels must equal the plain flood's and its rounds of
+    each phase (``stats``) those of its schedule (``ref``, from
+    ``flood_references``).  Returns the rounds."""
+    want, want_rounds = ref
+    if not torch.equal(got, want):
+        raise AssertionError(f"flood_volume {name}: differs from the plain version "
+                             f"({int((got != want).sum())} voxels)")
+    rounds = (stats["flood_alt_iters"], stats["flood_assign_iters"])
+    if rounds != want_rounds:
+        raise AssertionError(f"flood_volume {name}: rounds alt/assign {rounds}, the sequential "
+                             f"sweeps' {want_rounds}")
+    log(f"flood_volume {name}: equal to plain, rounds alt/assign {rounds[0]}/{rounds[1]} equal "
+        f"to the sequential sweeps'")
+    return rounds
 
 
 # Run in a child process from the root of a checkout: calls that
@@ -1158,17 +1278,6 @@ def flood3d_kernel_phase(vol, dev, compare=()):
         "two halo'd blocks warm": (h2, s2, m2, warm2),
         f"serpentine (z, x) {tuple(zx.shape)}": (torch.full(zx.shape, 0.5, device=dev), zx_seeds, zx, None),
     }
-    for name, (h, s, m, w) in flood_cases.items():
-        stats = {}
-        got = flood_volume(h, s, m, warm=w, stats=stats)
-        want = flood_volume_plain(h, s, m, warm=w)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"flood_volume {name}: differs from the plain version "
-                                 f"({int((got != want).sum())} voxels)")
-        if name.startswith("serpentine") and not bool((got[m] == 1).all()):
-            raise AssertionError("flood_volume serpentine: corridor not flooded to its end")
-        check_flood_rounds(name, (h, s, m, w), stats)
 
     # times at one halo'd block (the seeded workflow's call, warm and cold)
     # and at the 3d watershed's batch of 8 halo'd blocks (cold), the parent
@@ -1177,7 +1286,6 @@ def flood3d_kernel_phase(vol, dev, compare=()):
     hs, ss, ms = (t.view((-1,) + hw) for t in (h1, s1, m1))
     warm1, t_rounds = flood_tiles_warm_rounds(hs, ss, ms, tile)
     warm1 = warm1.view(h1.shape)
-    k3_plain_ms = cuda_ms(lambda: flood_tiles_warm_plain(hs, ss, ms, tile), 1)
     z_last, y_last, x_last = (v - b for v, b in zip(vol.shape, shape))
     corners8 = [(z, y, x) for z in (0, z_last) for y in (0, y_last) for x in (0, x_last)]
     h8, s8, m8 = (torch.stack(t) for t in zip(*(halo_block(vol, c, dev) for c in corners8)))
@@ -1186,13 +1294,24 @@ def flood3d_kernel_phase(vol, dev, compare=()):
         f"{tuple(h1.shape)} cold": (h1, s1, m1, None),
         f"{tuple(h8.shape)} cold": (h8, s8, m8, None),
     }
-    rounds = {}
-    for name, args in timed.items():
+    # the kernel on every gate's batch, then each distinct block's plain
+    # flood and schedule once, then the gates
+    gates = {**flood_cases, **timed}
+    got = {}
+    for name, (h, s, m, w) in gates.items():
         stats = {}
-        got = flood_volume(*args[:3], warm=args[3], stats=stats)
-        if not torch.equal(got, flood_volume_plain(*args[:3], warm=args[3])):
-            raise AssertionError(f"flood_volume {name}: differs from the plain version")
-        rounds[name] = check_flood_rounds(name, args, stats)
+        got[name] = (flood_volume(h, s, m, warm=w, stats=stats), stats)
+    torch.cuda.synchronize()
+    refs = flood_references({
+        name: [(h[i], s[i], m[i], None if w is None else w[i]) for i in range(h.shape[0])]
+        for name, (h, s, m, w) in gates.items()})
+    rounds = {}
+    for name, (h, s, m, w) in gates.items():
+        out, stats = got[name]
+        if name.startswith("serpentine") and not bool((out[m] == 1).all()):
+            raise AssertionError("flood_volume serpentine: corridor not flooded to its end")
+        rounds[name] = check_flood(name, out, stats, refs[name])
+    k3_plain_ms = cuda_ms(lambda: flood_tiles_warm_plain(hs, ss, ms, tile), 1)
     # kernel 3 and the 3d flood in turns with the checkouts in ``compare``
     k3 = f"flood_tiles_warm {tuple(hs.shape)}"
     calls = {name: ("flood_volume", args[:3], {"warm": args[3]}, None, 3)
@@ -1223,6 +1342,11 @@ def flood3d_kernel_phase(vol, dev, compare=()):
     times_k3 = times.pop(k3)
     k3_ms = sum(times_k3["new"]) / 2
     fv_plain_ms = cuda_ms(lambda: flood_volume_plain(h1, s1, m1, warm=warm1), 1)
+    if FIXPOINT_PATHS:
+        fixpoint_paths(f"flood_tiles_warm_plain {tuple(hs.shape)}",
+                       lambda: flood_tiles_warm_plain(hs, ss, ms, tile))
+        fixpoint_paths(f"flood_volume_plain {tuple(h1.shape)} warm",
+                       lambda: flood_volume_plain(h1, s1, m1, warm=warm1))
     vox = h1.numel()
     k3_bound = 13 * vox / HBM_BYTES_PER_S * 1e3  # f32 h, i32 seeds, byte mask in; f32 out
     tr = t_rounds.float()
@@ -4068,6 +4192,558 @@ def slice13_phases(shallow_np, ws_path: str, work: str, card: str, libs: dict, d
             "seconds": seconds}
 
 
+# -- phase 25: volume ops and export --------------------------------------------
+# On the first SHALLOW_Z planes at full width (25 blocks of BLOCK), the cuda
+# target: a uint8 paintera pyramid and its bdv.n5 copy, label down/upscaling,
+# the refit onto the boundary map (the 3d flood and kernel 3), copy, masks,
+# the per-slice affine step and the paintera label container.
+
+VOLUME_FACTORS = [[1, 2, 2], [1, 2, 2], [2, 2, 2]]
+VOLUME_SHAPES = [(32, 625, 625), (32, 313, 313), (16, 157, 157)]
+VOLUME_OFFSET = 7  # ScaleToBoundariesTask's id offset
+# the paintera leg's ROI, two blocks: its label-to-block mapping walks every id
+# up to the largest in host Python (as JAX's does), and the watershed's ids
+# carry block offsets of 2**21 per block
+PAINTERA_ROI = ([0, 0, 0], [SHALLOW_Z, 256, 512])
+ROUNDING_MARGIN = 1e-3  # phase 25's pyramid: card and CPU may differ this close to a .5
+
+
+def fma_np(a: np.ndarray, x: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Correctly rounded float32 ``a*x + b`` in numpy (the exact product in
+    float64, the sum's error recovered and folded in by rounding to odd)."""
+    p = a.astype(np.float64) * x.astype(np.float64)
+    c = b.astype(np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    fix = (err != 0) & ((s.view(np.int64) & 1) == 0)
+    s = np.where(fix, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+def volume_config(work: str, tag: str, tasks=None, **glob) -> str:
+    """A config dir of phase 25 (``slice_config``'s, plus global keys and
+    task configs)."""
+    from cluster_tools_tpu_torch.runtime import config as cfg
+
+    config_dir = slice_config(work, tag)
+    if glob:
+        cfg.write_global_config(config_dir, {**cfg.global_config(config_dir), **glob})
+    for name, conf in (tasks or {}).items():
+        cfg.write_config(config_dir, name, conf)
+    return config_dir
+
+
+def pyramid_block_check(f, in_key: str, out_key: str, sf, bid: int) -> tuple:
+    """Block ``bid`` of the card's ``out_key`` against the CPU's resampling
+    of the same input footprint: equal byte for byte except where the CPU's
+    float value lies within ``ROUNDING_MARGIN`` of a .5.  Returns (voxels
+    within the margin, voxels that differ)."""
+    from cluster_tools_tpu_torch.ops import resample
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    in_ds, out_ds = f[in_key], f[out_key]
+    blk = Blocking(out_ds.shape, BLOCK).block(bid)
+    in_bb = tuple(slice(b.start * k, min(b.stop * k, s))
+                  for b, k, s in zip(blk.slicing, sf, in_ds.shape))
+    ref = resample.downscale(torch.from_numpy(in_ds[in_bb]), sf, "interpolate")
+    ref = ref[tuple(slice(0, b.stop - b.start) for b in blk.slicing)].numpy()
+    got = out_ds[blk.slicing]
+    near = np.abs(ref - np.floor(ref) - 0.5) < ROUNDING_MARGIN
+    differ = got != resample.cast_resampled(ref, np.uint8)
+    if (differ & ~near).any():
+        raise AssertionError(f"{out_key} block {bid}: {int((differ & ~near).sum())} voxels differ "
+                             f"from the CPU's resampling away from a rounding boundary")
+    return int(near.sum()), int(differ.sum())
+
+
+def check_refit(fitted: np.ndarray, coarse: np.ndarray, what: str, need_ids: bool = False):
+    """Every id ``ScaleToBoundariesTask`` wrote is a coarse id plus
+    ``VOLUME_OFFSET`` (and, with ``need_ids``, it wrote some)."""
+    written = np.unique(fitted[fitted > 0]) - np.uint64(VOLUME_OFFSET)
+    if not np.isin(written, np.unique(coarse)).all():
+        raise AssertionError(f"{what} wrote ids that are no coarse id plus the offset")
+    if need_ids and written.size == 0:
+        raise AssertionError(f"{what} wrote no object")
+    log(f"{what}: {written.size} ids written, each a coarse id + {VOLUME_OFFSET}; foreground "
+        f"{float((fitted > 0).mean()):.4f}")
+
+
+def volume_phase(shallow_np, shallow_path: str, ws_path: str, work: str, card: str, libs: dict,
+                 dev) -> dict:
+    """Phase 25 on the first ``SHALLOW_Z`` planes.  (a) ``round(255·b)`` as a
+    uint8 n5 (raw chunks) into ``DownscalingWorkflow`` (paintera,
+    ``VOLUME_FACTORS``, "interpolate"), a second prefix with "skimage" (mean)
+    at [1, 2, 2], then ``PainteraToBdvWorkflow`` to ``bdv.n5``.  Gates: the
+    scales' shapes and JAX's attributes; three blocks of s1 and one of s3
+    equal the CPU's resampling of the same blocks off rounding boundaries;
+    the mean's block 0 equal to the CPU's; every bdv scale equal to the
+    paintera one.  (b) phase 3's watershed down by [1, 2, 2] (nearest, forced
+    for labels) and up again: equal to ``np.repeat`` of the coarse labels.
+    (c) ``ScaleToBoundariesTask`` from the coarse labels onto the boundary
+    map, ``CTT_FLOOD_TILE`` pinned, at its defaults (``erode_by`` 12 in 3d,
+    which leaves these planes no object seed) and in plane by 2: the 3d
+    flood and kernel 3 launch in both; every id is a coarse id plus the
+    offset; the in-plane run writes objects, and its blocks 0 and last hold
+    objects and equal a re-run through the plain floods on the card.  (d)
+    ``CopyVolumeTask`` float32 to uint8 over a block-aligned ROI (equal to
+    ``cast_type`` per block), ``BlocksFromMaskTask`` and ``MinfilterTask``
+    on ``b < 0.5`` at half resolution (numpy's block list, scipy's minimum
+    filter on three blocks), ``LinearTransformationTask`` with per-slice
+    coefficients under that mask (numpy's fused multiply-add on three
+    blocks).  (e) ``PainteraConversionWorkflow`` (multisets [[1, 2, 2],
+    [1, 2, 2]]) on phase 3's watershed over ``PAINTERA_ROI``: the s0
+    multiset's argmax equals the labels, three blocks' unique labels equal
+    numpy's, the label-to-block mapping inverts them.  Without h5py the
+    ``.h5`` legs print a cut line.  Returns walls, launches, the device
+    functions' records and the phase's seconds."""
+    from scipy import ndimage
+
+    from cluster_tools_tpu_torch import tasks as T
+    from cluster_tools_tpu_torch import workflows as W
+    from cluster_tools_tpu_torch.ops import resample
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_tiles_warm, flood_volume
+    from cluster_tools_tpu_torch.ops.filters import minimum_filter
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.tasks import label_multisets as LM
+    from cluster_tools_tpu_torch.tasks import paintera as PT
+    from cluster_tools_tpu_torch.tasks.copy_volume import cast_type
+    from cluster_tools_tpu_torch.tasks.masking import resize_nearest
+    from cluster_tools_tpu_torch.tasks.transformations import linear_batch
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    t_phase = time.perf_counter()
+    shape = shallow_np.shape
+    vox = int(np.prod(shape))
+    blocking = Blocking(shape, BLOCK)
+    path = os.path.join(work, "volume.n5")
+    f = file_reader(path)
+    t0 = time.perf_counter()
+    raw8 = np.round(255 * shallow_np).astype(np.uint8)
+    mask = (shallow_np < THRESHOLD).astype(np.uint8)
+    ws = read_volume(file_reader(ws_path, "r")["ws"], blocking)
+    for key, arr in (("raw8", raw8), ("mask", mask), ("ws", ws)):
+        write_blocks(f.create_dataset(key, shape=shape, dtype=arr.dtype, chunks=BLOCK,
+                                      compression="raw"), arr, blocking)
+    mask_half = np.ascontiguousarray(mask[:, ::2, ::2])
+    f.create_dataset("mask_half", data=mask_half, chunks=BLOCK, compression="raw")
+    log(f"setup: phase 25's inputs (uint8 map, mask, half-resolution mask, the watershed's "
+        f"first {shape[0]} planes) in {time.perf_counter() - t0:.1f} s")
+    walls, launches = {}, {}
+
+    # (a) the pyramid, its mean prefix and the bdv.n5 copy
+    conf = volume_config(work, "pyramid", {"downscaling": {"library": "interpolate"}})
+    reset_counts(resample.downscale)
+    run_workflow(W.DownscalingWorkflow(
+        os.path.join(work, "tmp_pyramid"), conf, input_path=path, input_key="raw8",
+        scale_factors=VOLUME_FACTORS, metadata_format="paintera",
+        metadata_dict={"resolution": [40.0, 4.0, 4.0]}, output_path=path,
+        output_key_prefix="pyramid"), "DownscalingWorkflow paintera interpolate", vox, card, walls)
+    launches["downscale interpolate"] = launches_rose((resample.downscale,), "the pyramid")
+    g = f["pyramid"]
+    got_shapes = [f[f"pyramid/s{s}"].shape for s in range(4)]
+    if got_shapes != [shape] + VOLUME_SHAPES:
+        raise AssertionError(f"pyramid shapes {got_shapes}")
+    factors = [f[f"pyramid/s{s}"].attrs["downsamplingFactors"] for s in (1, 2, 3)]
+    if factors != [[2, 2, 1], [4, 4, 1], [8, 8, 2]] or g.attrs["multiScale"] is not True \
+            or g.attrs["resolution"] != [4.0, 4.0, 40.0] or g.attrs["offset"] != [0.0, 0.0, 0.0]:
+        raise AssertionError(f"pyramid attributes {factors} {dict((k, g.attrs[k]) for k in g.attrs.keys())}")
+    n1 = Blocking(VOLUME_SHAPES[0], BLOCK).n_blocks
+    checks = [("pyramid/s0", "pyramid/s1", [1, 2, 2], b) for b in (0, n1 // 2, n1 - 1)]
+    checks.append(("pyramid/s2", "pyramid/s3", [2, 2, 2], 0))
+    near = [pyramid_block_check(f, *c) for c in checks]
+    log(f"pyramid: shapes {got_shapes}, attributes JAX's; s1 blocks 0, {n1 // 2}, {n1 - 1} and s3 "
+        f"block 0 equal "
+        f"the CPU's resampling off rounding boundaries: (within {ROUNDING_MARGIN} of a .5, "
+        f"differing) voxels per block {near}")
+    conf_mean = volume_config(work, "pyramid_mean", {"downscaling": {"library": "skimage"}})
+    reset_counts(resample.downscale)
+    run_workflow(W.DownscalingWorkflow(
+        os.path.join(work, "tmp_pyramid_mean"), conf_mean, input_path=path, input_key="raw8",
+        scale_factors=[[1, 2, 2]], metadata_format="paintera", output_path=path,
+        output_key_prefix="pyramid_mean"), "DownscalingWorkflow paintera mean", vox, card, walls)
+    launches["downscale mean"] = launches_rose((resample.downscale,), "the mean pyramid")
+    zb, yb, xb = BLOCK
+    want = resample.cast_resampled(
+        resample.downscale(torch.from_numpy(raw8[:zb, :2 * yb, :2 * xb]), [1, 2, 2], "mean"),
+        np.uint8)
+    if not np.array_equal(f["pyramid_mean/s1"][blocking.block(0).slicing], want):
+        raise AssertionError("mean pyramid: block 0 differs from the CPU's")
+    bdv = os.path.join(work, "volume_bdv.n5")
+    run_workflow(W.PainteraToBdvWorkflow(
+        os.path.join(work, "tmp_bdv"), conf, input_path=path, input_key_prefix="pyramid",
+        output_path=bdv), "PainteraToBdvWorkflow bdv.n5", vox, card, walls)
+    fb = file_reader(bdv, "r")
+    for s in range(4):
+        if not np.array_equal(fb[f"setup0/timepoint0/s{s}"][:], f[f"pyramid/s{s}"][:]):
+            raise AssertionError(f"bdv.n5 scale {s} differs from the paintera scale")
+    if not os.path.exists(os.path.join(work, "volume_bdv.xml")):
+        raise AssertionError("bdv.n5: no XML")
+    log("mean pyramid block 0 equal to the CPU's; every bdv.n5 scale equal to the paintera one")
+
+    # (b) labels down and up
+    conf_l = volume_config(work, "volume_labels",
+                           {"upscaling": {"library_kwargs": {"order": 0}}})
+    run_workflow(T.DownscalingTask(os.path.join(work, "tmp_labels_down"), conf_l, input_path=path,
+                                   input_key="ws", output_path=path, output_key="ws_s1",
+                                   scale_factor=[1, 2, 2]),
+                 "DownscalingTask labels nearest", vox, card, walls)
+    coarse = f["ws_s1"][:]
+    if not np.array_equal(coarse, ws[:, ::2, ::2]):
+        raise AssertionError("labels: the nearest downscale is not the strided slice")
+    run_workflow(T.UpscalingTask(os.path.join(work, "tmp_labels_up"), conf_l, input_path=path,
+                                 input_key="ws_s1", output_path=path, output_key="ws_up",
+                                 scale_factor=[1, 2, 2]),
+                 "UpscalingTask labels nearest", vox, card, walls)
+    if not np.array_equal(f["ws_up"][:], np.repeat(np.repeat(coarse, 2, 1), 2, 2)):
+        raise AssertionError("labels: the nearest upscale is not np.repeat of the coarse labels")
+    log("labels: down by [1, 2, 2] the strided slice, up again np.repeat of it, byte for byte")
+
+    # (c) the refit onto the boundary map: at the defaults, then in plane by 2
+    os.environ["CTT_FLOOD_TILE"] = FLOOD_TILE
+    from cluster_tools_tpu_torch.ops import watershed as ws_ops
+
+    try:
+        reset_counts(flood_volume, flood_tiles_warm, minimum_filter)
+        run_workflow(T.ScaleToBoundariesTask(
+            os.path.join(work, "tmp_stb"), conf_l, input_path=path, input_key="ws_s1",
+            boundaries_path=shallow_path, boundaries_key="raw", output_path=path,
+            output_key="fitted", offset=VOLUME_OFFSET), "ScaleToBoundariesTask", vox, card, walls)
+        launches["ScaleToBoundariesTask"] = launches_rose((flood_volume, flood_tiles_warm),
+                                                          "ScaleToBoundariesTask")
+        launches["minimum_filter (fit_to_hmap)"] = minimum_filter.launches
+    finally:
+        del os.environ["CTT_FLOOD_TILE"]
+    check_refit(f["fitted"][:], coarse, "ScaleToBoundariesTask")
+    # the defaults erode by 12 in 3d, more than a 2d watershed's fragments
+    # span in z: no object seed survives on these planes; in plane by 2, most
+    # do, so this run is the one held to the plain floods and timed
+    conf_2d = volume_config(work, "volume_refit_2d",
+                            {"scale_to_boundaries": {"erode_by": 2, "erode_3d": False}})
+    stb_args = dict(input_path=path, input_key="ws_s1", boundaries_path=shallow_path,
+                    boundaries_key="raw", offset=VOLUME_OFFSET)
+    refit_call = {}  # the flood's inputs at the first full-size block with object seeds
+    seeded_watershed = ws_ops.seeded_watershed
+
+    def keep_args(hmap, seeds, *args, **kwargs):
+        if objects_in(seeds) and (not refit_call or hmap.numel() > refit_call["hmap"].numel()):
+            refit_call.update(hmap=hmap, seeds=seeds)
+        return seeded_watershed(hmap, seeds, *args, **kwargs)
+
+    def objects_in(seeds):  # seeds other than the background's (the largest id)
+        return int(torch.unique(seeds[seeds > 0]).numel()) > 1
+
+    os.environ["CTT_FLOOD_TILE"] = FLOOD_TILE
+    ws_ops.seeded_watershed = keep_args
+    try:
+        reset_counts(flood_volume, flood_tiles_warm)
+        run_workflow(T.ScaleToBoundariesTask(os.path.join(work, "tmp_stb_2d"), conf_2d,
+                                             output_path=path, output_key="fitted_2d", **stb_args),
+                     "ScaleToBoundariesTask erode_by 2 in plane", vox, card, walls)
+        ws_ops.seeded_watershed = seeded_watershed
+        launches["ScaleToBoundariesTask in plane"] = launches_rose(
+            (flood_volume, flood_tiles_warm), "ScaleToBoundariesTask in plane")
+        plain = T.ScaleToBoundariesTask(os.path.join(work, "tmp_stb_plain"), conf_2d,
+                                        output_path=path, output_key="fitted_plain", **stb_args)
+        config = {**cfg.global_config(conf_2d), **plain.get_task_config()}
+        plain.prepare(blocking, config)
+        check_ids = [0, blocking.n_blocks - 1]
+        with plain_kernels():
+            for bid in check_ids:
+                plain.process_block(bid, blocking, config)
+    finally:
+        ws_ops.seeded_watershed = seeded_watershed
+        del os.environ["CTT_FLOOD_TILE"]
+    fitted = f["fitted_2d"][:]
+    check_refit(fitted, coarse, "ScaleToBoundariesTask in plane", need_ids=True)
+    for bid in check_ids:
+        bb = blocking.block(bid).slicing
+        n_ids = np.unique(fitted[bb][fitted[bb] > 0]).size
+        if n_ids == 0:
+            raise AssertionError(f"ScaleToBoundariesTask in plane: block {bid} holds no object")
+        if not np.array_equal(fitted[bb], f["fitted_plain"][bb]):
+            raise AssertionError(f"ScaleToBoundariesTask in plane: block {bid} differs from the "
+                                 f"plain floods'")
+        log(f"ScaleToBoundariesTask in plane: block {bid} ({n_ids} ids) equal to the plain "
+            f"floods' on the card")
+    if not refit_call:
+        raise AssertionError("ScaleToBoundariesTask in plane: no block with object seeds to time")
+
+    # (d) copy, masks, the affine step
+    roi = ([0, BLOCK[1], BLOCK[2]], [SHALLOW_Z, 3 * BLOCK[1], 3 * BLOCK[2]])
+    conf_c = volume_config(work, "volume_copy", roi_begin=roi[0], roi_end=roi[1])
+    run_workflow(T.CopyVolumeTask(os.path.join(work, "tmp_copy"), conf_c,
+                                  input_path=shallow_path, input_key="raw", output_path=path,
+                                  output_key="copy_u8", dtype="uint8", fit_to_roi=True),
+                 "CopyVolumeTask float32 to uint8 (ROI)",
+                 int(np.prod([e - b for b, e in zip(*roi)])), card, walls)
+    copy = f["copy_u8"][:]
+    for bid in blocking.blocks_overlapping_roi(*roi):
+        bb = blocking.block(bid).slicing
+        out_bb = tuple(slice(b.start - o, b.stop - o) for b, o in zip(bb, roi[0]))
+        if not np.array_equal(copy[out_bb], cast_type(shallow_np[bb], np.uint8)):
+            raise AssertionError(f"CopyVolumeTask block {bid} differs from cast_type")
+    blocks_json = os.path.join(work, "blocks_in_mask.json")
+    run_workflow(T.BlocksFromMaskTask(os.path.join(work, "tmp_bfm"), conf_l, mask_path=path,
+                                      mask_key="mask_half", shape=list(shape),
+                                      output_path=blocks_json),
+                 "BlocksFromMaskTask", vox, card, walls)
+    full = resize_nearest(mask_half.astype(bool), shape)
+    want = [b for b in range(blocking.n_blocks) if full[blocking.block(b).slicing].any()]
+    with open(blocks_json) as fj:
+        if json.load(fj) != want:
+            raise AssertionError("BlocksFromMaskTask: the block list differs from numpy's")
+    reset_counts(minimum_filter)
+    mf = T.MinfilterTask(os.path.join(work, "tmp_minfilter"), conf_l, input_path=path,
+                         input_key="mask_half", output_path=path, output_key="minfilter")
+    run_workflow(mf, "MinfilterTask", int(mask_half.size), card, walls)
+    launches["minimum_filter (MinfilterTask)"] = launches_rose((minimum_filter,), "MinfilterTask")
+    filter_shape = mf.get_task_config()["filter_shape"]
+    halo = [s // 2 + 1 for s in filter_shape]
+    half_blocking = Blocking(mask_half.shape, BLOCK)
+    mf_out = f["minfilter"]
+    pads = {}
+    for bid in (0, half_blocking.n_blocks // 2, half_blocking.n_blocks - 1):
+        bh = half_blocking.block_with_halo(bid, halo)
+        full_shape = tuple(b + 2 * h for b, h in zip(BLOCK, halo))
+        x = mask_half[bh.outer.slicing].astype(np.float32)
+        x = np.pad(x, [(0, s - n) for s, n in zip(full_shape, x.shape)], mode="edge")
+        pads[bid] = x
+        want = ndimage.minimum_filter(x, size=filter_shape, mode="nearest")[bh.inner_local.slicing]
+        if not np.array_equal(mf_out[bh.inner.slicing], want.astype(np.uint8)):
+            raise AssertionError(f"MinfilterTask block {bid} differs from scipy's")
+    trafo = {str(z): {"a": 0.5 + z / 64, "b": 0.01 * z - 0.1} for z in range(shape[0])}
+    trafo_path = os.path.join(work, "trafo.json")
+    with open(trafo_path, "w") as fj:
+        json.dump(trafo, fj)
+    reset_counts(linear_batch)
+    run_workflow(T.LinearTransformationTask(os.path.join(work, "tmp_linear"), conf_l,
+                                            input_path=shallow_path, input_key="raw",
+                                            output_path=path, output_key="linear",
+                                            transformation=trafo_path, mask_path=path,
+                                            mask_key="mask"),
+                 "LinearTransformationTask per slice, masked", vox, card, walls)
+    launches["linear_batch"] = launches_rose((linear_batch,), "LinearTransformationTask")
+    a = np.asarray([trafo[str(z)]["a"] for z in range(shape[0])], np.float32)[:, None, None]
+    b = np.asarray([trafo[str(z)]["b"] for z in range(shape[0])], np.float32)[:, None, None]
+    for bid in (0, blocking.n_blocks // 2, blocking.n_blocks - 1):
+        bb = blocking.block(bid).slicing
+        x = shallow_np[bb]
+        want = np.where(mask[bb] > 0, fma_np(np.broadcast_to(a[bb[0]], x.shape), x,
+                                             np.broadcast_to(b[bb[0]], x.shape)), x)
+        if not np.array_equal(f["linear"][bb], want):
+            raise AssertionError(f"LinearTransformationTask block {bid} differs from numpy's "
+                                 f"fused multiply-add")
+    log("copy equal to cast_type per block; the block list numpy's; the minimum filter scipy's "
+        "on three blocks; the affine step numpy's fused multiply-add on three blocks")
+
+    # (e) the paintera label container over its ROI
+    conf_p = volume_config(work, "volume_paintera", roi_begin=PAINTERA_ROI[0],
+                           roi_end=PAINTERA_ROI[1])
+    out_p = os.path.join(work, "volume_paintera.n5")
+    roi_bb = tuple(slice(b, e) for b, e in zip(*PAINTERA_ROI))
+    run_workflow(W.PainteraConversionWorkflow(
+        os.path.join(work, "tmp_paintera"), conf_p, input_path=path, input_key="ws",
+        output_path=out_p, label_group="paintera", scale_factors=[[1, 2, 2], [1, 2, 2]],
+        resolution=[40, 4, 4]), "PainteraConversionWorkflow (ROI)",
+        int(np.prod([e - b for b, e in zip(*PAINTERA_ROI)])), card, walls)
+    fp = file_reader(out_p, "r")
+    m = LM.read_multiset_region(fp["paintera/data/s0"], roi_bb)
+    if not np.array_equal(m.argmax.reshape(ws[roi_bb].shape), ws[roi_bb]):
+        raise AssertionError("paintera: the s0 multiset's argmax differs from the labels")
+    uniq0 = fp["paintera/unique-labels/s0"]
+    roi_blocks = [b for b in range(blocking.n_blocks)
+                  if all(s.start >= lo and s.stop <= hi for s, lo, hi in
+                         zip(blocking.block(b).slicing, *PAINTERA_ROI))]
+    for bid in roi_blocks:
+        got = uniq0.read_chunk_varlen(blocking.block_grid_position(bid))
+        if not np.array_equal(got, np.unique(ws[blocking.block(bid).slicing])):
+            raise AssertionError(f"paintera: unique labels of s0 block {bid} differ from numpy's")
+    s1_region = ws[:BLOCK[0], :2 * BLOCK[1], :2 * BLOCK[2]].copy()  # s1 block 0's footprint
+    s1_region[:, PAINTERA_ROI[1][1]:] = 0  # s0 chunks outside the ROI are unwritten: background
+    s1_region[:, :, PAINTERA_ROI[1][2]:] = 0
+    if not np.array_equal(fp["paintera/unique-labels/s1"].read_chunk_varlen((0, 0, 0)),
+                          np.unique(s1_region)):
+        raise AssertionError("paintera: unique labels of s1 block 0 differ from numpy's")
+    mapping = PT.read_label_block_mapping(out_p, "paintera/label-to-block-mapping/s0")
+    for bid in roi_blocks:
+        for label in np.unique(ws[blocking.block(bid).slicing]).tolist():
+            if bid not in mapping.get(int(label), []):
+                raise AssertionError(f"paintera: label {label} of block {bid} not in the mapping")
+    if sum(len(v) for v in mapping.values()) != sum(
+            np.unique(ws[blocking.block(b).slicing]).size for b in roi_blocks):
+        raise AssertionError("paintera: the mapping lists blocks that do not hold the label")
+    log(f"paintera over {PAINTERA_ROI}: s0 argmax equals the labels; unique labels of s0 blocks "
+        f"{roi_blocks} and s1 block 0 equal numpy's; the mapping inverts them ({len(mapping)} ids)")
+    if libs["h5py"]:
+        h5 = os.path.join(work, "volume_bdv.h5")
+        run_workflow(W.PainteraToBdvWorkflow(os.path.join(work, "tmp_bdv_h5"), conf,
+                                             input_path=path, input_key_prefix="pyramid",
+                                             output_path=h5),
+                     "PainteraToBdvWorkflow bdv.hdf5", vox, card, walls)
+        from cluster_tools_tpu_torch.utils import store
+
+        fh = file_reader(h5, "r")
+        for s in range(4):
+            if not np.array_equal(fh[f"t00000/s00/{s}/cells"][:], f[f"pyramid/s{s}"][:]):
+                raise AssertionError(f"bdv.hdf5 scale {s} differs from the paintera scale")
+        store.release_h5_handles()
+        import h5py
+
+        big = os.path.join(work, "volume_bigcat.h5")
+        with h5py.File(big, "w") as fh5:
+            fh5.create_dataset("volumes/raw", data=raw8[roi_bb])
+            fh5.create_dataset("volumes/labels/fragments", data=ws[roi_bb])
+        n_frag = int(ws[roi_bb].max()) + 1
+        assignments = (np.arange(n_frag) % 7).astype(np.uint64)
+        f.create_dataset("assignments", data=assignments, chunks=(n_frag,))
+        run_workflow(W.BigcatWorkflow(os.path.join(work, "tmp_bigcat"), conf_l,
+                                      assignment_path=path, assignment_key="assignments",
+                                      output_path=big, resolution=[40, 4, 4]),
+                     "BigcatWorkflow (ROI)", int(ws[roi_bb].size), card, walls)
+        with h5py.File(big, "r") as fh5:
+            lut = fh5["fragment_segment_lut"][:]
+            if not (np.array_equal(lut[0], np.arange(n_frag)) and
+                    np.array_equal(lut[1], assignments + np.uint64(n_frag))
+                    and int(fh5.attrs["next_id"]) == int(lut.max()) + 1):
+                raise AssertionError("bigcat: the fragment-segment table or next_id is wrong")
+        log("bdv.hdf5: every scale equal to the paintera one; bigcat: the table and next_id right")
+    else:
+        log("phase 25: no h5py on this host: the bdv.hdf5 and bigcat legs are left out")
+
+    # the device functions at the phase's shapes (CUDA events)
+    records = volume_device_functions(raw8, pads[0], shallow_np, mask, a, b, launches, card, dev)
+    records += refit_kernel_times(refit_call, launches["ScaleToBoundariesTask in plane"],
+                                  card)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 25 done ({seconds:.1f} s)")
+    return {"walls": walls, "launches": launches, "records": records, "seconds": seconds,
+            "shape": shape}
+
+
+def refit_kernel_times(call: dict, launches: dict, card: str) -> list:
+    """Kernel 3 and the 3d flood timed (``cuda_ms``) on the inputs of the
+    largest block of ``ScaleToBoundariesTask``'s in-plane run whose seeds
+    hold objects (an interior block, halo'd in y and x), with the arguments
+    ``seeded_watershed`` gives them under ``FLOOD_TILE``; bounds as phase
+    5's, 13 and 17 bytes per voxel.  The launches counted here are not the
+    run's."""
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_tiles_warm, flood_volume
+    from cluster_tools_tpu_torch.ops.cc import parse_tile_spec
+    from cluster_tools_tpu_torch.ops.watershed import resolve_flood_tile
+
+    hmap, seeds = call["hmap"], call["seeds"]
+    h, w = hmap.shape[-2:]
+    mask = torch.ones(hmap.shape, dtype=torch.bool, device=hmap.device)
+    tile = resolve_flood_tile(tuple(hmap.shape[-3:]), parse_tile_spec(FLOOD_TILE, 3))
+    k3_args = (hmap.reshape(-1, h, w), seeds.reshape(-1, h, w), mask.reshape(-1, h, w), tile[1:])
+    saved = (flood_tiles_warm.launches, flood_volume.launches)
+    warm = flood_tiles_warm(*k3_args).view((1,) + tuple(hmap.shape))
+    fv_args = tuple(t.reshape((1,) + tuple(hmap.shape)) for t in (hmap, seeds, mask))
+    records = []
+    for name, fn, args, kwargs, per_voxel in (
+            ("flood_tiles_warm", flood_tiles_warm, k3_args, {}, 13),
+            ("flood_volume", flood_volume, fv_args, {"warm": warm}, 17)):
+        ms = cuda_ms(lambda: fn(*args, **kwargs), 5)
+        vox = args[0].numel()
+        records.append({"name": f"{name} at ScaleToBoundariesTask's block", "shape":
+                        list(args[0].shape), "ms": ms, "launches": launches[name],
+                        "bound_ms": per_voxel * vox / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                        "library_ms": None})
+        log(f"kernel on {card}: {records[-1]}")
+    flood_tiles_warm.launches, flood_volume.launches = saved
+    return records
+
+
+def volume_device_functions(raw8, minfilter_block, raw, mask, a, b, launches: dict, card: str,
+                            dev) -> list:
+    """Phase 25's device functions timed on the card at the phase's shapes
+    (``cuda_ms``, CUDA events): ``downscale`` "interpolate" and "mean" on one
+    s1 block's input (32, 512, 512) uint8 ([1, 2, 2]), the minimum filter on
+    one halo'd block of the half-resolution mask, the affine step on one
+    block.  Bounds: bytes (inputs read once, outputs written once) over
+    3.35 TB/s against float32 operations over 67 TFLOP/s — the interpolation
+    a multiply-add per nonzero tap of its weight matrices, the mean 4 adds
+    and a division per output, the minimum filter one comparison per window
+    tap of each separable pass, the affine step one multiply-add.  Library:
+    ``F.interpolate`` (bilinear, antialiased) for the interpolation, its
+    largest difference printed; ``F.avg_pool3d`` for the mean (the shape
+    divides); none for the rest."""
+    from cluster_tools_tpu_torch.ops import resample
+    from cluster_tools_tpu_torch.ops.filters import minimum_filter
+    from cluster_tools_tpu_torch.tasks.transformations import linear_batch
+
+    def bound(nbytes, ops):
+        bb, oo = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        return (bb, "bytes") if bb >= oo else (oo, "operations")
+
+    saved = {fn: fn.launches for fn in (resample.downscale, minimum_filter, linear_batch)}
+    zb, yb, xb = BLOCK
+    x = torch.from_numpy(raw8[:zb, :2 * yb, :2 * xb]).to(dev)
+    n_in, n_out = x.numel(), x.numel() // 4
+    records = []
+    interp = resample.downscale(x, [1, 2, 2], "interpolate")
+    interp_ms = cuda_ms(lambda: resample.downscale(x, [1, 2, 2], "interpolate"), 5)
+    # the triangle's taps: a multiply-add for each nonzero weight of the y
+    # pass (over every x) and of the x pass (over the halved y)
+    z, y, xw = x.shape
+    y2 = -(-y // 2)
+    taps_y = int((resample.weight_matrix(y, y2, dev) != 0).sum())
+    taps_x = int((resample.weight_matrix(xw, -(-xw // 2), dev) != 0).sum())
+    b_ms, b_by = bound(n_in + 4 * n_out, 2 * z * (xw * taps_y + y2 * taps_x))
+    # z is unchanged, so one antialiased bilinear resize of the planes is the
+    # same function (the half-pixel triangle widened by the factor, renormalised)
+    xf = x.float()[None]
+
+    def library():
+        return torch.nn.functional.interpolate(xf, size=tuple(interp.shape[1:]),
+                                               mode="bilinear", antialias=True)
+
+    lib_err = float((library()[0] - interp).abs().max())
+    lib_ms = cuda_ms(library, 5)
+    records.append({"name": "downscale interpolate ([1, 2, 2], antialiased linear; "
+                            "DownscalingTask)", "shape": list(x.shape), "ms": interp_ms,
+                    "launches": launches["downscale interpolate"]["downscale"],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                    "library_max_abs_err": lib_err})
+    del interp
+    mean_ms = cuda_ms(lambda: resample.downscale(x, [1, 2, 2], "mean"), 5)
+    xf = x.float()
+    lib_ms = cuda_ms(lambda: torch.nn.functional.avg_pool3d(xf[None, None], (1, 2, 2)), 5)
+    b_ms, b_by = bound(n_in + 4 * n_out, 5 * n_out)
+    records.append({"name": "downscale mean ([1, 2, 2]; DownscalingTask, skimage)",
+                    "shape": list(x.shape), "ms": mean_ms,
+                    "launches": launches["downscale mean"]["downscale"], "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms})
+    del x, xf
+    m = torch.from_numpy(minfilter_block[None]).to(dev)
+    size = [10, 100, 100]
+    mf_ms = cuda_ms(lambda: minimum_filter(m, size), 3)
+    b_ms, b_by = bound(8 * m.numel(), sum(size) * m.numel())
+    records.append({"name": "minimum_filter ((10, 100, 100); MinfilterTask)",
+                    "shape": list(m.shape), "ms": mf_ms,
+                    "launches": launches["minimum_filter (MinfilterTask)"]["minimum_filter"],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    del m
+    xs = torch.from_numpy(np.ascontiguousarray(raw[:zb, :yb, :xb])[None]).to(dev)
+    ms_ = torch.from_numpy(mask[:zb, :yb, :xb][None] > 0).to(dev)
+    az = torch.from_numpy(a[:zb, 0, 0][None].copy()).to(dev)
+    bz = torch.from_numpy(b[:zb, 0, 0][None].copy()).to(dev)
+    lin_ms = cuda_ms(lambda: linear_batch(xs, az, bz, ms_), 5)
+    b_ms, b_by = bound(9 * xs.numel(), 2 * xs.numel())
+    records.append({"name": "linear_batch (masked a*x + b, one rounding; "
+                            "LinearTransformationTask)", "shape": list(xs.shape), "ms": lin_ms,
+                    "launches": launches["linear_batch"]["linear_batch"], "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None})
+    for fn, n in saved.items():
+        fn.launches = n
+    for rec in records:
+        rec["gap_ms"] = rec["ms"] - rec["bound_ms"]
+        log(f"device function on {card}: {rec}")
+    return records
+
+
 @contextlib.contextmanager
 def failed_blocks_printed(work: str):
     """On any failure inside, print the failed-block tracebacks of every
@@ -4138,7 +4814,15 @@ def main() -> int:
     ap.add_argument("--container-phases", action="store_true",
                     help="only the build, the volume, phase 3 and phases 22-24 (no result "
                          "line)")
+    ap.add_argument("--volume-phases", action="store_true",
+                    help="only the build, the volume, phase 3 and phase 25 (no result line)")
+    ap.add_argument("--fixpoint-paths", action="store_true",
+                    help="phases 2 and 5 also time the plain floods down each card path of "
+                         "their fixpoint loop (CUDA graphs after the first rounds, from the "
+                         "first round, never)")
     args = ap.parse_args()
+    global FIXPOINT_PATHS
+    FIXPOINT_PATHS = args.fixpoint_paths
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4187,7 +4871,7 @@ def main() -> int:
         log(f"script: {time.perf_counter() - t_start:.1f} s")
         faulthandler.cancel_dump_traceback_later()
         return 0
-    if not (args.label_phases or args.container_phases):
+    if not (args.label_phases or args.container_phases or args.volume_phases):
         phase_start(2, t_start)
         records = kernel_phase(vol, dev, args.batch)
         records.update(cc_kernel_phase(vol, dev, args.batch, args.compare))
@@ -4236,6 +4920,15 @@ def main() -> int:
             workflow_phase(vol_np, path, work, card)
             new_walls = slice13_phases(shallow_np, path, work, card, libs, dev, t_start)
             log(f"container, lifted and learning phases: {new_walls}")
+            log(f"script: {time.perf_counter() - t_start:.1f} s")
+            faulthandler.cancel_dump_traceback_later()
+            return 0
+        if args.volume_phases:
+            phase_start(3, t_start)
+            workflow_phase(vol_np, path, work, card)
+            phase_start(25, t_start)
+            vp = volume_phase(shallow_np, shallow_path, path, work, card, libs, dev)
+            log(f"volume phase: walls {vp['walls']}; launches {vp['launches']}")
             log(f"script: {time.perf_counter() - t_start:.1f} s")
             faulthandler.cancel_dump_traceback_later()
             return 0
@@ -4299,6 +4992,8 @@ def main() -> int:
         log(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
         slice_walls = label_phases(cut_np, cut_path, path, work, card, mc, t_start)
         new_walls = slice13_phases(shallow_np, path, work, card, libs, dev, t_start)
+        phase_start(25, t_start)
+        vp = volume_phase(shallow_np, shallow_path, path, work, card, libs, dev)
         phase_start(21, t_start)
         slice_records = slice_device_functions(fb, at, card)
     for name, rec in records.items():
@@ -4343,9 +5038,12 @@ def main() -> int:
         log(f"{card}: {tag} {shallow_np.shape} {int(np.prod(shallow_np.shape)) / wall:.6g} "
             f"voxels/s ({wall:.3f} s)")
     log(f"phases 22-24 kernel launches {new_walls['launches']}")
+    log(f"{card}: phase 25 walls (s; voxels/s in each run's line above) {vp['walls']}; "
+        f"launches {vp['launches']}; {vp['seconds']:.1f} s")
     faulthandler.cancel_dump_traceback_later()
     log(f"script: {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"device_functions": [mc["accumulator"], device_mws] + slice_records}))
+    log(json.dumps({"device_functions": [mc["accumulator"], device_mws] + slice_records
+                    + vp["records"]}))
     log(json.dumps({"filling_filter_kernels": slice_walls["kernels"]}))
     log(json.dumps({"kernels": [records[k] for k in (
         "flood_slices", "dtws_slices", "flood_tiles_warm", "cc_slices", "cc_tiles",

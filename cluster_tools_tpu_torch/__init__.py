@@ -11,8 +11,12 @@ mutex watershed's ``MwsWorkflow`` (blockwise MWS, face stitching) and
 ``TwoPassMwsWorkflow``, and the label bookkeeping, postprocessing and graph
 stitching workflows (``workflows/relabel.py``, ``morphology.py``,
 ``postprocessing.py``, ``stitching.py``), the lifted multicut
-(``LiftedMulticutSegmentationWorkflow``) and the edge-classifier
-``LearningWorkflow``; the store reads and writes raw, gzip and blosc chunks
+(``LiftedMulticutSegmentationWorkflow``), the edge-classifier
+``LearningWorkflow`` and the volume ops and exports (scale pyramids in the
+paintera and BigDataViewer layouts, copies, masks, intensity
+transformations, label multisets, paintera and bigcat containers:
+``workflows/downscaling.py``, ``transformations.py``, ``paintera.py``,
+``bigcat.py``); the store reads and writes raw, gzip and blosc chunks
 in n5 and zarr and opens hdf5 files; all five TPU kernels are
 hand-written CUDA for Hopper (``csrc/``), built with ``nvcc`` at first use,
 the multicut and mutex-watershed solvers C++ built with ``g++`` at first

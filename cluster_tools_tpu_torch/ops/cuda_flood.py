@@ -62,21 +62,81 @@ _OFFSETS = ((0, -1), (0, 1), (-1, 0), (1, 0))
 _OFFSETS_3D = ((0, 0, -1), (0, 0, 1), (0, -1, 0), (0, 1, 0), (-1, 0, 0), (1, 0, 0))
 
 
+# A plain flood tests for its fixpoint after every round for its first
+# GRAPH_AFTER_ROUNDS rounds (on the CPU, after every round to the end).  A
+# flood still moving then is a long one (a corridor: thousands of rounds of
+# small launches), and on the card its further rounds run in stretches of
+# CHECK_EVERY_CUDA captured once as a CUDA graph and replayed, the fixpoint
+# tested after each stretch: every round is monotone (values only fall, in
+# lexicographic order for phase 2), so rounds past the fixpoint change
+# nothing and the result is the same as testing after every round.  The
+# switch comes when the rounds launched so far cost about what a capture
+# does (~0.2 s against ~1.3 ms per launched round of a small state on an
+# H100: ``chip_smoke.py --fixpoint-paths``), so a flood never takes more
+# than about twice its faster path's time.
+GRAPH_AFTER_ROUNDS = 128
+CHECK_EVERY_CUDA = 32
+
+
+def _neighbours(x: torch.Tensor, offsets, fill):
+    """``[shift(x, off, fill) for off in offsets]`` as views of one padded
+    copy of ``x`` (each offset of the trailing ``len(off)`` axes is -1, 0
+    or 1)."""
+    nd = len(offsets[0])
+    p = torch.nn.functional.pad(x, (1, 1) * nd, value=fill)
+    lead = [slice(None)] * (x.dim() - nd)
+    return [p[tuple(lead + [slice(1 + o, 1 + o + n) for o, n in zip(off, x.shape[-nd:])])]
+            for off in offsets]
+
+
+def _fixpoint(step, state):
+    """Apply ``step`` to the tuple ``state`` until a round changes nothing:
+    round by round for ``GRAPH_AFTER_ROUNDS`` rounds (on the CPU to the
+    end), then on the card in graph-replayed stretches of
+    ``CHECK_EVERY_CUDA`` rounds (the same operations in the same order, so
+    the same values)."""
+    rounds = 0
+    while not state[0].is_cuda or rounds < GRAPH_AFTER_ROUNDS:
+        new = step(state)
+        if all(torch.equal(a, b) for a, b in zip(new, state)):
+            return new
+        state = new
+        rounds += 1
+    inp = tuple(t.clone() for t in state)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(inp)  # warm-up outside the capture, as CUDA graphs need
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = inp
+        for _ in range(CHECK_EVERY_CUDA):
+            out = step(out)
+    while True:
+        graph.replay()
+        if all(torch.equal(a, b) for a, b in zip(out, inp)):
+            return tuple(t.clone() for t in out)
+        for a, b in zip(inp, out):
+            a.copy_(b)
+
+
 def _altitude_plain(hmap, mask, conduct, alt, links):
     """Phase 1 to its fixpoint: ``A(p) = min(A(p), max(min_q A(q), h(p)))``
     where ``p`` conducts, over the linked neighbours ``q`` (``links``:
     ``(offset, ok)`` pairs, ``ok`` None or where the link exists)."""
     big = torch.tensor(BIG, dtype=torch.float32, device=hmap.device)
-    while True:
-        alt_m = torch.where(mask, alt, big)
-        nb = torch.full_like(alt, BIG)
-        for off, ok in links:
-            q = shift(alt_m, off, BIG)
-            nb = torch.minimum(nb, q if ok is None else torch.where(ok, q, big))
-        new = torch.where(conduct, torch.minimum(alt, torch.maximum(nb, hmap)), alt)
-        if torch.equal(new, alt):
-            return alt
-        alt = new
+    offsets = [off for off, _ in links]
+
+    def step(state):
+        (alt,) = state
+        nb = None
+        for q, (_, ok) in zip(_neighbours(torch.where(mask, alt, big), offsets, BIG), links):
+            q = q if ok is None else torch.where(ok, q, big)
+            nb = q if nb is None else torch.minimum(nb, q)
+        return (torch.where(conduct, torch.minimum(alt, torch.maximum(nb, hmap)), alt),)
+
+    return _fixpoint(step, (alt,))[0]
 
 
 def _flood_plain(hmap, seeds, mask, offsets, warm=None):
@@ -98,22 +158,18 @@ def _flood_plain(hmap, seeds, mask, offsets, warm=None):
     alt = _altitude_plain(hmap, mask, conduct, alt, [(off, None) for off in offsets])
 
     # phase 2: (hops, label) over optimal-prefix edges, smaller label on ties
-    alt_m = torch.where(mask, alt, big)
-    dist = torch.where(is_seed, 0, BIG_DIST).to(torch.int64)
-    label = seeds
-    edges = [
-        (off, conduct & (alt == torch.maximum(shift(alt_m, off, BIG), hmap)))
-        for off in offsets
-    ]
-    while True:
+    edges = [conduct & (alt == torch.maximum(q, hmap))
+             for q in _neighbours(torch.where(mask, alt, big), offsets, BIG)]
+
+    def step(state):
+        dist, label = state
         best_d, best_l = dist, label
-        lab_m = torch.where(mask, label, 0)
-        for off, ok in edges:
-            q_l = torch.where(ok, shift(lab_m, off, 0), 0)
-            best_d, best_l = minlex(shift(dist, off, BIG_DIST) + 1, q_l, best_d, best_l)
-        if torch.equal(best_d, dist) and torch.equal(best_l, label):
-            break
-        dist, label = best_d, best_l
+        labs = _neighbours(torch.where(mask, label, 0), offsets, 0)
+        for q_d, q_l, ok in zip(_neighbours(dist, offsets, BIG_DIST), labs, edges):
+            best_d, best_l = minlex(q_d + 1, torch.where(ok, q_l, 0), best_d, best_l)
+        return best_d, best_l
+
+    dist, label = _fixpoint(step, (torch.where(is_seed, 0, BIG_DIST).to(torch.int64), seeds))
     return torch.where(mask, label, 0).to(torch.int32)
 
 
@@ -460,13 +516,18 @@ def flood_volume_scan(
     mask: torch.Tensor,
     warm: Optional[torch.Tensor] = None,
     cuts=kernel_cuts,
+    per_item: bool = False,
 ):
     """The 3d flood of a (B, Z, H, W) batch on the kernel's schedule: rounds
     of the six sweeps (z, y, x, each forward then backward) until a round
     changes nothing, each sweep run as ``scan_sweep`` on lines cut where
     ``cuts(axis, n, rev)`` says, phase 2 from ``volume_edges``.  Returns the
     int32 labels (0 off the mask), the altitudes and the rounds of each
-    phase: the counts the kernel must report."""
+    phase: the counts the kernel must report.  With ``per_item`` the rounds
+    are a list of each block's (phase 1, phase 2) rounds, those the kernel
+    reports for that block alone: blocks never interact, a block's rounds
+    are one more than the rounds that changed it, and a batch's are the
+    most of its blocks' — so one call serves several gates' inputs."""
     hmap = hmap.to(torch.float32)
     mask = mask.bool()
     seeds = torch.where(mask, seeds.to(torch.int32), 0)
@@ -489,32 +550,38 @@ def flood_volume_scan(
             return tuple(_unsweep_lines(o, axis, rev) for o in out)
         return _unsweep_lines(out, axis, rev)
 
-    r1 = 0
+    def moved(new, old):
+        return (new != old).reshape(new.shape[0], -1).any(1)
+
+    r1 = torch.ones(hmap.shape[0], dtype=torch.int64, device=hmap.device)
     while True:
-        r1 += 1
-        changed = False
+        changed = torch.zeros_like(r1, dtype=torch.bool)
         for d in range(6):
             new = sweep(d, (alt, hm), clamp_compose, clamp_apply, (float("inf"), float("-inf")), BIG)
-            changed |= not torch.equal(new, alt)
+            changed |= moved(new, alt)
             alt = new
-        if not changed:
+        if not bool(changed.any()):
             break
+        r1 += changed
 
     edges = volume_edges(alt, hmap, mask, seeds)
     dist = torch.where(is_seed, 0, BIG_DIST).to(torch.int64)
     label = seeds.to(torch.int64)
-    r2 = 0
+    r2 = torch.ones_like(r1)
     while True:
-        r2 += 1
-        changed = False
+        changed = torch.zeros_like(r1, dtype=torch.bool)
         for d in range(6):
             f = assign_transfers(dist, label, (edges >> d) & 1 == 1)
             nd, nl = sweep(d, f, assign_compose, assign_apply, (BIG_DIST, 0, 0), (BIG_DIST, 0))
-            changed |= not (torch.equal(nd, dist) and torch.equal(nl, label))
+            changed |= moved(nd, dist) | moved(nl, label)
             dist, label = nd, nl
-        if not changed:
+        if not bool(changed.any()):
             break
-    return torch.where(mask, label, 0).to(torch.int32), alt, (r1, r2)
+        r2 += changed
+    rounds = list(zip(r1.tolist(), r2.tolist()))
+    if not per_item:
+        rounds = (max(r for r, _ in rounds), max(r for _, r in rounds))
+    return torch.where(mask, label, 0).to(torch.int32), alt, rounds
 
 
 def flood_tiles_warm_scan(

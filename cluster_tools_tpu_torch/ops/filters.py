@@ -134,7 +134,11 @@ def maximum_filter(x: torch.Tensor, size: Union[int, Sequence[int]]) -> torch.Te
 def minimum_filter(x: torch.Tensor, size: Union[int, Sequence[int]]) -> torch.Tensor:
     """Moving-window minimum (scipy.ndimage.minimum_filter equivalent —
     reference masking/minfilter.py:110-119), as ``maximum_filter``."""
+    count_on_card(minimum_filter, x)
     return _window_filter(x, size, torch.minimum)
+
+
+minimum_filter.launches = 0  # calls on a card
 
 
 def normalize(x: torch.Tensor, dims: Optional[Sequence[int]] = None, eps: float = 1e-6) -> torch.Tensor:

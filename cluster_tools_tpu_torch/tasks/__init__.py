@@ -1,9 +1,12 @@
 from .affinities import EmbeddingDistancesTask, GradientsTask, InsertAffinitiesTask
 from .agglomerative_clustering import AGGLO_ASSIGNMENTS_NAME, AgglomerativeClusteringTask
+from .copy_volume import CopyVolumeTask
 from .costs import ProbsToCostsTask
 from .debugging import CheckComponentsTask, CheckSubGraphsTask
+from .downscaling import DownscalingTask, ScaleToBoundariesTask, UpscalingTask
 from .features import BlockEdgeFeaturesTask, MergeEdgeFeaturesTask
 from .graph import InitialSubGraphsTask, MapEdgeIdsTask, MergeScaleSubGraphsTask, MergeSubGraphsTask
+from .label_multisets import CreateMultisetTask, DownscaleMultisetTask
 from .learning import EdgeLabelsTask, LearnRFTask, PredictEdgeProbabilitiesTask
 from .lifted_features import (
     ClearLiftedEdgesFromLabelsTask,
@@ -17,6 +20,7 @@ from .lifted_multicut import (
     SolveLiftedGlobalTask,
     SolveLiftedSubproblemsTask,
 )
+from .masking import BlocksFromMaskTask, MinfilterTask
 from .multicut import (
     ReduceProblemTask,
     ReducedAssignmentsTask,
@@ -27,6 +31,7 @@ from .multicut import (
 from .morphology import BlockMorphologyTask, MergeMorphologyTask, RegionCentersTask
 from .mws import MwsBlocksTask, TwoPassMwsTask
 from .node_labels import BlockNodeLabelsTask, MergeNodeLabelsTask
+from .paintera import LabelBlockMappingTask, UniqueBlockLabelsTask
 from .postprocess import (
     BackgroundSizeFilterTask,
     FillingSizeFilterTask,
@@ -48,6 +53,7 @@ from .stitching import (
     StitchingMulticutTask,
 )
 from .threshold import ThresholdTask
+from .transformations import LinearTransformationTask
 from .thresholded_components import (
     BlockComponentsTask,
     BlockFacesTask,
@@ -67,23 +73,25 @@ from .write import WriteTask
 __all__ = [
     "AGGLO_ASSIGNMENTS_NAME", "AgglomerateTask", "AgglomerativeClusteringTask",
     "BackgroundSizeFilterTask", "BlockComponentsTask", "BlockEdgeFeaturesTask",
-    "BlockFacesTask", "BlockMorphologyTask", "BlockNodeLabelsTask", "CheckComponentsTask",
-    "CheckSubGraphsTask", "ClearLiftedEdgesFromLabelsTask", "EdgeLabelsTask",
-    "EmbeddingDistancesTask", "FillingSizeFilterTask",
-    "FilterBlocksTask", "FindLabelingTask", "FindUniquesTask", "GradientsTask",
-    "GraphConnectedComponentsTask", "GraphWatershedAssignmentsTask", "IdFilterTask",
-    "ImageFilterTask", "InitialSubGraphsTask", "InsertAffinitiesTask",
-    "LIFTED_ASSIGNMENTS_NAME", "LearnRFTask", "LiftedCostsFromNodeLabelsTask",
-    "MAX_IDS_KEY", "MapEdgeIdsTask", "MergeAssignmentsTask", "MergeEdgeFeaturesTask",
-    "MergeLiftedProblemsTask", "MergeMorphologyTask", "MergeNodeLabelsTask", "MergeOffsetsTask",
-    "MergeRegionFeaturesTask", "MergeScaleSubGraphsTask", "MergeSubGraphsTask",
-    "MergeUniquesTask", "MwsBlocksTask", "OrphanAssignmentsTask",
-    "PredictEdgeProbabilitiesTask", "ProbsToCostsTask", "ReduceLiftedProblemTask",
-    "ReduceProblemTask", "ReducedAssignmentsTask", "RegionCentersTask",
-    "RegionFeaturesTask", "STITCH_ASSIGNMENTS_NAME", "SimpleStitchAssignmentsTask",
-    "SimpleStitchEdgesTask", "SizeFilterTask", "SolveGlobalTask", "SolveLiftedGlobalTask",
-    "SolveLiftedSubproblemsTask", "SolveSubproblemsTask", "SparseLiftedNeighborhoodTask",
+    "BlockFacesTask", "BlockMorphologyTask", "BlockNodeLabelsTask", "BlocksFromMaskTask",
+    "CheckComponentsTask", "CheckSubGraphsTask", "ClearLiftedEdgesFromLabelsTask",
+    "CopyVolumeTask", "CreateMultisetTask", "DownscaleMultisetTask", "DownscalingTask",
+    "EdgeLabelsTask", "EmbeddingDistancesTask", "FillingSizeFilterTask", "FilterBlocksTask",
+    "FindLabelingTask", "FindUniquesTask", "GradientsTask", "GraphConnectedComponentsTask",
+    "GraphWatershedAssignmentsTask", "IdFilterTask", "ImageFilterTask", "InitialSubGraphsTask",
+    "InsertAffinitiesTask", "kernel_params", "LabelBlockMappingTask", "LearnRFTask",
+    "LIFTED_ASSIGNMENTS_NAME", "LiftedCostsFromNodeLabelsTask", "LinearTransformationTask",
+    "MapEdgeIdsTask", "MAX_IDS_KEY", "MergeAssignmentsTask", "MergeEdgeFeaturesTask",
+    "MergeLiftedProblemsTask", "MergeMorphologyTask", "MergeNodeLabelsTask",
+    "MergeOffsetsTask", "MergeRegionFeaturesTask", "MergeScaleSubGraphsTask",
+    "MergeSubGraphsTask", "MergeUniquesTask", "MinfilterTask", "MwsBlocksTask",
+    "OrphanAssignmentsTask", "PredictEdgeProbabilitiesTask", "ProbsToCostsTask",
+    "ReducedAssignmentsTask", "ReduceLiftedProblemTask", "ReduceProblemTask",
+    "RegionCentersTask", "RegionFeaturesTask", "ScaleToBoundariesTask",
+    "SimpleStitchAssignmentsTask", "SimpleStitchEdgesTask", "SizeFilterTask",
+    "SolveGlobalTask", "SolveLiftedGlobalTask", "SolveLiftedSubproblemsTask",
+    "SolveSubproblemsTask", "SparseLiftedNeighborhoodTask", "STITCH_ASSIGNMENTS_NAME",
     "StitchAssignmentsTask", "StitchFacesTask", "StitchingMulticutTask", "SubSolutionsTask",
-    "ThresholdTask", "TwoPassMwsTask", "TwoPassWatershedTask",
-    "WatershedFromSeedsTask", "WatershedTask", "WriteTask", "kernel_params",
+    "ThresholdTask", "TwoPassMwsTask", "TwoPassWatershedTask", "UniqueBlockLabelsTask",
+    "UpscalingTask", "WatershedFromSeedsTask", "WatershedTask", "WriteTask",
 ]

@@ -217,6 +217,12 @@ class Attributes:
     def __contains__(self, key: str) -> bool:
         return key not in self._reserved and key in self._load()
 
+    def get(self, key: str, default: Any = None) -> Any:
+        return default if key in self._reserved else self._load().get(key, default)
+
+    def keys(self):
+        return [k for k in self._load() if k not in self._reserved]
+
 
 def _blosc_mod():
     from . import blosc
@@ -517,6 +523,10 @@ class Dataset:
     def ndim(self) -> int:
         return len(self.shape)
 
+    @property
+    def chunk_grid(self) -> Tuple[int, ...]:
+        return tuple(-(-s // c) for s, c in zip(self.shape, self.chunks))
+
     def _chunk_path(self, grid_pos) -> str:
         return os.path.join(self.path, self._fmt.chunk_key(grid_pos, self._separator))
 
@@ -752,9 +762,17 @@ class Group:
         if not readonly:
             os.makedirs(self.path, exist_ok=True)
             fmt.init_group(self.path)
+        # a group may carry "dataType" (the bdv setup's metadata); the other
+        # structural keys stay guarded so that it is never taken for an array
+        self.attrs = Attributes(os.path.join(self.path, fmt.attrs_file),
+                                tuple(k for k in fmt.attrs_reserved if k != "dataType"))
 
     def __contains__(self, key: str) -> bool:
         return os.path.isdir(os.path.join(self.path, key))
+
+    def keys(self):
+        return [k for k in sorted(os.listdir(self.path))
+                if os.path.isdir(os.path.join(self.path, k))]
 
     def __getitem__(self, key: str):
         p = os.path.join(self.path, key)

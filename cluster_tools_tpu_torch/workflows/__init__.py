@@ -1,5 +1,7 @@
 from .agglomerative_clustering import AgglomerativeClusteringWorkflow
+from .bigcat import BigcatWorkflow
 from .debugging import CheckComponentsWorkflow, CheckSubGraphsWorkflow
+from .downscaling import DownscalingWorkflow, PainteraToBdvWorkflow
 from .learning import LearningWorkflow
 from .lifted_multicut import (
     LiftedFeaturesFromNodeLabelsWorkflow,
@@ -17,6 +19,7 @@ from .multicut import (
 )
 from .morphology import MorphologyWorkflow, RegionCentersWorkflow
 from .mws import MwsWorkflow, TwoPassMwsWorkflow
+from .paintera import LabelMultisetWorkflow, PainteraConversionWorkflow
 from .postprocessing import (
     ConnectedComponentsWorkflow,
     FilterByThresholdWorkflow,
@@ -28,18 +31,20 @@ from .postprocessing import (
 from .relabel import RelabelWorkflow, UniqueWorkflow
 from .stitching import MulticutStitchingWorkflow, SimpleStitchingWorkflow
 from .thresholded_components import ThresholdAndWatershedWorkflow, ThresholdedComponentsWorkflow
+from .transformations import LinearTransformationWorkflow
 from .watershed import WatershedWorkflow
 
 __all__ = [
-    "AgglomerativeClusteringWorkflow", "CheckComponentsWorkflow", "CheckSubGraphsWorkflow",
-    "ConnectedComponentsWorkflow", "EdgeFeaturesWorkflow", "FilterByThresholdWorkflow",
-    "FilterLabelsWorkflow", "FilterOrphansWorkflow", "GraphWorkflow", "LearningWorkflow",
+    "AgglomerativeClusteringWorkflow", "BigcatWorkflow", "CheckComponentsWorkflow",
+    "CheckSubGraphsWorkflow", "ConnectedComponentsWorkflow", "DownscalingWorkflow",
+    "EdgeFeaturesWorkflow", "FilterByThresholdWorkflow", "FilterLabelsWorkflow",
+    "FilterOrphansWorkflow", "GraphWorkflow", "LabelMultisetWorkflow", "LearningWorkflow",
     "LiftedFeaturesFromNodeLabelsWorkflow", "LiftedMulticutSegmentationWorkflow",
-    "LiftedMulticutWorkflow", "MorphologyWorkflow",
+    "LiftedMulticutWorkflow", "LinearTransformationWorkflow", "MorphologyWorkflow",
     "MulticutSegmentationWorkflow", "MulticutStitchingWorkflow", "MulticutWorkflow",
-    "MwsWorkflow", "ProblemWorkflow", "ReducedSolutionWorkflow", "RegionCentersWorkflow",
-    "RelabelWorkflow", "SimpleStitchingWorkflow", "SizeFilterAndGraphWatershedWorkflow",
-    "SizeFilterWorkflow", "SubSolutionsWorkflow",
-    "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "TwoPassMwsWorkflow",
-    "UniqueWorkflow", "WatershedWorkflow",
+    "MwsWorkflow", "PainteraConversionWorkflow", "PainteraToBdvWorkflow", "ProblemWorkflow",
+    "ReducedSolutionWorkflow", "RegionCentersWorkflow", "RelabelWorkflow",
+    "SimpleStitchingWorkflow", "SizeFilterAndGraphWatershedWorkflow", "SizeFilterWorkflow",
+    "SubSolutionsWorkflow", "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow",
+    "TwoPassMwsWorkflow", "UniqueWorkflow", "WatershedWorkflow",
 ]

@@ -222,3 +222,30 @@ def test_round_of_scans_equals_round_of_sequential_sweeps(phase, seed):
                 *(t(a, axis) for a in (h, mask, seeds, alt, got[0], got[1])), rev, cuts))
         assert (want[1] != label).any()
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind", ["altitude", "assign"])
+@pytest.mark.parametrize("seed", range(6))
+def test_runs_side_by_side_equal_runs_one_at_a_time(kind, seed):
+    """The card's ``scan_sweep`` (the runs of one length side by side) gives
+    the CPU's values bit for bit, at random and at the 3d flood's cuts."""
+    from cluster_tools_tpu_torch.ops.cuda_flood import kernel_cuts
+    from cluster_tools_tpu_torch.ops.scan import _scan_sweep_runs, _scan_sweep_voxels
+
+    h, mask, seeds, alt, dist, label = (torch.from_numpy(a) for a in _lines(seed, n=45))
+    n = h.shape[:1]
+    if kind == "altitude":
+        args = (clamp_compose, clamp_apply,
+                (torch.full(n, float("inf")), torch.full(n, float("-inf"))),
+                alt_transfers(alt, h, mask), torch.full(n, BIG))
+    else:
+        ident = (torch.full(n, BIG_DIST), torch.zeros(n, dtype=torch.int64),
+                 torch.zeros(n, dtype=torch.int64))
+        args = (assign_compose, assign_apply, ident,
+                assign_transfers(dist, label, assign_edges(alt, h, mask, seeds)), ident[:2])
+    for cuts in (_cuts(seed, 45), kernel_cuts(seed % 3, 45), kernel_cuts(1, 45, True), []):
+        want = _scan_sweep_voxels(*args, cuts)
+        got = _scan_sweep_runs(*args, cuts)
+        for g, w in zip(got if kind == "assign" else (got,), want if kind == "assign" else (want,)):
+            assert g.dtype == w.dtype
+            assert torch.equal(g, w), cuts

@@ -95,6 +95,23 @@ def test_port_imports_no_jax(entry):
                 LiftedMulticutSegmentationWorkflow, LiftedMulticutWorkflow,
             )
             from cluster_tools_tpu_torch.workflows import learning, lifted_multicut
+            from cluster_tools_tpu_torch.ops import label_multiset, resample
+            from cluster_tools_tpu_torch.tasks import (
+                copy_volume, downscaling, label_multisets, masking, paintera, transformations,
+            )
+            from cluster_tools_tpu_torch.workflows import bigcat
+            from cluster_tools_tpu_torch.workflows import downscaling as downscaling_workflows
+            from cluster_tools_tpu_torch.workflows import paintera as paintera_workflows
+            from cluster_tools_tpu_torch.workflows import transformations as trafo_workflows
+            from cluster_tools_tpu_torch.tasks import (
+                BlocksFromMaskTask, CopyVolumeTask, CreateMultisetTask, DownscaleMultisetTask,
+                DownscalingTask, LabelBlockMappingTask, LinearTransformationTask, MinfilterTask,
+                ScaleToBoundariesTask, UniqueBlockLabelsTask, UpscalingTask,
+            )
+            from cluster_tools_tpu_torch.workflows import (
+                BigcatWorkflow, DownscalingWorkflow, LabelMultisetWorkflow,
+                LinearTransformationWorkflow, PainteraConversionWorkflow, PainteraToBdvWorkflow,
+            )
             assert native.available(), native.load_error
             assert hasattr(native, "lifted_gaec")
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -326,3 +343,67 @@ def test_lifted_and_learning_workflows_raise_without_card(tmp_path, monkeypatch,
     with pytest.raises(Exception, match="no CUDA device"):
         build([wf])
     assert not wf.complete()
+
+
+def _volume_roots(kind, tmp, config_dir, path):
+    """The volume-ops and export slice's tasks and workflows over small
+    inputs in ``path``."""
+    from cluster_tools_tpu_torch import tasks as t
+    from cluster_tools_tpu_torch import workflows as w
+
+    io = {"input_path": path, "input_key": "bnd", "output_path": path, "output_key": "out"}
+    if kind == "copy_volume":
+        return [t.CopyVolumeTask(tmp, config_dir, **io, dtype="uint8")]
+    if kind == "downscaling":
+        return [w.DownscalingWorkflow(tmp, config_dir, input_path=path, input_key="bnd",
+                                      scale_factors=[[1, 2, 2]], output_key_prefix="pyr")]
+    if kind == "upscaling":
+        return [t.UpscalingTask(tmp, config_dir, **io, scale_factor=[1, 2, 2])]
+    if kind == "scale_to_boundaries":
+        return [t.ScaleToBoundariesTask(tmp, config_dir, input_path=path, input_key="objs",
+                                        output_path=path, output_key="out",
+                                        boundaries_path=path, boundaries_key="bnd")]
+    if kind == "minfilter":
+        return [t.MinfilterTask(tmp, config_dir, **{**io, "input_key": "mask"})]
+    if kind == "linear":
+        trafo = os.path.join(os.path.dirname(path), "trafo.json")
+        with open(trafo, "w") as f:
+            f.write('{"a": 2.0, "b": 1.0}')
+        return [w.LinearTransformationWorkflow(tmp, config_dir, input_path=path, input_key="bnd",
+                                               output_path=path, output_key="out",
+                                               transformation=trafo)]
+    return [w.PainteraConversionWorkflow(tmp, config_dir, input_path=path, input_key="ws",
+                                         output_path=path, scale_factors=[[1, 2, 2]])]
+
+
+@pytest.mark.parametrize("kind", ["copy_volume", "downscaling", "upscaling",
+                                  "scale_to_boundaries", "minfilter", "linear", "paintera"])
+def test_volume_tasks_default_to_card_and_run_on_cpu(tmp_path, monkeypatch, kind):
+    """Each entry point of the volume-ops and export slice asks for the card
+    by default and raises without one; with ``"device": "cpu"`` the same
+    build runs on the host."""
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "d.n5")
+    f = file_reader(path)
+    f.create_dataset("bnd", data=rng.random((8, 16, 16)).astype("float32"), chunks=(8, 16, 16))
+    f.create_dataset("ws", data=rng.integers(1, 6, (8, 16, 16)).astype("uint64"),
+                     chunks=(8, 16, 16))
+    f.create_dataset("mask", data=(rng.random((8, 16, 16)) > 0.2).astype("uint8"),
+                     chunks=(8, 16, 16))
+    objs = np.zeros((4, 8, 8), dtype="uint64")
+    objs[1:3, 2:6, 2:6] = 4
+    f.create_dataset("objs", data=objs, chunks=(4, 8, 8))
+    config_dir = str(tmp_path / "configs")
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16]})
+    cfg.write_config(config_dir, "scale_to_boundaries", {"erode_by": 1})
+    cfg.write_config(config_dir, "minfilter", {"filter_shape": [3, 3, 3]})
+    tmp = str(tmp_path / "tmp")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    roots = _volume_roots(kind, tmp, config_dir, path)
+    with pytest.raises(Exception, match="no CUDA device"):
+        build(roots)
+    assert not roots[0].complete()
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16], "device": "cpu"})
+    roots = _volume_roots(kind, tmp, config_dir, path)
+    assert build(roots)
+    assert roots[0].complete()

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --label-phases
     python3 chip_smoke.py --container-phases
     python3 chip_smoke.py --volume-phases
+    python3 chip_smoke.py --inference-phases
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
 
@@ -171,7 +172,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      phase 14's tmp folder: each fragment one sub-solution id within a
      scale-1 block; the reduced labelling its table applied to the
      watershed, a coarsening with 1 < segments < fragments;
- 16. on the first 8 planes (``FILTER_Z``): the multicut with the filter
+ 16. on the first 8 planes (``FILTER_Z``), over an ROI of 2 x 2 blocks
+     (``FILTER_ROI_BLOCKS``), cut for the script's time: the multicut with the filter
      bank (all four filters, sigma 1.6, halo [6, 6, 6], ``quantile_mode``
      "approx": the default exact raw-sample merge alone takes minutes,
      ``--filter-bank-exact``), ``ImageFilterTask`` (hessian eigenvalues)
@@ -261,9 +263,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      mask; ``PainteraConversionWorkflow`` over a two-block ROI (with h5py
      also the ``bdv.hdf5`` copy and ``BigcatWorkflow``).  Gates in
      ``volume_phase``'s docstring; it runs after 24, before 21's lines;
+ 26. inference and analysis on the first 32 planes, the ``cuda`` target
+     (``inference_phase``): the JAX package's full-width U-Net (16
+     features, depth 3, CREMI's [1, 2, 2] pooling) with seeded random
+     weights, saved in the shared checkpoint format, through
+     ``InferenceTask`` (halo [4, 32, 32], a three-channel ``pred`` and a
+     ``bmap``, uint8), re-predicted blocks, bf16 against float32, mirror
+     TTA and a masked run held to the module; ``WatershedWorkflow`` on the
+     prediction (kernels 2 and 1); ``EvaluationWorkflow`` against phase
+     3's watershed held to one contingency table; ``SkeletonWorkflow``,
+     ``MeshWorkflow`` and ``DistanceWorkflow`` on crops of phase 3's
+     watershed held to host recomputations and scipy's EDT; the U-Net
+     forward timed against its FLOP bound.  Gates in ``inference_phase``'s
+     docstring; it runs after 25, before 21's lines;
  21. one JSON line with the device functions (the accumulator, the device
      MWS, the filter bank with its ``eigvalsh``, the segment reductions,
-     the dilation, phase 25's resamplers, minimum filter and affine step),
+     the dilation, phase 25's resamplers, minimum filter and affine step,
+     phase 26's U-Net forward),
      one with the filling filter's kernel 3 and 3d flood,
      one listing the six kernels, then the result line.
 
@@ -287,6 +303,8 @@ phases 18-20 (no result line): the new phases measured without the rest.
 ``--container-phases`` runs only the build, the volume, phase 3 and phases
 22-24 (no result line).
 ``--volume-phases`` runs only the build, the volume, phase 3 and phase 25
+(no result line).
+``--inference-phases`` runs only the build, the volume, phase 3 and phase 26
 (no result line).
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
@@ -2681,6 +2699,10 @@ AFF_MC_CHUNKS = (3, 32, 256, 256)
 AFF_WS_THRESHOLD = 0.4
 FEATURE_Z = 8  # depth of phase 17 (a quarter block layer), cut for the script's time
 FILTER_Z = 8  # depth of phase 16 (a quarter block layer), cut for the script's time
+# phase 16's ROI in y and x, in blocks: 2 x 2 keeps block faces along both axes.  Cut from all
+# 25 blocks for the script's time (the filter bank's host features, per block, took 36.8 of
+# the phase's 70.2 s in a 952.7 s script on one host)
+FILTER_ROI_BLOCKS = (2, 2)
 FILTER_SIGMA = 1.6
 FILTER_HALO = [6, 6, 6]  # int(4 * 1.6 + 0.5): the filters' radius at FILTER_SIGMA
 # phase 16's quantile merge: the filter bank's default, the exact raw-sample
@@ -2891,8 +2913,10 @@ def solutions_phase(mc: dict, card: str) -> dict:
 
 
 def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTILE_MODE) -> dict:
-    """Phase 16 on the first ``FILTER_Z`` planes at full width:
-    ``MulticutSegmentationWorkflow`` with the filter bank (all four filters,
+    """Phase 16 on the first ``FILTER_Z`` planes over an ROI of
+    ``FILTER_ROI_BLOCKS`` blocks in y and x (the rest of the full-width
+    volume stays unwritten): ``MulticutSegmentationWorkflow`` with the
+    filter bank (all four filters,
     sigma 1.6, halo [6, 6, 6]; ``quantile_mode`` as given, None for the
     task's default, which for the filter bank is the exact raw-sample
     merge), then ``ImageFilterTask``
@@ -2920,7 +2944,7 @@ def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTIL
     from cluster_tools_tpu_torch.tasks.region_features import load_region_features
     from cluster_tools_tpu_torch.tasks.watershed import WatershedTask
     from cluster_tools_tpu_torch.utils import file_reader
-    from cluster_tools_tpu_torch.utils.blocking import Blocking
+    from cluster_tools_tpu_torch.utils.blocking import Blocking, blocks_in_volume
 
     z = min(FILTER_Z, vol_np.shape[0])
     raw = np.ascontiguousarray(vol_np[:z])
@@ -2929,9 +2953,10 @@ def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTIL
     path = os.path.join(work, "filters.n5")
     file_reader(path).create_dataset("raw", data=raw, chunks=BLOCK, compression="raw")
     config_dir, tmp = os.path.join(work, "configs_filters"), os.path.join(work, "tmp_filters")
+    roi_end = [z] + [n * b for n, b in zip(FILTER_ROI_BLOCKS, BLOCK[1:])]
     cfg.write_global_config(config_dir, {
         "block_shape": list(BLOCK), "target": "cuda", "device": "cuda",
-        "max_jobs": min(8, os.cpu_count() or 1),
+        "max_jobs": min(8, os.cpu_count() or 1), "roi_begin": [0, 0, 0], "roi_end": roi_end,
     })
     cfg.write_config(config_dir, "watershed", WatershedTask.default_task_config())
     features = {"filters": list(F.FILTERS), "sigmas": [FILTER_SIGMA], "halo": FILTER_HALO}
@@ -2949,11 +2974,14 @@ def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTIL
     walls = {"multicut": time.perf_counter() - t0}
     launches = {"apply_filter": F.apply_filter.launches}
     blocking = Blocking(shape, BLOCK)
-    if launches["apply_filter"] != len(F.FILTERS) * blocking.n_blocks:
+    roi_blocks = blocks_in_volume(shape, BLOCK, [0, 0, 0], roi_end)
+    if launches["apply_filter"] != len(F.FILTERS) * len(roi_blocks):
         raise AssertionError(f"the filter bank launched {launches['apply_filter']} times, not "
-                             f"{len(F.FILTERS)} per block")
-    log(f"filter-bank multicut: {shape} in {walls['multicut']:.2f} s = "
-        f"{vox / walls['multicut']:.6g} voxels/s on {card}; filter launches {launches}")
+                             f"{len(F.FILTERS)} per block of the ROI")
+    vox = int(np.prod(roi_end))
+    log(f"filter-bank multicut: {shape}, ROI {roi_end} ({len(roi_blocks)} blocks) in "
+        f"{walls['multicut']:.2f} s = {vox / walls['multicut']:.6g} voxels/s on {card}; "
+        f"filter launches {launches}")
     task_seconds(wf, "filter-bank multicut")
 
     # the card's responses against the CPU's, then the saved features
@@ -3032,7 +3060,7 @@ def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTIL
     err = float(np.abs(got - cpu_r).max())
     if err > 1e-5 * float(np.abs(cpu_r).max()):
         raise AssertionError(f"image filter: block 0 off the CPU's by {err}")
-    log(f"image filter: {shape} in {walls['image_filter']:.2f} s = "
+    log(f"image filter: ROI {roi_end} in {walls['image_filter']:.2f} s = "
         f"{vox / walls['image_filter']:.6g} voxels/s on {card}; eigenvalues finite and "
         f"descending; block 0 max abs err {err} against the CPU")
 
@@ -3081,12 +3109,12 @@ def filter_bank_phase(vol_np, work: str, card: str, quantile_mode=FILTER_QUANTIL
         n_seg += present.size
     if worst > 1e-4:
         raise AssertionError(f"region features: a mean off numpy's by rtol {worst}")
-    log(f"region features: {shape} in {walls['region_features']:.2f} s = "
+    log(f"region features: ROI {roi_end} in {walls['region_features']:.2f} s = "
         f"{vox / walls['region_features']:.6g} voxels/s on {card}; reductions {counts}; "
         f"{n_seg} segments: counts, minima, maxima equal numpy's, means within rtol {worst:.3g} "
         f"(checked in {time.perf_counter() - t0:.1f} s)")
-    return {"walls": walls, "shape": shape, "launches": launches, "segment_launches": counts,
-            "raw": raw, "ws": ws_all}
+    return {"walls": walls, "shape": shape, "roi_shape": tuple(roi_end), "launches": launches,
+            "segment_launches": counts, "raw": raw, "ws": ws_all}
 
 
 def affinity_tasks_phase(affs: np.ndarray, vol_np, seeds_path: str, work: str, card: str) -> dict:
@@ -4744,6 +4772,388 @@ def volume_device_functions(raw8, minfilter_block, raw, mask, a, b, launches: di
     return records
 
 
+# -- phase 26: inference and analysis -------------------------------------------
+# On the first SHALLOW_Z planes at full width (25 blocks of BLOCK), the cuda
+# target: the JAX package's full-width U-Net with random seeded weights through
+# InferenceTask, the 2d watershed of its boundary channel (kernels 2 and 1),
+# EvaluationWorkflow against phase 3's watershed, then skeletons, meshes and
+# object distances on crops of phase 3's watershed.
+
+UNET_CONFIG = {"model": "UNet3D", "in_channels": 1, "out_channels": 3, "initial_features": 16,
+               "depth": 3, "scale_factors": [[1, 2, 2], [1, 2, 2]]}
+UNET_HALO = [4, 32, 32]  # each input (40, 320, 320)
+BF16_DENSE_OPS_PER_S = 989e12  # H100 SXM tensor cores, dense bf16
+ANALYSIS_RESOLUTION = [40.0, 4.0, 4.0]  # CREMI's voxel pitch (nm)
+# skeletons and meshes: the crop's largest objects (their size filter); 48 took 17.1 and 7.2 s
+# of host Python in a 952.7 s script on one host
+SKELETON_OBJECTS = 16
+DISTANCE_CROP = (SHALLOW_Z, 64, 64)  # the distance workflow has no id filter: a smaller crop
+MAX_DISTANCE = 50.0  # nm: objects one plane apart (40 nm) are in reach
+
+
+def check_prediction_block(model, raw_ds, f, bid: int, blocking, preprocess, dev) -> None:
+    """Block ``bid`` re-predicted by calling the module on the same
+    reflect-padded, preprocessed input: the written bytes must equal it."""
+    from cluster_tools_tpu_torch.models.unet import unet_forward
+    from cluster_tools_tpu_torch.tasks.inference import load_input_with_halo, to_uint8
+
+    block = blocking.block(bid)
+    x = preprocess(load_input_with_halo(raw_ds, block.begin, BLOCK, UNET_HALO))
+    saved = unet_forward.launches
+    out = unet_forward(model, torch.from_numpy(x)[None, None].to(dev))[0].float().cpu().numpy()
+    unet_forward.launches = saved
+    crop = (slice(None),) + tuple(slice(h, h + e - b) for h, b, e in
+                                  zip(UNET_HALO, block.begin, block.end))
+    want = to_uint8(out[crop])
+    if not (np.array_equal(f["pred"][(slice(None),) + block.slicing], want)
+            and np.array_equal(f["bmap"][block.slicing], want[0])):
+        raise AssertionError(f"inference block {bid}: the written bytes differ from the module's")
+
+
+def analysis_crops(ws3: np.ndarray) -> tuple:
+    """Phase 3's watershed cut to the analysis crops: block 0 for skeletons
+    and meshes, ``DISTANCE_CROP`` for distances; the skeleton size filter
+    that keeps the crop's ``SKELETON_OBJECTS`` largest objects."""
+    crop = np.ascontiguousarray(ws3[tuple(slice(0, s) for s in BLOCK)])
+    ids, sizes = np.unique(crop[crop > 0], return_counts=True)
+    size_threshold = int(np.sort(sizes)[::-1][min(SKELETON_OBJECTS, sizes.size) - 1])
+    dist_crop = np.ascontiguousarray(crop[tuple(slice(0, s) for s in DISTANCE_CROP)])
+    return crop, dist_crop, ids, sizes, size_threshold
+
+
+def check_skeletons(tmp: str, crop: np.ndarray, expected: set, dev) -> int:
+    """Every skeleton of an id the size filter keeps, its nodes inside its
+    object; three ids re-skeletonised on the host (the EDT on the CPU) must
+    equal the task's."""
+    from cluster_tools_tpu_torch.ops.skeleton import skeletonize
+    from cluster_tools_tpu_torch.tasks.morphology import load_morphology
+    from cluster_tools_tpu_torch.tasks.skeletons import load_skeletons
+
+    skels = load_skeletons(tmp)
+    if set(skels) != expected:
+        raise AssertionError(f"skeletons of {sorted(set(skels) ^ expected)[:8]} missing or extra")
+    res = np.asarray(ANALYSIS_RESOLUTION)
+    n_nodes = 0
+    for sid, (nodes, _) in skels.items():
+        vox = np.round(nodes / res).astype(np.int64)
+        if not (crop[tuple(vox.T)] == sid).all():
+            raise AssertionError(f"skeleton {sid}: nodes outside the object")
+        n_nodes += len(nodes)
+    rows = {int(r[0]): r for r in load_morphology(tmp)}
+    for sid in sorted(skels)[:3]:
+        row = rows[sid]
+        bb = tuple(slice(max(int(lo) - 2, 0), min(int(hi) + 2, s))
+                   for lo, hi, s in zip(row[5:8], row[8:11], crop.shape))
+        nodes, edges = skeletonize(crop[bb] == sid, device="cpu")
+        nodes = (nodes + [b.start for b in bb]) * res
+        if not (np.array_equal(nodes, skels[sid][0]) and np.array_equal(edges, skels[sid][1])):
+            raise AssertionError(f"skeleton {sid}: the host's recomputation differs")
+    return n_nodes
+
+
+def check_meshes(out_dir: str, tmp: str, crop: np.ndarray, expected: set) -> int:
+    """Every mesh of an id the size filter keeps, its vertices inside the
+    object's bounding box (half a voxel around the surface); three ids
+    re-meshed on the host must equal the files."""
+    from cluster_tools_tpu_torch.ops.mesh import marching_cubes, read_obj
+    from cluster_tools_tpu_torch.tasks.morphology import load_morphology
+
+    files = {int(name.split(".")[0]) for name in os.listdir(out_dir)}
+    if files != expected:
+        raise AssertionError(f"meshes of {sorted(files ^ expected)[:8]} missing or extra")
+    res = np.asarray(ANALYSIS_RESOLUTION)
+    rows = {int(r[0]): r for r in load_morphology(tmp)}
+    n_faces = 0
+    recompute = sorted(files)[:3]
+    for sid in sorted(files):
+        verts, faces, _ = read_obj(os.path.join(out_dir, f"{sid}.obj"))
+        lo, hi = rows[sid][5:8] - 0.5, rows[sid][8:11] - 0.5
+        vox = verts / res
+        if not ((vox >= lo - 1e-9) & (vox <= hi + 1e-9)).all():
+            raise AssertionError(f"mesh {sid}: vertices outside the bounding box")
+        n_faces += len(faces)
+        if sid in recompute:
+            bb = tuple(slice(int(a), int(b)) for a, b in zip(rows[sid][5:8], rows[sid][8:11]))
+            v, fc, _ = marching_cubes(crop[bb] == sid)
+            v = (v + [b.start for b in bb]) * res
+            if not (np.array_equal(v, verts) and np.array_equal(fc, faces)):
+                raise AssertionError(f"mesh {sid}: the host's recomputation differs")
+    return n_faces
+
+
+def check_distances(tmp: str, dist_crop: np.ndarray) -> int:
+    """For five ids, every other id's distance is the minimum of scipy's EDT
+    of the id's complement (``sampling`` = the resolution) over the other
+    id, in float32: present where below ``MAX_DISTANCE``, absent elsewhere."""
+    from scipy import ndimage
+
+    from cluster_tools_tpu_torch.tasks.distances import load_object_distances
+
+    got = load_object_distances(tmp)
+    ids = np.unique(dist_crop[dist_crop > 0])
+    for a in ids[:: max(1, ids.size // 5)][:5]:
+        edt = ndimage.distance_transform_edt(dist_crop != a, sampling=ANALYSIS_RESOLUTION)
+        for b in ids[ids > a]:
+            d = edt[dist_crop == b].min()
+            key = (int(a), int(b))
+            if d < MAX_DISTANCE:
+                if key not in got or np.float32(got[key]) != np.float32(d):
+                    raise AssertionError(f"distance {key}: {got.get(key)} against scipy's {d}")
+            elif key in got:
+                raise AssertionError(f"distance {key}: {got[key]} is beyond {MAX_DISTANCE}")
+    return len(got)
+
+
+def inference_phase(shallow_path: str, ws_path: str, work: str, card: str, libs: dict,
+                    dev, seed: int) -> dict:
+    """Phase 26 on the first ``SHALLOW_Z`` planes.  (a) ``UNet3D``
+    (``UNET_CONFIG``: the JAX class's full width and depth, CREMI's
+    anisotropy) with flax's initialisation drawn from a seeded generator,
+    saved with ``save_checkpoint``, through ``InferenceTask`` on the map
+    (halo ``UNET_HALO``, ``{"pred": [0, 3], "bmap": [0, 1]}``, uint8).
+    Gates: a corner and an interior block re-predicted by calling the module
+    on the same input equal the written bytes; the bf16 and the float32
+    forward of one block within the JAX test's 0.05 + 0.05·|f32|;
+    ``augmentation_mode="all"`` on one block equal to the average of the
+    module's forward of the 8 mirrored inputs (one batch, mirrored back on
+    the host, summed in ``mirror_flip_sets``' order); a mask over the first
+    two block columns leaves the other 15 blocks zero and the 10 it covers
+    equal to the full run.  (b) ``WatershedWorkflow`` on ``bmap`` (threshold
+    at the map's median): kernels 2 and 1 launch, down the cluster route.
+    (c) ``EvaluationWorkflow`` of that watershed against phase 3's on the
+    same planes: Rand and VoI equal ``ops/evaluation.py`` on one contingency
+    table of the whole crop.  (d) ``SkeletonWorkflow`` and ``MeshWorkflow``
+    (one tmp folder, one morphology) on block 0 of phase 3's watershed,
+    the size filter at its ``SKELETON_OBJECTS``-th largest object, and
+    ``DistanceWorkflow`` on ``DISTANCE_CROP``, all at CREMI's resolution;
+    gates in ``check_skeletons``, ``check_meshes``, ``check_distances``.
+    Without h5py the ilastik carving leg prints a cut line; the prediction
+    leg needs an ilastik install, which no host here has.  Returns walls,
+    launches, the U-Net's device-function record and the seconds."""
+    from cluster_tools_tpu_torch import workflows as W
+    from cluster_tools_tpu_torch.models import unet
+    from cluster_tools_tpu_torch.ops import evaluation
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
+    from cluster_tools_tpu_torch.ops.segment import contingency_table
+    from cluster_tools_tpu_torch.tasks import InferenceTask
+    from cluster_tools_tpu_torch.tasks.evaluation import load_measures
+    from cluster_tools_tpu_torch.tasks.frameworks import (
+        get_preprocessor, mirror_flip_sets, JaxPredictor)
+    from cluster_tools_tpu_torch.tasks.inference import load_input_with_halo
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedTask
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    t_phase = time.perf_counter()
+    walls, launches = {}, {}
+    path = os.path.join(work, "inference.n5")
+    f = file_reader(path)
+    raw_ds = file_reader(shallow_path, "r")["raw"]
+    shape = tuple(raw_ds.shape)
+    blocking = Blocking(shape, BLOCK)
+    vox = int(np.prod(shape))
+    t0 = time.perf_counter()
+    ws3 = read_volume(file_reader(ws_path, "r")["ws"], blocking)
+    write_blocks(f.create_dataset("ws3", shape=shape, dtype="uint64", chunks=BLOCK,
+                                  compression="raw"), ws3, blocking)
+    mask = np.zeros(shape, np.uint8)
+    mask[:, :, :2 * BLOCK[2]] = 1
+    write_blocks(f.create_dataset("mask", shape=shape, dtype="uint8", chunks=BLOCK,
+                                  compression="raw"), mask, blocking)
+    ckpt = os.path.join(work, "unet")
+    model = unet.init_flax_like(unet.model_from_config(UNET_CONFIG),
+                                torch.Generator().manual_seed(seed))
+    unet.save_checkpoint(ckpt, model, UNET_CONFIG)
+    model = unet.load_checkpoint(ckpt, dev)
+    log(f"setup: phase 26's inputs (phase 3's first {shape[0]} planes, a mask) and "
+        f"a U-Net checkpoint ({sum(p.numel() for p in model.parameters())} parameters) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) the inference run
+    conf = volume_config(work, "inference", {"inference": {"prefetch_threads": 4}})
+    reset_counts(unet.unet_forward)
+    run_workflow(InferenceTask(os.path.join(work, "tmp_inference"), conf,
+                               input_path=shallow_path, input_key="raw", output_path=path,
+                               output_key={"pred": [0, 3], "bmap": [0, 1]},
+                               checkpoint_path=ckpt, halo=UNET_HALO), "InferenceTask", vox,
+                 card, walls)
+    launches["unet_forward"] = launches_rose([unet.unet_forward], "InferenceTask")["unet_forward"]
+    preprocess = get_preprocessor("zero_mean_unit_variance")
+    inner = blocking.n_blocks // 2
+    for bid in (0, inner):
+        check_prediction_block(model, raw_ds, f, bid, blocking, preprocess, dev)
+    bmap = read_volume(f["bmap"], blocking)
+    log(f"inference: {launches['unet_forward']} forwards; blocks 0 and {inner} re-predicted "
+        f"by the module: equal bytes; bmap mean {float(bmap.mean()) / 255:.4f}, "
+        f"quartiles {np.percentile(bmap, [25, 50, 75]).tolist()}")
+
+    # bf16 against float32, one block
+    block = blocking.block(inner)
+    x = torch.from_numpy(preprocess(load_input_with_halo(raw_ds, block.begin, BLOCK,
+                                                         UNET_HALO)))[None, None].to(dev)
+    saved = unet.unet_forward.launches
+    f32 = unet.model_from_config({**UNET_CONFIG, "dtype": "float32"})
+    f32.load_state_dict(model.state_dict())
+    f32 = f32.to(dev).eval()
+    y16 = unet.unet_forward(model, x).float()
+    y32 = unet.unet_forward(f32, x)
+    err = (y16 - y32).abs()
+    if not bool((err <= 0.05 + 0.05 * y32.abs()).all()):
+        raise AssertionError(f"bf16 and float32 forwards differ by up to {float(err.max())}")
+    log(f"bf16 against float32 forward on block {inner}: max abs difference "
+        f"{float(err.max()):.3e}, mean {float(err.mean()):.3e} (allowed 0.05 + 0.05 |f32|)")
+    del f32, y32, err
+
+    # mirror TTA, one block: the predictor against the module on the 8 mirrors
+    tta = JaxPredictor(ckpt, UNET_HALO, augmentation_mode="all",
+                       config={"device": str(dev)})
+    got = tta(x)
+    flips = mirror_flip_sets(3)
+    xs = torch.cat([torch.flip(x, axes) if axes else x for axes in flips])
+    outs = unet.unet_forward(model, xs).float().cpu().numpy()
+    acc = np.zeros_like(outs[:1])
+    for i, axes in enumerate(flips):
+        part = outs[i:i + 1]
+        acc += np.flip(part, axes) if axes else part
+    want = (acc / len(flips))[(Ellipsis,) + tuple(slice(h, -h) for h in UNET_HALO)]
+    if not np.array_equal(got, want):
+        raise AssertionError(f"TTA differs from the manual average by up to "
+                             f"{float(np.abs(got - want).max())}")
+    log(f"TTA on block {inner}: one batched forward of {len(flips)} mirrors equals the manual "
+        f"average")
+    unet.unet_forward.launches = saved
+    del tta, xs, outs
+
+    # the masked run
+    reset_counts(unet.unet_forward)
+    run_workflow(InferenceTask(os.path.join(work, "tmp_inference_mask"), conf,
+                               input_path=shallow_path, input_key="raw", output_path=path,
+                               output_key={"bmap_masked": [0, 1]}, checkpoint_path=ckpt,
+                               halo=UNET_HALO, mask_path=path, mask_key="mask"),
+                 "InferenceTask (mask)", vox, card, walls)
+    masked = read_volume(f["bmap_masked"], blocking)
+    covered = [bid for bid in range(blocking.n_blocks)
+               if mask[blocking.block(bid).slicing].any()]
+    for bid in range(blocking.n_blocks):
+        bb = blocking.block(bid).slicing
+        if bid in covered and not np.array_equal(masked[bb], bmap[bb]):
+            raise AssertionError(f"masked run block {bid}: differs from the full run")
+        if bid not in covered and masked[bb].any():
+            raise AssertionError(f"masked run block {bid}: written outside the mask")
+    if unet.unet_forward.launches != len(covered):
+        raise AssertionError(f"masked run: {unet.unet_forward.launches} forwards for "
+                             f"{len(covered)} covered blocks")
+    log(f"mask: {len(covered)} blocks predicted (equal to the full run), "
+        f"{blocking.n_blocks - len(covered)} left zero")
+    del masked
+
+    # (b) the watershed of the prediction
+    threshold = float(np.median(bmap)) / 255.0
+    conf_ws = volume_config(work, "inference_ws",
+                            {"watershed": {**WatershedTask.default_task_config(),
+                                           "threshold": threshold}})
+    reset_counts(dtws_slices, flood_slices)
+    run_workflow(W.WatershedWorkflow(os.path.join(work, "tmp_inference_ws"), conf_ws,
+                                     input_path=path, input_key="bmap", output_path=path,
+                                     output_key="ws_pred"),
+                 "WatershedWorkflow on the prediction", vox, card, walls)
+    for name, wrapper in (("dtws_slices", dtws_slices), ("flood_slices", flood_slices)):
+        if wrapper.launches == 0 or wrapper.launches_by_route["cluster"] != wrapper.launches:
+            raise AssertionError(f"{name}: launches {wrapper.launches}, by route "
+                                 f"{dict(wrapper.launches_by_route)}")
+        launches[name] = wrapper.launches
+    ws_pred = read_volume(f["ws_pred"], blocking)
+    log(f"watershed of the prediction (threshold {threshold:.4f}): "
+        f"{len(np.unique(ws_pred)) - 1} segments; launches {launches}")
+
+    # (c) evaluation against phase 3's watershed
+    tmp_eval = os.path.join(work, "tmp_evaluation")
+    run_workflow(W.EvaluationWorkflow(tmp_eval, conf, seg_path=path, seg_key="ws_pred",
+                                      gt_path=path, gt_key="ws3"),
+                 "EvaluationWorkflow", vox, card, walls)
+    got = load_measures(tmp_eval)
+    ia, ib, counts = contingency_table(ws_pred, ws3)
+    keep = ib != 0
+    want = evaluation.rand_scores(ia[keep], ib[keep], counts[keep])
+    want.update(evaluation.vi_scores(ia[keep], ib[keep], counts[keep]))
+    if got != want:
+        raise AssertionError(f"EvaluationWorkflow {got} differs from one table's {want}")
+    log(f"evaluation: {got} (equal to one contingency table of the crop, {ia.size} pairs)")
+    del ws_pred, bmap
+
+    # (d) skeletons, meshes and distances on crops of phase 3's watershed
+    crop, dist_crop, ids, sizes, size_threshold = analysis_crops(ws3)
+    f.create_dataset("ws_crop", data=crop, chunks=BLOCK, compression="raw")
+    f.create_dataset("ws_dist", data=dist_crop, chunks=BLOCK, compression="raw")
+    expected = {int(i) for i, n in zip(ids, sizes) if n >= size_threshold}
+    conf_an = volume_config(work, "analysis", {
+        "skeletonize": {"size_threshold": size_threshold, "resolution": ANALYSIS_RESOLUTION},
+        "compute_meshes": {"size_threshold": size_threshold,
+                           "resolution": ANALYSIS_RESOLUTION},
+        "object_distances": {"max_distance": MAX_DISTANCE,
+                             "resolution": ANALYSIS_RESOLUTION}})
+    tmp_an = os.path.join(work, "tmp_analysis")
+    crop_vox = int(crop.size)
+    run_workflow(W.SkeletonWorkflow(tmp_an, conf_an, input_path=path, input_key="ws_crop"),
+                 "SkeletonWorkflow", crop_vox, card, walls)
+    n_nodes = check_skeletons(tmp_an, crop, expected, dev)
+    mesh_dir = os.path.join(work, "meshes")
+    run_workflow(W.MeshWorkflow(tmp_an, conf_an, input_path=path, input_key="ws_crop",
+                                output_dir=mesh_dir), "MeshWorkflow", crop_vox, card, walls)
+    n_faces = check_meshes(mesh_dir, tmp_an, crop, expected)
+    tmp_dist = os.path.join(work, "tmp_distances")
+    run_workflow(W.DistanceWorkflow(tmp_dist, conf_an, input_path=path, input_key="ws_dist"),
+                 "DistanceWorkflow", int(dist_crop.size), card, walls)
+    n_pairs = check_distances(tmp_dist, dist_crop)
+    log(f"analysis: block 0 holds {ids.size} objects, {len(expected)} of at least "
+        f"{size_threshold} voxels skeletonised ({n_nodes} nodes) and meshed ({n_faces} "
+        f"faces), host recomputations equal; {n_pairs} object pairs within {MAX_DISTANCE} nm "
+        f"on the {DISTANCE_CROP} crop, five ids held to scipy's EDT")
+    if libs["h5py"]:
+        out = os.path.join(work, "carving.ilp")
+        raw_crop = raw_ds[tuple(slice(0, s) for s in BLOCK)]
+        f.create_dataset("raw_crop", data=raw_crop, chunks=BLOCK, compression="raw")
+        run_workflow(W.IlastikCarvingWorkflow(os.path.join(work, "tmp_carving"), conf,
+                                              input_path=path, input_key="raw_crop",
+                                              watershed_path=path, watershed_key="ws_crop",
+                                              output_path=out),
+                     "IlastikCarvingWorkflow", crop_vox, card, walls)
+        import h5py
+
+        with h5py.File(out, "r") as fh:
+            header = fh["preprocessing/graph/graph"][:4]
+        if int(header[0]) != int(ids.max()) + 1:
+            raise AssertionError(f"carving: {int(header[0])} nodes for ids up to {ids.max()}")
+        log(f"carving: {int(header[0])} nodes, {int(header[1])} edges")
+    else:
+        log("phase 26: no h5py on this host: the ilastik carving leg is left out")
+    log("phase 26: no ilastik install on this host: IlastikPredictionWorkflow is left out "
+        "(the CPU tests drive it with a stand-in)")
+
+    # the U-Net forward timed on the card (CUDA events), at batch 1 and 4
+    records = []
+    for batch in (1, 4):
+        xb = x.expand(batch, -1, -1, -1, -1).contiguous()
+        ms = cuda_ms(lambda: unet.unet_forward(model, xb), 3)
+        flops = model.flops(tuple(x.shape[2:]), batch)
+        records.append({
+            "name": f"UNet3D forward (bf16, {UNET_CONFIG['initial_features']} features, depth "
+                    f"{UNET_CONFIG['depth']}; InferenceTask)",
+            "shape": list(xb.shape), "ms": ms, "launches": launches["unet_forward"],
+            "bound_ms": flops / BF16_DENSE_OPS_PER_S * 1e3, "bound_by": "operations",
+            "library_ms": None, "flops": flops,
+            "achieved_tflops": flops / (ms * 1e-3) / 1e12})
+    unet.unet_forward.launches = saved
+    for rec in records:
+        rec["gap_ms"] = rec["ms"] - rec["bound_ms"]
+        log(f"device function on {card}: {rec}")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 26 done ({seconds:.1f} s)")
+    return {"walls": walls, "launches": launches, "records": records, "seconds": seconds,
+            "shape": shape}
+
+
 @contextlib.contextmanager
 def failed_blocks_printed(work: str):
     """On any failure inside, print the failed-block tracebacks of every
@@ -4816,6 +5226,8 @@ def main() -> int:
                          "line)")
     ap.add_argument("--volume-phases", action="store_true",
                     help="only the build, the volume, phase 3 and phase 25 (no result line)")
+    ap.add_argument("--inference-phases", action="store_true",
+                    help="only the build, the volume, phase 3 and phase 26 (no result line)")
     ap.add_argument("--fixpoint-paths", action="store_true",
                     help="phases 2 and 5 also time the plain floods down each card path of "
                          "their fixpoint loop (CUDA graphs after the first rounds, from the "
@@ -4871,7 +5283,8 @@ def main() -> int:
         log(f"script: {time.perf_counter() - t_start:.1f} s")
         faulthandler.cancel_dump_traceback_later()
         return 0
-    if not (args.label_phases or args.container_phases or args.volume_phases):
+    if not (args.label_phases or args.container_phases or args.volume_phases
+            or args.inference_phases):
         phase_start(2, t_start)
         records = kernel_phase(vol, dev, args.batch)
         records.update(cc_kernel_phase(vol, dev, args.batch, args.compare))
@@ -4929,6 +5342,16 @@ def main() -> int:
             phase_start(25, t_start)
             vp = volume_phase(shallow_np, shallow_path, path, work, card, libs, dev)
             log(f"volume phase: walls {vp['walls']}; launches {vp['launches']}")
+            log(f"script: {time.perf_counter() - t_start:.1f} s")
+            faulthandler.cancel_dump_traceback_later()
+            return 0
+        if args.inference_phases:
+            phase_start(3, t_start)
+            workflow_phase(vol_np, path, work, card)
+            phase_start(26, t_start)
+            ip = inference_phase(shallow_path, path, work, card, libs, dev, args.seed)
+            log(f"inference phase: walls {ip['walls']}; launches {ip['launches']}")
+            log(json.dumps({"device_functions": ip["records"]}))
             log(f"script: {time.perf_counter() - t_start:.1f} s")
             faulthandler.cancel_dump_traceback_later()
             return 0
@@ -4994,6 +5417,8 @@ def main() -> int:
         new_walls = slice13_phases(shallow_np, path, work, card, libs, dev, t_start)
         phase_start(25, t_start)
         vp = volume_phase(shallow_np, shallow_path, path, work, card, libs, dev)
+        phase_start(26, t_start)
+        ip = inference_phase(shallow_path, path, work, card, libs, dev, args.seed)
         phase_start(21, t_start)
         slice_records = slice_device_functions(fb, at, card)
     for name, rec in records.items():
@@ -5029,7 +5454,7 @@ def main() -> int:
         log(f"{card}: {tag} solution workflow (scale 1, phase 14's problem) {mc_aff['shape']} "
             f"{int(np.prod(mc_aff['shape'])) / wall:.6g} voxels/s ({wall:.3f} s)")
     for tag, wall in {**fb["walls"], **at["walls"]}.items():
-        shape = fb["shape"] if tag in fb["walls"] else at["shape"]
+        shape = fb["roi_shape"] if tag in fb["walls"] else at["shape"]
         log(f"{card}: {tag} {shape} {int(np.prod(shape)) / wall:.6g} voxels/s ({wall:.3f} s)")
     for tag, wall in slice_walls["walls"].items():
         log(f"{card}: {tag} {cut_np.shape} {int(np.prod(cut_np.shape)) / wall:.6g} voxels/s "
@@ -5040,10 +5465,12 @@ def main() -> int:
     log(f"phases 22-24 kernel launches {new_walls['launches']}")
     log(f"{card}: phase 25 walls (s; voxels/s in each run's line above) {vp['walls']}; "
         f"launches {vp['launches']}; {vp['seconds']:.1f} s")
+    log(f"{card}: phase 26 walls (s; voxels/s in each run's line above) {ip['walls']}; "
+        f"launches {ip['launches']}; {ip['seconds']:.1f} s")
     faulthandler.cancel_dump_traceback_later()
     log(f"script: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"device_functions": [mc["accumulator"], device_mws] + slice_records
-                    + vp["records"]}))
+                    + vp["records"] + ip["records"]}))
     log(json.dumps({"filling_filter_kernels": slice_walls["kernels"]}))
     log(json.dumps({"kernels": [records[k] for k in (
         "flood_slices", "dtws_slices", "flood_tiles_warm", "cc_slices", "cc_tiles",

@@ -3,9 +3,18 @@ from .agglomerative_clustering import AGGLO_ASSIGNMENTS_NAME, AgglomerativeClust
 from .copy_volume import CopyVolumeTask
 from .costs import ProbsToCostsTask
 from .debugging import CheckComponentsTask, CheckSubGraphsTask
+from .distances import MergeObjectDistancesTask, ObjectDistancesTask
 from .downscaling import DownscalingTask, ScaleToBoundariesTask, UpscalingTask
+from .evaluation import MeasuresTask, ObjectViTask
 from .features import BlockEdgeFeaturesTask, MergeEdgeFeaturesTask
 from .graph import InitialSubGraphsTask, MapEdgeIdsTask, MergeScaleSubGraphsTask, MergeSubGraphsTask
+from .ilastik import (
+    IlastikPredictionTask,
+    MergePredictionsTask,
+    StackPredictionsTask,
+    WriteCarvingTask,
+)
+from .inference import InferenceTask
 from .label_multisets import CreateMultisetTask, DownscaleMultisetTask
 from .learning import EdgeLabelsTask, LearnRFTask, PredictEdgeProbabilitiesTask
 from .lifted_features import (
@@ -21,6 +30,7 @@ from .lifted_multicut import (
     SolveLiftedSubproblemsTask,
 )
 from .masking import BlocksFromMaskTask, MinfilterTask
+from .meshes import ComputeMeshesTask
 from .multicut import (
     ReduceProblemTask,
     ReducedAssignmentsTask,
@@ -29,6 +39,7 @@ from .multicut import (
     SubSolutionsTask,
 )
 from .morphology import BlockMorphologyTask, MergeMorphologyTask, RegionCentersTask
+from .multiscale_inference import MultiscaleInferenceTask
 from .mws import MwsBlocksTask, TwoPassMwsTask
 from .node_labels import BlockNodeLabelsTask, MergeNodeLabelsTask
 from .paintera import LabelBlockMappingTask, UniqueBlockLabelsTask
@@ -44,6 +55,7 @@ from .postprocess import (
 )
 from .region_features import ImageFilterTask, MergeRegionFeaturesTask, RegionFeaturesTask
 from .relabel import FindLabelingTask, FindUniquesTask, MergeUniquesTask
+from .skeletons import SkeletonEvaluationTask, SkeletonizeTask, UpsampleSkeletonsTask
 from .stitching import (
     STITCH_ASSIGNMENTS_NAME,
     SimpleStitchAssignmentsTask,
@@ -75,23 +87,27 @@ __all__ = [
     "BackgroundSizeFilterTask", "BlockComponentsTask", "BlockEdgeFeaturesTask",
     "BlockFacesTask", "BlockMorphologyTask", "BlockNodeLabelsTask", "BlocksFromMaskTask",
     "CheckComponentsTask", "CheckSubGraphsTask", "ClearLiftedEdgesFromLabelsTask",
-    "CopyVolumeTask", "CreateMultisetTask", "DownscaleMultisetTask", "DownscalingTask",
-    "EdgeLabelsTask", "EmbeddingDistancesTask", "FillingSizeFilterTask", "FilterBlocksTask",
-    "FindLabelingTask", "FindUniquesTask", "GradientsTask", "GraphConnectedComponentsTask",
-    "GraphWatershedAssignmentsTask", "IdFilterTask", "ImageFilterTask", "InitialSubGraphsTask",
+    "ComputeMeshesTask", "CopyVolumeTask", "CreateMultisetTask", "DownscaleMultisetTask",
+    "DownscalingTask", "EdgeLabelsTask", "EmbeddingDistancesTask", "FillingSizeFilterTask",
+    "FilterBlocksTask", "FindLabelingTask", "FindUniquesTask", "GradientsTask",
+    "GraphConnectedComponentsTask", "GraphWatershedAssignmentsTask", "IdFilterTask",
+    "IlastikPredictionTask", "ImageFilterTask", "InferenceTask", "InitialSubGraphsTask",
     "InsertAffinitiesTask", "kernel_params", "LabelBlockMappingTask", "LearnRFTask",
     "LIFTED_ASSIGNMENTS_NAME", "LiftedCostsFromNodeLabelsTask", "LinearTransformationTask",
-    "MapEdgeIdsTask", "MAX_IDS_KEY", "MergeAssignmentsTask", "MergeEdgeFeaturesTask",
-    "MergeLiftedProblemsTask", "MergeMorphologyTask", "MergeNodeLabelsTask",
-    "MergeOffsetsTask", "MergeRegionFeaturesTask", "MergeScaleSubGraphsTask",
-    "MergeSubGraphsTask", "MergeUniquesTask", "MinfilterTask", "MwsBlocksTask",
-    "OrphanAssignmentsTask", "PredictEdgeProbabilitiesTask", "ProbsToCostsTask",
-    "ReducedAssignmentsTask", "ReduceLiftedProblemTask", "ReduceProblemTask",
-    "RegionCentersTask", "RegionFeaturesTask", "ScaleToBoundariesTask",
-    "SimpleStitchAssignmentsTask", "SimpleStitchEdgesTask", "SizeFilterTask",
-    "SolveGlobalTask", "SolveLiftedGlobalTask", "SolveLiftedSubproblemsTask",
-    "SolveSubproblemsTask", "SparseLiftedNeighborhoodTask", "STITCH_ASSIGNMENTS_NAME",
+    "MapEdgeIdsTask", "MAX_IDS_KEY", "MeasuresTask", "MergeAssignmentsTask",
+    "MergeEdgeFeaturesTask", "MergeLiftedProblemsTask", "MergeMorphologyTask",
+    "MergeNodeLabelsTask", "MergeObjectDistancesTask", "MergeOffsetsTask",
+    "MergePredictionsTask", "MergeRegionFeaturesTask", "MergeScaleSubGraphsTask",
+    "MergeSubGraphsTask", "MergeUniquesTask", "MinfilterTask", "MultiscaleInferenceTask",
+    "MwsBlocksTask", "ObjectDistancesTask", "ObjectViTask", "OrphanAssignmentsTask",
+    "PredictEdgeProbabilitiesTask", "ProbsToCostsTask", "ReducedAssignmentsTask",
+    "ReduceLiftedProblemTask", "ReduceProblemTask", "RegionCentersTask", "RegionFeaturesTask",
+    "ScaleToBoundariesTask", "SimpleStitchAssignmentsTask", "SimpleStitchEdgesTask",
+    "SizeFilterTask", "SkeletonEvaluationTask", "SkeletonizeTask", "SolveGlobalTask",
+    "SolveLiftedGlobalTask", "SolveLiftedSubproblemsTask", "SolveSubproblemsTask",
+    "SparseLiftedNeighborhoodTask", "StackPredictionsTask", "STITCH_ASSIGNMENTS_NAME",
     "StitchAssignmentsTask", "StitchFacesTask", "StitchingMulticutTask", "SubSolutionsTask",
     "ThresholdTask", "TwoPassMwsTask", "TwoPassWatershedTask", "UniqueBlockLabelsTask",
-    "UpscalingTask", "WatershedFromSeedsTask", "WatershedTask", "WriteTask",
+    "UpsampleSkeletonsTask", "UpscalingTask", "WatershedFromSeedsTask", "WatershedTask",
+    "WriteCarvingTask", "WriteTask",
 ]

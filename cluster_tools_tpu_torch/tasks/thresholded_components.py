@@ -77,9 +77,10 @@ def valid_mask(extents, shape, device) -> torch.Tensor:
 
 
 def _chunk_aligned(ds, bh) -> bool:
-    """The block's inner box covers whole chunks of ``ds``, so writes of
-    distinct blocks never share a chunk."""
-    for b, e, c, s in zip(bh.inner.begin, bh.inner.end, ds.chunks, ds.shape):
+    """The block's inner box covers whole chunks of ``ds`` (in its trailing,
+    spatial axes), so writes of distinct blocks never share a chunk."""
+    n = len(bh.inner.begin)
+    for b, e, c, s in zip(bh.inner.begin, bh.inner.end, ds.chunks[-n:], ds.shape[-n:]):
         if b % c or (e % c and e != s):
             return False
     return True

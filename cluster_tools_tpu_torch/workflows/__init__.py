@@ -2,6 +2,8 @@ from .agglomerative_clustering import AgglomerativeClusteringWorkflow
 from .bigcat import BigcatWorkflow
 from .debugging import CheckComponentsWorkflow, CheckSubGraphsWorkflow
 from .downscaling import DownscalingWorkflow, PainteraToBdvWorkflow
+from .evaluation import EvaluationWorkflow
+from .ilastik import IlastikCarvingWorkflow, IlastikPredictionWorkflow
 from .learning import LearningWorkflow
 from .lifted_multicut import (
     LiftedFeaturesFromNodeLabelsWorkflow,
@@ -29,6 +31,12 @@ from .postprocessing import (
     SizeFilterWorkflow,
 )
 from .relabel import RelabelWorkflow, UniqueWorkflow
+from .skeletons import (
+    DistanceWorkflow,
+    MeshWorkflow,
+    SkeletonEvaluationWorkflow,
+    SkeletonWorkflow,
+)
 from .stitching import MulticutStitchingWorkflow, SimpleStitchingWorkflow
 from .thresholded_components import ThresholdAndWatershedWorkflow, ThresholdedComponentsWorkflow
 from .transformations import LinearTransformationWorkflow
@@ -36,15 +44,18 @@ from .watershed import WatershedWorkflow
 
 __all__ = [
     "AgglomerativeClusteringWorkflow", "BigcatWorkflow", "CheckComponentsWorkflow",
-    "CheckSubGraphsWorkflow", "ConnectedComponentsWorkflow", "DownscalingWorkflow",
-    "EdgeFeaturesWorkflow", "FilterByThresholdWorkflow", "FilterLabelsWorkflow",
-    "FilterOrphansWorkflow", "GraphWorkflow", "LabelMultisetWorkflow", "LearningWorkflow",
-    "LiftedFeaturesFromNodeLabelsWorkflow", "LiftedMulticutSegmentationWorkflow",
-    "LiftedMulticutWorkflow", "LinearTransformationWorkflow", "MorphologyWorkflow",
+    "CheckSubGraphsWorkflow", "ConnectedComponentsWorkflow", "DistanceWorkflow",
+    "DownscalingWorkflow", "EdgeFeaturesWorkflow", "EvaluationWorkflow",
+    "FilterByThresholdWorkflow", "FilterLabelsWorkflow", "FilterOrphansWorkflow",
+    "GraphWorkflow", "IlastikCarvingWorkflow", "IlastikPredictionWorkflow",
+    "LabelMultisetWorkflow", "LearningWorkflow", "LiftedFeaturesFromNodeLabelsWorkflow",
+    "LiftedMulticutSegmentationWorkflow", "LiftedMulticutWorkflow",
+    "LinearTransformationWorkflow", "MeshWorkflow", "MorphologyWorkflow",
     "MulticutSegmentationWorkflow", "MulticutStitchingWorkflow", "MulticutWorkflow",
     "MwsWorkflow", "PainteraConversionWorkflow", "PainteraToBdvWorkflow", "ProblemWorkflow",
     "ReducedSolutionWorkflow", "RegionCentersWorkflow", "RelabelWorkflow",
     "SimpleStitchingWorkflow", "SizeFilterAndGraphWatershedWorkflow", "SizeFilterWorkflow",
-    "SubSolutionsWorkflow", "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow",
-    "TwoPassMwsWorkflow", "UniqueWorkflow", "WatershedWorkflow",
+    "SkeletonEvaluationWorkflow", "SkeletonWorkflow", "SubSolutionsWorkflow",
+    "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "TwoPassMwsWorkflow",
+    "UniqueWorkflow", "WatershedWorkflow",
 ]

@@ -112,6 +112,27 @@ def test_port_imports_no_jax(entry):
                 BigcatWorkflow, DownscalingWorkflow, LabelMultisetWorkflow,
                 LinearTransformationWorkflow, PainteraConversionWorkflow, PainteraToBdvWorkflow,
             )
+            from cluster_tools_tpu_torch.models import UNet3D, load_checkpoint, save_checkpoint
+            from cluster_tools_tpu_torch.ops import mesh, skeleton
+            from cluster_tools_tpu_torch.tasks import (
+                distances, evaluation as evaluation_tasks, frameworks, ilastik, inference,
+                meshes, multiscale_inference, skeletons,
+            )
+            from cluster_tools_tpu_torch.tasks import (
+                ComputeMeshesTask, IlastikPredictionTask, InferenceTask, MeasuresTask,
+                MergeObjectDistancesTask, MergePredictionsTask, MultiscaleInferenceTask,
+                ObjectDistancesTask, ObjectViTask, SkeletonEvaluationTask, SkeletonizeTask,
+                StackPredictionsTask, UpsampleSkeletonsTask, WriteCarvingTask,
+            )
+            from cluster_tools_tpu_torch.workflows import (
+                DistanceWorkflow, EvaluationWorkflow, IlastikCarvingWorkflow,
+                IlastikPredictionWorkflow, MeshWorkflow, SkeletonEvaluationWorkflow,
+                SkeletonWorkflow,
+            )
+            from cluster_tools_tpu_torch.workflows import evaluation as evaluation_workflows
+            from cluster_tools_tpu_torch.workflows import ilastik as ilastik_workflows
+            from cluster_tools_tpu_torch.workflows import skeletons as skeleton_workflows
+            from cluster_tools_tpu_torch.utils import msgpack_lite
             assert native.available(), native.load_error
             assert hasattr(native, "lifted_gaec")
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -125,7 +146,7 @@ def test_port_imports_no_jax(entry):
         """
     code = "import sys\nbefore = set(sys.modules)\n" + textwrap.dedent(body) + textwrap.dedent("""
         bad = sorted(m for m in set(sys.modules) - before
-                     if m.split(".")[0] in ("jax", "jaxlib", "cluster_tools_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "cluster_tools_tpu", "flax", "msgpack"))
         print("BAD", bad)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -407,3 +428,76 @@ def test_volume_tasks_default_to_card_and_run_on_cpu(tmp_path, monkeypatch, kind
     roots = _volume_roots(kind, tmp, config_dir, path)
     assert build(roots)
     assert roots[0].complete()
+
+
+def _inference_roots(kind, tmp, config_dir, path):
+    """The inference and analysis slice's tasks and workflows over small
+    inputs in ``path`` (a U-Net checkpoint beside it)."""
+    from cluster_tools_tpu_torch import tasks as t
+    from cluster_tools_tpu_torch import workflows as w
+
+    seg = {"input_path": path, "input_key": "ws"}
+    if kind == "inference":
+        return [t.InferenceTask(tmp, config_dir, input_path=path, input_key="bnd",
+                                output_path=path, output_key={"pred": [0, 1]},
+                                checkpoint_path=os.path.join(os.path.dirname(path), "unet"),
+                                halo=[1, 2, 2])]
+    if kind == "evaluation":
+        return [w.EvaluationWorkflow(tmp, config_dir, seg_path=path, seg_key="ws",
+                                     gt_path=path, gt_key="objs")]
+    if kind == "skeletons":
+        return [w.SkeletonEvaluationWorkflow(tmp, config_dir, **seg, seg_path=path,
+                                             seg_key="objs")]
+    if kind == "distances":
+        return [w.DistanceWorkflow(tmp, config_dir, **seg)]
+    if kind == "meshes":
+        return [w.MeshWorkflow(tmp, config_dir, **seg,
+                               output_dir=os.path.join(os.path.dirname(path), "meshes"))]
+    return [w.IlastikCarvingWorkflow(tmp, config_dir, input_path=path, input_key="bnd",
+                                     watershed_path=path, watershed_key="ws",
+                                     output_path=os.path.join(os.path.dirname(path), "c.ilp"))]
+
+
+@pytest.mark.parametrize("kind", ["inference", "evaluation", "skeletons", "distances", "meshes",
+                                  "carving"])
+def test_inference_and_analysis_default_to_card_and_run_on_cpu(tmp_path, monkeypatch, kind):
+    """Each entry point of the inference and analysis slice asks for the
+    card by default and raises without one; with ``"device": "cpu"`` the
+    same build runs on the host."""
+    from cluster_tools_tpu_torch.models import unet
+
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "d.n5")
+    f = file_reader(path)
+    f.create_dataset("bnd", data=rng.random((8, 16, 16)).astype("float32"), chunks=(8, 16, 16))
+    f.create_dataset("ws", data=rng.integers(1, 6, (8, 16, 16)).astype("uint64"),
+                     chunks=(8, 16, 16))
+    objs = np.zeros((8, 16, 16), dtype="uint64")
+    objs[1:7, 3:13, 3:13] = 4
+    f.create_dataset("objs", data=objs, chunks=(8, 16, 16))
+    conf = {"model": "UNet3D", "out_channels": 1, "initial_features": 2, "depth": 2,
+            "scale_factors": [[1, 2, 2]]}
+    unet.save_checkpoint(str(tmp_path / "unet"), unet.model_from_config(conf), conf)
+    config_dir = str(tmp_path / "configs")
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16]})
+    tmp = str(tmp_path / "tmp")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    roots = _inference_roots(kind, tmp, config_dir, path)
+    with pytest.raises(Exception, match="no CUDA device"):
+        build(roots)
+    assert not roots[0].complete()
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16], "device": "cpu"})
+    roots = _inference_roots(kind, tmp, config_dir, path)
+    assert build(roots)
+    assert roots[0].complete()
+
+
+@pytest.mark.parametrize("framework", ["jax", "pytorch"])
+def test_predictors_default_to_card(tmp_path, monkeypatch, framework):
+    """A predictor built without a config names the card and raises without
+    one, before it loads anything."""
+    from cluster_tools_tpu_torch.tasks.frameworks import get_predictor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_predictor(framework)(str(tmp_path / "missing"), [0, 0, 0])

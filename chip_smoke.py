@@ -9,6 +9,7 @@
     python3 chip_smoke.py --container-phases
     python3 chip_smoke.py --volume-phases
     python3 chip_smoke.py --inference-phases
+    python3 chip_smoke.py --hier-phases
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
 
@@ -276,10 +277,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      watershed held to host recomputations and scipy's EDT; the U-Net
      forward timed against its FLOP bound.  Gates in ``inference_phase``'s
      docstring; it runs after 25, before 21's lines;
+ 27. the hierarchy, event building and the flood's remaining entry points
+     (``hier_phase``): ``HierarchyWorkflow`` on the first 32 planes with
+     the default ``hierarchy_blocks`` config (kernels 2 and 1, all down the
+     cluster route), two blocks re-run through the plain versions, the
+     artifact's invariants, ``ResegmentWorkflow`` at quantiles of the
+     saddles held to the host oracle, to each other and to its table mode;
+     ``EventBuildingWorkflow`` on 2048 detector-like 256 x 256 frames held
+     to scipy; ``flood_with_stats`` at the pinned tile on a halo'd block
+     (kernel 3 and the 3d flood), ``seeded_watershed_hier``, a capped and a
+     26-connected flood on a crop held to the same calls on the CPU.  Gates
+     in ``hier_phase``'s docstring; it runs after 26, before 21's lines;
  21. one JSON line with the device functions (the accumulator, the device
      MWS, the filter bank with its ``eigvalsh``, the segment reductions,
      the dilation, phase 25's resamplers, minimum filter and affine step,
-     phase 26's U-Net forward),
+     phase 26's U-Net forward, phase 27's event labelling, merge table,
+     re-cut gather and neighbour-sweep flood),
      one with the filling filter's kernel 3 and 3d flood,
      one listing the six kernels, then the result line.
 
@@ -306,6 +319,8 @@ phases 18-20 (no result line): the new phases measured without the rest.
 (no result line).
 ``--inference-phases`` runs only the build, the volume, phase 3 and phase 26
 (no result line).
+``--hier-phases`` runs only the build, the volume and phase 27 (no result
+line).
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -5154,6 +5169,347 @@ def inference_phase(shallow_path: str, ws_path: str, work: str, card: str, libs:
             "shape": shape}
 
 
+HIER_QUANTILES = (0.25, 0.5, 0.9)  # phase 27(b)'s re-cut thresholds, quantiles of the saddles
+EVENT_FRAMES = (2048, 256, 256)  # phase 27(c): frames of a Timepix-class 256 x 256 sensor
+EVENT_BLOCK = (64, 256, 256)
+EVENT_CHECK_EVERY = 32  # every 32nd frame is held to scipy's labels
+HIER_CORNER = (0, 512, 512)  # phase 27(d)'s halo'd block: an interior one
+HIER_CROP = (16, 64, 64)  # phase 27(d)'s capped and 26-connected floods, held to the CPU
+HIER_TILE_CROP = (8, 32, 32)  # its corner: seeded_watershed_hier held to the CPU (the CPU's
+HIER_CROP_TILE = (4, 16, 16)  # sweep schedule walks voxel by voxel, so a smaller crop)
+
+
+def status_timings(task) -> dict:
+    """A task's recorded timings (label -> seconds) from its status file."""
+    return {t["label"]: t["seconds"] for t in task.output().read().get("timings", [])}
+
+
+def detector_frames(shape, seed: int, dev) -> torch.Tensor:
+    """``tests/test_events.py::_frame_stack``'s recipe on the card, from
+    ``seed``: uniform noise smoothed in plane (sigma 1) and kept above its
+    97th percentile (zero below), then 1% of the pixels made hot pixels of
+    1 to 2."""
+    from cluster_tools_tpu_torch.ops.filters import gaussian
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    raw = gaussian(torch.rand(shape, generator=g, device=dev), (0.0, 1.0, 1.0))
+    flat = raw.reshape(-1)
+    thr = torch.sort(flat).values[int(0.97 * (flat.numel() - 1))]
+    frames = torch.where(raw > thr, raw, torch.zeros_like(raw))
+    hits = torch.rand(shape, generator=g, device=dev) > 0.99
+    frames[hits] = torch.rand(int(hits.sum()), generator=g, device=dev) + 1.0
+    return frames
+
+
+def device_record(name: str, shape, ms: float, launches: int, nbytes: int) -> dict:
+    """A ``device_functions`` record of a plain PyTorch device function
+    bounded by the bytes it must move."""
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"name": name, "shape": list(shape), "ms": ms, "launches": launches,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None, "gap_ms": ms - bound}
+
+
+def hier_phase(shallow_path: str, vol_np, work: str, card: str, dev, seed: int) -> dict:
+    """Phase 27.  (a) ``HierarchyWorkflow`` on the first ``SHALLOW_Z``
+    planes (25 blocks of ``BLOCK``) with the default ``hierarchy_blocks``
+    config: kernels 2 and 1 launch, all down the cluster route, and the
+    merge table on the card; blocks 0 and last re-run through the plain
+    versions equal the block labels byte for byte and their reduced tables
+    the saved ones; the artifact is sorted by saddle (``load_hierarchy``),
+    its ``n_labels`` is the sum of the blocks' max ids and the labels volume
+    is the blocks' labels plus their offsets; ``ResegmentWorkflow`` at the
+    median saddle equals ``resegment_np`` of the whole labels volume.
+    (b) ``ResegmentWorkflow`` at the ``HIER_QUANTILES`` of the saddles: the
+    segment counts do not rise with the threshold; at the median the table
+    mode (``write_volume: false``) applied by ``apply_cut_np`` equals the
+    volume mode byte for byte; the cut's and the gather's times.  (c)
+    ``EventBuildingWorkflow`` on ``EVENT_FRAMES`` detector-like frames
+    (``detector_frames``) in blocks of ``EVENT_BLOCK``, connectivity 2:
+    labels and counts equal ``build_events_np`` on every
+    ``EVENT_CHECK_EVERY``-th frame, the property rows within 1e-4; the
+    labelling's rounds, ms per batch and frames/s.  (d) ``flood_with_stats``
+    at the pinned tile (``FLOOD_TILE``) on the halo'd block at
+    ``HIER_CORNER``: kernel 3 and the 3d flood launch, labels and altitudes
+    equal the flood's plain schedule (``flood_volume_scan``) and the
+    untiled call's counters equal its rounds; ``seeded_watershed_hier``'s
+    labels equal ``seeded_watershed``'s; on a ``HIER_CROP`` crop the tiled
+    counters and merge table, a capped flood (``max_iter`` 3) and a
+    26-connected flood equal the same calls on the CPU.  Returns walls,
+    launches, the device-function records and the seconds."""
+    from cluster_tools_tpu_torch import workflows as W
+    from cluster_tools_tpu_torch.ops import events, hier
+    from cluster_tools_tpu_torch.ops import watershed as ws_ops
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
+    from cluster_tools_tpu_torch.ops.cuda_flood import (
+        flood_slices, flood_tiles_warm, flood_volume, flood_volume_scan)
+    from cluster_tools_tpu_torch.tasks.events import read_event_tables
+    from cluster_tools_tpu_torch.tasks.hier import (
+        HIER_PAIRS_KEY, HIER_SADDLES_KEY, HierarchyBlocksTask, default_hierarchy_path)
+    from cluster_tools_tpu_torch.utils import file_reader
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+
+    t_phase = time.perf_counter()
+    walls, launches, records = {}, {}, []
+    path = os.path.join(work, "hier.n5")
+    raw_ds = file_reader(shallow_path, "r")["raw"]
+    shape = tuple(raw_ds.shape)
+    blocking = Blocking(shape, BLOCK)
+    vox = int(np.prod(shape))
+
+    # (a) the hierarchy build
+    conf = volume_config(work, "hier", {"hierarchy_blocks":
+                                        HierarchyBlocksTask.default_task_config()})
+    reset_counts(dtws_slices, flood_slices, hier.block_merge_table)
+    tmp = os.path.join(work, "tmp_hier")
+    run_workflow(W.HierarchyWorkflow(tmp, conf, input_path=shallow_path, input_key="raw",
+                                     output_path=path, output_key="seg"),
+                 "HierarchyWorkflow", vox, card, walls)
+    for name, wrapper in (("dtws_slices", dtws_slices), ("flood_slices", flood_slices)):
+        if wrapper.launches == 0 or wrapper.launches_by_route["cluster"] != wrapper.launches:
+            raise AssertionError(f"HierarchyWorkflow {name}: launches {wrapper.launches}, by "
+                                 f"route {dict(wrapper.launches_by_route)}")
+        launches[name] = wrapper.launches
+    launches.update(launches_rose([hier.block_merge_table], "HierarchyWorkflow"))
+    t0 = time.perf_counter()
+    f = file_reader(path, "r")
+    blocks_vol = read_volume(f["seg_blocks"], blocking)
+    seg = read_volume(f["seg"], blocking)
+    art = hier.load_hierarchy(default_hierarchy_path(path, "seg"))
+    max_ids = np.array([int(blocks_vol[blocking.block(b).slicing].max())
+                        for b in range(blocking.n_blocks)], np.int64)
+    if int(art["n_labels"]) != int(max_ids.sum()):
+        raise AssertionError(f"hierarchy n_labels {int(art['n_labels'])}, blocks' max ids sum "
+                             f"to {int(max_ids.sum())}")
+    offsets = np.concatenate([[0], np.cumsum(max_ids)[:-1]]).astype(np.uint64)
+
+    def global_ids(bid):
+        bb = blocking.block(bid).slicing
+        lab = blocks_vol[bb]
+        if not np.array_equal(seg[bb], np.where(lab > 0, lab + offsets[bid], 0)):
+            raise AssertionError(f"hierarchy block {bid}: labels are not the block's plus "
+                                 f"its offset")
+
+    over_blocks(global_ids, blocking)
+    task = HierarchyBlocksTask(tmp, conf, input_path=shallow_path, input_key="raw",
+                               output_path=path, output_key="seg_blocks")
+    config = {**task.global_config(), **task.get_task_config()}
+    check_ids = [0, blocking.n_blocks - 1]
+    saved = hier.block_merge_table.launches
+    with plain_kernels():
+        _, bhs, labels, tables = task.compute_batch(task.read_batch(check_ids, blocking, config),
+                                                    blocking, config)
+    hier.block_merge_table.launches = saved
+    tmp_store = file_reader(os.path.join(tmp, "data.zarr"), "r")
+    for bid, bh, lab, table in zip(check_ids, bhs, labels, tables):
+        if not np.array_equal(lab[bh.inner_local.slicing].astype(np.uint64),
+                              blocks_vol[bh.inner.slicing]):
+            raise AssertionError(f"hierarchy block {bid}: plain re-run differs")
+        pairs, saddles = hier.reduce_merge_table(*table)
+        if not (np.array_equal(pairs.reshape(-1), tmp_store[HIER_PAIRS_KEY].read_chunk((bid,)))
+                and np.array_equal(saddles, tmp_store[HIER_SADDLES_KEY].read_chunk((bid,)))):
+            raise AssertionError(f"hierarchy block {bid}: plain re-run's table differs")
+    log(f"hierarchy: {int(art['n_labels'])} regions, {art['a'].size} saddle edges; kernel "
+        f"launches {launches}; blocks {check_ids} re-run through the plain versions: labels "
+        f"and tables equal (checks {time.perf_counter() - t0:.1f} s)")
+
+    # (a, b) re-cuts
+    raw = read_volume(raw_ds, blocking)
+    thresholds = [float(t) for t in np.quantile(art["saddle"], HIER_QUANTILES)]
+    cuts, counts, cut_launches = {}, [], 0
+    for i, t in enumerate(thresholds):
+        tag = f"cut{i}"
+        conf_rs = volume_config(work, f"hier_{tag}", {"resegment": {"threshold": t}})
+        reset_counts(hier.recut_labels)
+        wf = W.ResegmentWorkflow(os.path.join(work, f"tmp_hier_{tag}"), conf_rs,
+                                 labels_path=path, labels_key="seg", output_path=path,
+                                 output_key=f"seg_{tag}")
+        run_workflow(wf, f"ResegmentWorkflow q{HIER_QUANTILES[i]}", vox, card, walls)
+        cut_launches = launches_rose([hier.recut_labels], "ResegmentWorkflow")["recut_labels"]
+        timings = status_timings(wf.requires()[0])
+        out = read_volume(file_reader(path, "r")[f"seg_{tag}"], blocking)
+        n = int(torch.unique(torch.from_numpy(out.view(np.int64)).to(dev)).numel())
+        counts.append(n)
+        cuts[t] = out
+        log(f"re-cut at {t:.6f} (quantile {HIER_QUANTILES[i]}): {n} ids with background; cut "
+            f"{timings['cut_table'] * 1e3:.2f} ms, gather stage {timings['stage_compute_total']:.3f}"
+            f" s over {cut_launches} batches")
+    launches["recut_labels"] = cut_launches
+    if counts != sorted(counts, reverse=True) or counts[-1] >= counts[0]:
+        raise AssertionError(f"re-cut segment counts {counts} rise with the threshold")
+    t_med = thresholds[HIER_QUANTILES.index(0.5)]
+    t0 = time.perf_counter()
+    oracle = hier.resegment_np(seg, raw, t_med)
+    if not np.array_equal(cuts[t_med].astype(np.int64), oracle):
+        raise AssertionError("the re-cut at the median saddle differs from resegment_np")
+    log(f"re-cut at the median equals resegment_np of the whole volume "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+    del oracle
+    t0 = time.perf_counter()
+    conf_tm = volume_config(work, "hier_table", {"resegment": {"threshold": t_med,
+                                                               "write_volume": False}})
+    run_workflow(W.ResegmentWorkflow(os.path.join(work, "tmp_hier_table"), conf_tm,
+                                     labels_path=path, labels_key="seg", output_path=path,
+                                     output_key="seg_table"),
+                 "ResegmentWorkflow (table mode)", vox, card, walls)
+    table = hier.load_cut_table(os.path.join(path, "seg_table_cut.npz"))
+    if not np.array_equal(hier.apply_cut_np(seg, table["vals"], table["roots"]).astype(np.uint64),
+                          cuts[t_med]):
+        raise AssertionError("table mode applied on the host differs from the volume mode")
+    log(f"re-cuts: ids {counts} at quantiles {HIER_QUANTILES}; table mode ({table['vals'].size} "
+        f"table entries) equals the volume mode ({time.perf_counter() - t0:.1f} s)")
+    del cuts, raw
+
+    # device functions of (a, b): the merge table and the gather at 8 blocks
+    region = (slice(0, BLOCK[0]), slice(0, 2 * BLOCK[1]), slice(0, 4 * BLOCK[2]))
+
+    def as_blocks(arr):
+        a = torch.from_numpy(np.ascontiguousarray(arr[region])).to(dev)
+        return a.reshape(BLOCK[0], 2, BLOCK[1], 4, BLOCK[2]).permute(1, 3, 0, 2, 4).reshape(
+            (8,) + BLOCK)
+
+    lab8 = as_blocks(blocks_vol.astype(np.int32))
+    h8 = as_blocks(np.ascontiguousarray(raw_ds[region]))
+    saved = hier.block_merge_table.launches
+    ms = cuda_ms(lambda: hier.block_merge_table(lab8, h8), 3)
+    hier.block_merge_table.launches = saved
+    records.append(device_record("block_merge_table (HierarchyBlocksTask)", lab8.shape, ms,
+                                 launches["block_merge_table"], lab8.numel() * (4 + 4 + 3 * 3 * 4)))
+    cut = hier.cut_table(art["a"], art["b"], art["saddle"], t_med, device=dev)
+    seg8 = as_blocks(seg.astype(np.int32))
+    vals, roots = (torch.from_numpy(c).to(dev) for c in cut)
+    saved = hier.recut_labels.launches
+    ms = cuda_ms(lambda: hier.recut_labels(seg8, vals, roots), 5)
+    hier.recut_labels.launches = saved
+    records.append(device_record("recut_labels (ResegmentTask's gather)", seg8.shape, ms,
+                                 launches["recut_labels"], seg8.numel() * 8 + vals.numel() * 8))
+    del blocks_vol, seg, lab8, h8, seg8
+
+    # (c) event building
+    t0 = time.perf_counter()
+    frames_t = detector_frames(EVENT_FRAMES, seed, dev)
+    frames = frames_t.cpu().numpy()
+    ev_path = os.path.join(work, "events.n5")
+    ev_blocking = Blocking(EVENT_FRAMES, EVENT_BLOCK)
+    write_blocks(file_reader(ev_path).create_dataset("frames", shape=EVENT_FRAMES, dtype="float32",
+                                                     chunks=EVENT_BLOCK, compression="raw"),
+                 frames, ev_blocking)
+    log(f"setup: {EVENT_FRAMES[0]} detector frames {EVENT_FRAMES[1:]}, "
+        f"{float((frames > 0).mean()):.4f} of the pixels lit, in {time.perf_counter() - t0:.1f} s")
+    conf_ev = volume_config(work, "events", {"events": {"threshold": 0.0, "connectivity": 2}},
+                            block_shape=list(EVENT_BLOCK))
+    reset_counts(events.build_events_device)
+    events.build_events_device.rounds = 0
+    run_workflow(W.EventBuildingWorkflow(os.path.join(work, "tmp_events"), conf_ev,
+                                         input_path=ev_path, input_key="frames",
+                                         output_path=ev_path, output_key="ev"),
+                 "EventBuildingWorkflow", frames.size, card, walls)
+    launches.update(launches_rose([events.build_events_device], "EventBuildingWorkflow"))
+    rounds = events.build_events_device.rounds
+    check = np.arange(0, EVENT_FRAMES[0], EVENT_CHECK_EVERY)
+    ev_labels = read_volume(file_reader(ev_path, "r")["ev"], ev_blocking)[check]
+    tables = read_event_tables(ev_path, "ev", ev_blocking.n_blocks)
+    t1 = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(slice_threads()) as pool:  # the oracle runs frame by frame
+        parts = list(pool.map(lambda part: (part, events.build_events_np(frames[check[part]])),
+                              np.array_split(np.arange(len(check)), slice_threads())))
+    worst = 0.0
+    for part, (ref_l, ref_c, ref_p) in parts:
+        if not np.array_equal(ev_labels[part], ref_l):
+            raise AssertionError("event labels differ from scipy's on the checked frames")
+        for i, fidx in enumerate(check[part]):
+            rows = tables[tables[:, 0] == fidx, 1:]
+            if rows.shape[0] != ref_c[i]:
+                raise AssertionError(f"frame {fidx}: {rows.shape[0]} events, scipy {ref_c[i]}")
+            np.testing.assert_allclose(rows, ref_p[i, :ref_c[i]], rtol=1e-4, atol=1e-4,
+                                       err_msg=f"event properties of frame {fidx}")
+            if rows.size:
+                worst = max(worst, float(np.abs(rows - ref_p[i, :ref_c[i]]).max()))
+    t_oracle = time.perf_counter() - t1
+    batch = EVENT_BLOCK[0] * 8  # the cuda target's default batch of blocks
+    saved = events.build_events_device.launches, events.build_events_device.rounds
+    ms = cuda_ms(lambda: events.build_events_device(frames_t[:batch], 0.0, 2), 2)
+    events.build_events_device.launches, events.build_events_device.rounds = saved
+    wall = walls["EventBuildingWorkflow"]
+    log(f"events: {len(tables)} events in {EVENT_FRAMES[0]} frames, {len(check)} frames equal to "
+        f"scipy (properties within {worst:.2e}; the oracle {t_oracle:.1f} s); {launches['build_events_device']} labellings, "
+        f"{rounds / launches['build_events_device']:.1f} rounds each, {ms:.2f} ms per batch of "
+        f"{batch} frames; {EVENT_FRAMES[0] / wall:.1f} frames/s end to end")
+    records.append(device_record(
+        f"build_events_device (event labelling and properties, {batch} frames)",
+        (batch,) + EVENT_FRAMES[1:], ms, launches["build_events_device"],
+        batch * EVENT_FRAMES[1] * EVENT_FRAMES[2] * (4 + 4)))
+    del frames_t, frames, ev_labels, tables
+
+    # (d) the flood's entry points on a halo'd block and a crop
+    sub = torch.from_numpy(np.ascontiguousarray(
+        vol_np[:BLOCK[0] + 2 * HALO[0]])).to(dev)
+    h, s, m = halo_block(sub, HIER_CORNER, dev)
+    del sub
+    pinned = os.environ.get("CTT_FLOOD_TILE")
+    os.environ["CTT_FLOOD_TILE"] = FLOOD_TILE
+    try:
+        tile = ws_ops.resolve_flood_tile(tuple(h.shape))
+        reset_counts(flood_tiles_warm, flood_volume)
+        t0 = time.perf_counter()
+        (lab, alt, stats), ms = timed_call(lambda: ws_ops.flood_with_stats(h, s, m, tile=tile))
+        launches.update({f"flood_with_stats {k}": v for k, v in launches_rose(
+            [flood_tiles_warm, flood_volume], "flood_with_stats").items()})
+        lab_h, table_h, stats_h = ws_ops.seeded_watershed_hier(h, s, m)
+        lab_sw = ws_ops.seeded_watershed(h, s, m)
+    finally:
+        if pinned is None:
+            os.environ.pop("CTT_FLOOD_TILE")
+        else:
+            os.environ["CTT_FLOOD_TILE"] = pinned
+    plain_l, plain_a, plain_r = flood_volume_scan(h[None], s[None], m[None])
+    if not (torch.equal(lab, plain_l[0]) and torch.equal(alt, plain_a[0])):
+        raise AssertionError("flood_with_stats: labels or altitudes differ from the plain schedule")
+    _, _, flat = ws_ops.flood_with_stats(h, s, m)
+    if (flat["flood_alt_iters"], flat["flood_assign_iters"]) != tuple(plain_r):
+        raise AssertionError(f"flood_with_stats untiled counters {flat}, plain schedule {plain_r}")
+    if not torch.equal(lab_h, lab_sw):
+        raise AssertionError("seeded_watershed_hier's labels differ from seeded_watershed's")
+    log(f"flood_with_stats at tile {tile} on {tuple(h.shape)}: {stats} in {ms:.1f} ms (the "
+        f"untiled {flat}); labels and altitudes equal the plain schedule's; "
+        f"seeded_watershed_hier's labels equal seeded_watershed's, "
+        f"{int((table_h[0] > 0).sum())} of {table_h[0].numel()} tile-face slots are edges "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    crop = tuple(slice(0, c) for c in HIER_CROP)
+    hc, sc = (t[crop].contiguous() for t in (h, s))
+    mc = hc < torch.quantile(hc.reshape(-1), 0.9)
+    cpu = tuple(t.cpu() for t in (hc, sc, mc))
+    corner = tuple(slice(0, c) for c in HIER_TILE_CROP)
+    got = ws_ops.seeded_watershed_hier(*(t[corner].contiguous() for t in (hc, sc, mc)),
+                                       coarse_tile=HIER_CROP_TILE)
+    want = ws_ops.seeded_watershed_hier(*(t[corner].contiguous() for t in cpu),
+                                        coarse_tile=HIER_CROP_TILE)
+    if not (torch.equal(got[0].cpu(), want[0]) and got[2] == want[2]
+            and all(torch.equal(g.cpu(), w) for g, w in zip(got[1], want[1]))):
+        raise AssertionError(f"crop seeded_watershed_hier: card {got[2]}, CPU {want[2]}")
+    capped = ws_ops.seeded_watershed(hc, sc, mc, max_iter=3)
+    if not torch.equal(capped.cpu(), ws_ops.seeded_watershed(*cpu, max_iter=3)):
+        raise AssertionError("crop capped flood: card and CPU differ")
+    reset_counts(ws_ops._seeded_watershed_sweep)
+    c26, ms = timed_call(lambda: ws_ops.seeded_watershed(hc, sc, mc, connectivity=3))
+    launches.update(launches_rose([ws_ops._seeded_watershed_sweep], "the crop's 26-connected flood"))
+    if not torch.equal(c26.cpu(), ws_ops.seeded_watershed(*cpu, connectivity=3)):
+        raise AssertionError("crop 26-connected flood: card and CPU differ")
+    log(f"crop {HIER_CROP}: a capped flood (max_iter 3) and the 26-connected flood ({ms:.1f} ms "
+        f"on the card) equal the CPU's; on its {HIER_TILE_CROP} corner seeded_watershed_hier's "
+        f"labels, merge table and counters {got[2]} equal the CPU's "
+        f"({time.perf_counter() - t0:.1f} s)")
+    records.append(device_record("_seeded_watershed_sweep (connectivity 3, a crop)", hc.shape, ms,
+                                 launches["_seeded_watershed_sweep"], hc.numel() * (4 + 4 + 1 + 4)))
+    for rec in records:
+        log(f"device function on {card}: {rec}")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 27 done ({seconds:.1f} s)")
+    return {"walls": walls, "launches": launches, "records": records, "seconds": seconds}
+
+
 @contextlib.contextmanager
 def failed_blocks_printed(work: str):
     """On any failure inside, print the failed-block tracebacks of every
@@ -5228,6 +5584,8 @@ def main() -> int:
                     help="only the build, the volume, phase 3 and phase 25 (no result line)")
     ap.add_argument("--inference-phases", action="store_true",
                     help="only the build, the volume, phase 3 and phase 26 (no result line)")
+    ap.add_argument("--hier-phases", action="store_true",
+                    help="only the build, the volume and phase 27 (no result line)")
     ap.add_argument("--fixpoint-paths", action="store_true",
                     help="phases 2 and 5 also time the plain floods down each card path of "
                          "their fixpoint loop (CUDA graphs after the first rounds, from the "
@@ -5284,7 +5642,7 @@ def main() -> int:
         faulthandler.cancel_dump_traceback_later()
         return 0
     if not (args.label_phases or args.container_phases or args.volume_phases
-            or args.inference_phases):
+            or args.inference_phases or args.hier_phases):
         phase_start(2, t_start)
         records = kernel_phase(vol, dev, args.batch)
         records.update(cc_kernel_phase(vol, dev, args.batch, args.compare))
@@ -5355,6 +5713,14 @@ def main() -> int:
             log(f"script: {time.perf_counter() - t_start:.1f} s")
             faulthandler.cancel_dump_traceback_later()
             return 0
+        if args.hier_phases:
+            phase_start(27, t_start)
+            hp = hier_phase(shallow_path, vol_np, work, card, dev, args.seed)
+            log(f"hierarchy and events phase: walls {hp['walls']}; launches {hp['launches']}")
+            log(json.dumps({"device_functions": hp["records"]}))
+            log(f"script: {time.perf_counter() - t_start:.1f} s")
+            faulthandler.cancel_dump_traceback_later()
+            return 0
         phase_start(3, t_start)
         launches, wall, rate = workflow_phase(vol_np, path, work, card)
         phase_start(4, t_start)
@@ -5419,6 +5785,8 @@ def main() -> int:
         vp = volume_phase(shallow_np, shallow_path, path, work, card, libs, dev)
         phase_start(26, t_start)
         ip = inference_phase(shallow_path, path, work, card, libs, dev, args.seed)
+        phase_start(27, t_start)
+        hp = hier_phase(shallow_path, vol_np, work, card, dev, args.seed)
         phase_start(21, t_start)
         slice_records = slice_device_functions(fb, at, card)
     for name, rec in records.items():
@@ -5467,10 +5835,12 @@ def main() -> int:
         f"launches {vp['launches']}; {vp['seconds']:.1f} s")
     log(f"{card}: phase 26 walls (s; voxels/s in each run's line above) {ip['walls']}; "
         f"launches {ip['launches']}; {ip['seconds']:.1f} s")
+    log(f"{card}: phase 27 walls (s; voxels/s in each run's line above) {hp['walls']}; "
+        f"launches {hp['launches']}; {hp['seconds']:.1f} s")
     faulthandler.cancel_dump_traceback_later()
     log(f"script: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"device_functions": [mc["accumulator"], device_mws] + slice_records
-                    + vp["records"] + ip["records"]}))
+                    + vp["records"] + ip["records"] + hp["records"]}))
     log(json.dumps({"filling_filter_kernels": slice_walls["kernels"]}))
     log(json.dumps({"kernels": [records[k] for k in (
         "flood_slices", "dtws_slices", "flood_tiles_warm", "cc_slices", "cc_tiles",

@@ -22,6 +22,8 @@ face by ``merge_tiled_labels``.
 
 from __future__ import annotations
 
+import os
+import warnings
 from itertools import product
 from typing import List, Optional, Sequence, Tuple
 
@@ -29,16 +31,24 @@ import numpy as np
 import torch
 
 
-def neighbor_offsets(connectivity: int, per_slice: bool = False) -> List[Tuple[int, ...]]:
-    """3d offsets with 1 ≤ #nonzero ≤ connectivity; ``per_slice`` keeps the
-    in-plane ones only (each z-slice an independent domain)."""
+def neighbor_offsets(connectivity: int, per_slice: bool = False, ndim: int = 3) -> List[Tuple[int, ...]]:
+    """Offsets of ``ndim`` axes (3d by default, 2d for detector frames) with
+    1 ≤ #nonzero ≤ connectivity; ``per_slice`` keeps those that do not
+    cross axis 0 (each z-slice an independent domain)."""
     offs = [
-        o for o in product((-1, 0, 1), repeat=3)
+        o for o in product((-1, 0, 1), repeat=ndim)
         if 0 < sum(c != 0 for c in o) <= connectivity
     ]
     if per_slice:
         offs = [o for o in offs if o[0] == 0]
     return offs
+
+
+def _canonical_offsets(ndim: int, connectivity: int, per_slice: bool) -> List[Tuple[int, ...]]:
+    """The lexicographically positive half of the neighbourhood: each
+    unordered adjacency {p, p + o} under exactly one offset o."""
+    return [o for o in neighbor_offsets(connectivity, per_slice, ndim)
+            if [c for c in o if c != 0][0] > 0]
 
 
 def shift(x: torch.Tensor, offset, fill) -> torch.Tensor:
@@ -135,8 +145,86 @@ def parse_tile_spec(spec, ndim: int) -> Optional[Tuple[int, ...]]:
     return tuple([parts[0]] * (ndim - len(parts)) + parts)
 
 
+CC_TILE_ENV = "CTT_CC_TILE"
+
+
+def default_coarse_tile(ndim: int) -> Tuple[int, ...]:
+    """The JAX package's built-in tile: 64 along the two trailing axes, 8
+    along every leading one."""
+    if ndim <= 2:
+        return (64,) * ndim
+    return (8,) * (ndim - 2) + (64, 64)
+
+
+def resolve_coarse_tile(shape, coarse_tile=None) -> Tuple[int, ...]:
+    """Tile precedence: an explicit ``coarse_tile`` (int = cube, sequence =
+    per axis), then the ``CTT_CC_TILE`` environment variable read at call
+    time (an invalid value warns), then ``default_coarse_tile`` — clipped
+    per axis to ``shape``."""
+    ndim = len(shape)
+    if coarse_tile is None:
+        pin = os.environ.get(CC_TILE_ENV)
+        tile = parse_tile_spec(pin, ndim) if pin is not None else None
+        if pin is not None and tile is None:
+            warnings.warn(f"invalid {CC_TILE_ENV}={pin!r}; using the default tile",
+                          RuntimeWarning, stacklevel=2)
+        if tile is None:
+            tile = default_coarse_tile(ndim)
+    elif isinstance(coarse_tile, (int, np.integer)):
+        tile = (int(coarse_tile),) * ndim
+    else:
+        tile = tuple(int(t) for t in coarse_tile)
+        if len(tile) != ndim:
+            raise ValueError(f"coarse_tile {coarse_tile!r} does not match ndim {ndim}")
+    return tuple(max(1, min(int(t), int(s))) for t, s in zip(tile, shape))
+
+
 def _tile_grid(shape, tile) -> Tuple[int, ...]:
     return tuple(-(-int(s) // int(t)) for s, t in zip(shape, tile))
+
+
+def tile_stack(x: torch.Tensor, tile, fill) -> torch.Tensor:
+    """Pad ``x`` at the end of every axis to tile multiples with ``fill`` and
+    reshape to ``(n_tiles, *tile)``, the tiles in row-major grid order."""
+    shape = tuple(x.shape)
+    grid = _tile_grid(shape, tile)
+    padded = tuple(g * int(t) for g, t in zip(grid, tile))
+    if padded != shape:
+        out = torch.full(padded, fill, dtype=x.dtype, device=x.device)
+        out[tuple(slice(0, s) for s in shape)] = x
+        x = out
+    ndim = len(shape)
+    x = x.reshape(tuple(v for g, t in zip(grid, tile) for v in (g, int(t))))
+    perm = tuple(2 * i for i in range(ndim)) + tuple(2 * i + 1 for i in range(ndim))
+    return x.permute(perm).reshape((-1,) + tuple(int(t) for t in tile))
+
+
+def tile_unstack(xt: torch.Tensor, shape, tile, crop: bool = True) -> torch.Tensor:
+    """Inverse of ``tile_stack``; ``crop=False`` keeps the padded extent."""
+    grid = _tile_grid(shape, tile)
+    ndim = len(shape)
+    x = xt.reshape(tuple(grid) + tuple(int(t) for t in tile))
+    perm = tuple(v for pair in zip(range(ndim), range(ndim, 2 * ndim)) for v in pair)
+    x = x.permute(perm).reshape(tuple(g * int(t) for g, t in zip(grid, tile)))
+    if crop:
+        x = x[tuple(slice(0, int(s)) for s in shape)]
+    return x
+
+
+def tile_crossing_take(arrs, off, tile, grid):
+    """For one canonical offset ``off``: the flattened voxel slabs (the last
+    plane of every tile along each axis the offset crosses, or the first for
+    a negative component) of every tensor in ``arrs``, one tuple per
+    crossing axis — the JAX package's static slot order."""
+    out = []
+    for ax, o_a in enumerate(off):
+        if o_a == 0 or grid[ax] == 1:
+            continue
+        t_a = int(tile[ax])
+        idx = torch.arange(t_a - 1 if o_a > 0 else 0, int(arrs[0].shape[ax]), t_a,
+                           device=arrs[0].device)
+        out.append(tuple(torch.index_select(a, ax, idx).reshape(-1) for a in arrs))
+    return out
 
 
 def _block_offsets(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:

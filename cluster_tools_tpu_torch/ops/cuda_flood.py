@@ -402,21 +402,30 @@ def flood_volume(
     warm: Optional[torch.Tensor] = None,
     stats: Optional[dict] = None,
     stamps: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_alt: bool = False,
+):
     """3d seeded flood of a (B, Z, H, W) batch: the CUDA kernel for CUDA
     tensors, ``flood_volume_plain`` for CPU tensors.  ``warm`` (float32, the
     batch's shape) lowers the initial altitudes on the mask (kernel 3's
-    output).  ``stats`` receives the rounds of each phase on the card
+    output).  ``stats`` receives the rounds of each phase
     (``flood_alt_iters``, ``flood_assign_iters``, the JAX package's names);
-    the wrapper's ``alt_rounds`` / ``assign_rounds`` sum them over calls.
-    ``stamps`` (an int64 (1, 14) CUDA tensor) receives the card's ns spent
-    on each of ``FLOOD3D_PHASES``, then the lines swept in each of
-    ``FLOOD3D_LINES``."""
+    the wrapper's ``alt_rounds`` / ``assign_rounds`` sum them over the
+    card's calls.  ``stamps`` (an int64 (1, 14) CUDA tensor) receives the
+    card's ns spent on each of ``FLOOD3D_PHASES``, then the lines swept in
+    each of ``FLOOD3D_LINES``.  ``return_alt`` returns ``(labels,
+    altitudes)``.  On the CPU a call that asks for rounds or altitudes runs
+    the kernel's schedule (``flood_volume_scan``), whose rounds are the
+    kernel's."""
     if hmap.dim() != 4:
         raise ValueError(f"flood_volume takes (B, Z, H, W) tensors, got {tuple(hmap.shape)}")
     _check_same("flood_volume", hmap, seeds, mask, warm)
     if hmap.device.type == "cpu":
-        return flood_volume_plain(hmap, seeds, mask, warm)
+        if stats is None and not return_alt:
+            return flood_volume_plain(hmap, seeds, mask, warm)
+        lab, alt, rounds = flood_volume_scan(hmap, seeds, mask, warm)
+        if stats is not None:
+            stats["flood_alt_iters"], stats["flood_assign_iters"] = rounds
+        return (lab, alt) if return_alt else lab
     if hmap.device.type != "cuda":
         raise ValueError(f"flood_volume: unsupported device {hmap.device}")
     b, z, h, w = hmap.shape
@@ -425,7 +434,9 @@ def flood_volume(
     dev = hmap.device
     lab = torch.empty((b, z, h, w), dtype=torch.int32, device=dev)
     if lab.numel() == 0:
-        return lab
+        if stats is not None:
+            stats["flood_alt_iters"], stats["flood_assign_iters"] = 1, 1
+        return (lab, torch.empty(lab.shape, dtype=torch.float32, device=dev)) if return_alt else lab
     hm_in = hmap.to(torch.float32).contiguous()
     sd = seeds.to(torch.int32).contiguous()
     mk = mask.to(torch.bool).contiguous()
@@ -452,7 +463,7 @@ def flood_volume(
     _build.count_launch(flood_volume, alt_rounds=rounds[0], assign_rounds=rounds[1])
     if stats is not None:
         stats["flood_alt_iters"], stats["flood_assign_iters"] = rounds[0], rounds[1]
-    return lab
+    return (lab, alt) if return_alt else lab
 
 
 flood_volume.launches = 0
@@ -510,6 +521,87 @@ def _unsweep_lines(t: torch.Tensor, axis: int, rev: bool) -> torch.Tensor:
     return (t.flip(-1) if rev else t).movedim(-1, axis + 1)
 
 
+def _sweep(d, transfers, compose, apply, identity, init, cuts):
+    """Sweep ``d`` (axis ``d // 2`` of the trailing three, backward when
+    ``d`` is odd) of a (B, Z, H, W) batch as ``scan_sweep`` on lines cut
+    where ``cuts(axis, n, rev)`` says."""
+    axis, rev = d // 2, d % 2 == 1
+    n = transfers[0].shape[axis + 1]
+    f = tuple(_sweep_lines(t, axis, rev) for t in transfers)
+    line = f[0][..., 0]
+    out = scan_sweep(compose, apply, tuple(torch.full_like(line, v) for v in identity),
+                     f, tuple(torch.full_like(line, v) for v in init) if isinstance(init, tuple)
+                     else torch.full_like(line, init), cuts(axis, n, rev))
+    if isinstance(out, tuple):
+        return tuple(_unsweep_lines(o, axis, rev) for o in out)
+    return _unsweep_lines(out, axis, rev)
+
+
+def _moved(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    return (new != old).reshape(new.shape[0], -1).any(1)
+
+
+def _rounds_loop(state, one_round, max_iter: int):
+    """Apply ``one_round`` (state -> (state, moved per block)) until a round
+    moves no block, or ``max_iter`` rounds when it is > 0.  Returns the state
+    and each block's rounds as the JAX package counts them: one more than
+    the rounds that moved it, at most ``max_iter``."""
+    rounds = torch.ones(state[0].shape[0], dtype=torch.int64, device=state[0].device)
+    done = 0
+    while True:
+        state, moved = one_round(state)
+        done += 1
+        if not bool(moved.any()) or (max_iter and done >= max_iter):
+            break
+        rounds += moved
+    if max_iter:
+        rounds = torch.clamp(rounds, max=max_iter)
+    return state, rounds
+
+
+def altitude_sweeps(alt: torch.Tensor, hmap: torch.Tensor, mask: torch.Tensor,
+                    axes: Sequence[int] = (0, 1, 2), max_iter: int = 0, cuts=kernel_cuts):
+    """Flood phase 1 of a (B, Z, H, W) batch on the sweep schedule: rounds
+    of a forward and a backward sweep along each of ``axes`` (of z, y, x)
+    from the altitudes ``alt``.  Returns the altitudes and each block's
+    rounds (``_rounds_loop``)."""
+    hm = torch.where(mask, hmap, torch.full_like(hmap, float("inf")))
+
+    def one_round(state):
+        (a,) = state
+        moved = torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
+        for d in (d for d in range(6) if d // 2 in axes):
+            new = _sweep(d, (a, hm), clamp_compose, clamp_apply,
+                         (float("inf"), float("-inf")), BIG, cuts)
+            moved |= _moved(new, a)
+            a = new
+        return (a,), moved
+
+    (alt,), rounds = _rounds_loop((alt,), one_round, max_iter)
+    return alt, rounds
+
+
+def assign_sweeps(dist: torch.Tensor, label: torch.Tensor, edges: torch.Tensor,
+                  axes: Sequence[int] = (0, 1, 2), max_iter: int = 0, cuts=kernel_cuts):
+    """Flood phase 2 of a (B, Z, H, W) batch on the sweep schedule from the
+    keys ``(dist, label)`` over the edge bits of ``volume_edges``.  Returns
+    int64 hops and labels, and each block's rounds."""
+
+    def one_round(state):
+        dd, ll = state
+        moved = torch.zeros(dd.shape[0], dtype=torch.bool, device=dd.device)
+        for d in (d for d in range(6) if d // 2 in axes):
+            f = assign_transfers(dd, ll, (edges >> d) & 1 == 1)
+            nd, nl = _sweep(d, f, assign_compose, assign_apply, (BIG_DIST, 0, 0),
+                            (BIG_DIST, 0), cuts)
+            moved |= _moved(nd, dd) | _moved(nl, ll)
+            dd, ll = nd, nl
+        return (dd, ll), moved
+
+    (dist, label), rounds = _rounds_loop((dist.long(), label.long()), one_round, max_iter)
+    return dist, label, rounds
+
+
 def flood_volume_scan(
     hmap: torch.Tensor,
     seeds: torch.Tensor,
@@ -517,6 +609,8 @@ def flood_volume_scan(
     warm: Optional[torch.Tensor] = None,
     cuts=kernel_cuts,
     per_item: bool = False,
+    axes: Sequence[int] = (0, 1, 2),
+    max_iter: int = 0,
 ):
     """The 3d flood of a (B, Z, H, W) batch on the kernel's schedule: rounds
     of the six sweeps (z, y, x, each forward then backward) until a round
@@ -527,57 +621,22 @@ def flood_volume_scan(
     are a list of each block's (phase 1, phase 2) rounds, those the kernel
     reports for that block alone: blocks never interact, a block's rounds
     are one more than the rounds that changed it, and a batch's are the
-    most of its blocks' — so one call serves several gates' inputs."""
+    most of its blocks' — so one call serves several gates' inputs.
+    ``axes`` restricts the sweeps (``(1, 2)``: each z-slice floods on its
+    own) and ``max_iter`` > 0 caps each phase's rounds, as the JAX
+    package's capped flood does; a capped flood's labels depend on this
+    schedule."""
     hmap = hmap.to(torch.float32)
     mask = mask.bool()
     seeds = torch.where(mask, seeds.to(torch.int32), 0)
     is_seed = seeds > 0
-    big = torch.full_like(hmap, BIG)
-    alt = torch.where(is_seed, hmap, big)
+    alt = torch.where(is_seed, hmap, torch.full_like(hmap, BIG))
     if warm is not None:
         alt = torch.where(mask, torch.minimum(alt, warm.to(torch.float32)), alt)
-    hm = torch.where(mask, hmap, torch.full_like(hmap, float("inf")))
-    n_of = hmap.shape[1:]
-
-    def sweep(d, transfers, compose, apply, identity, init):
-        axis, rev = d // 2, d % 2 == 1
-        f = tuple(_sweep_lines(t, axis, rev) for t in transfers)
-        line = f[0][..., 0]
-        out = scan_sweep(compose, apply, tuple(torch.full_like(line, v) for v in identity),
-                         f, tuple(torch.full_like(line, v) for v in init) if isinstance(init, tuple)
-                         else torch.full_like(line, init), cuts(axis, n_of[axis], rev))
-        if isinstance(out, tuple):
-            return tuple(_unsweep_lines(o, axis, rev) for o in out)
-        return _unsweep_lines(out, axis, rev)
-
-    def moved(new, old):
-        return (new != old).reshape(new.shape[0], -1).any(1)
-
-    r1 = torch.ones(hmap.shape[0], dtype=torch.int64, device=hmap.device)
-    while True:
-        changed = torch.zeros_like(r1, dtype=torch.bool)
-        for d in range(6):
-            new = sweep(d, (alt, hm), clamp_compose, clamp_apply, (float("inf"), float("-inf")), BIG)
-            changed |= moved(new, alt)
-            alt = new
-        if not bool(changed.any()):
-            break
-        r1 += changed
-
+    alt, r1 = altitude_sweeps(alt, hmap, mask, axes, max_iter, cuts)
     edges = volume_edges(alt, hmap, mask, seeds)
     dist = torch.where(is_seed, 0, BIG_DIST).to(torch.int64)
-    label = seeds.to(torch.int64)
-    r2 = torch.ones_like(r1)
-    while True:
-        changed = torch.zeros_like(r1, dtype=torch.bool)
-        for d in range(6):
-            f = assign_transfers(dist, label, (edges >> d) & 1 == 1)
-            nd, nl = sweep(d, f, assign_compose, assign_apply, (BIG_DIST, 0, 0), (BIG_DIST, 0))
-            changed |= moved(nd, dist) | moved(nl, label)
-            dist, label = nd, nl
-        if not bool(changed.any()):
-            break
-        r2 += changed
+    _, label, r2 = assign_sweeps(dist, seeds, edges, axes, max_iter, cuts)
     rounds = list(zip(r1.tolist(), r2.tolist()))
     if not per_item:
         rounds = (max(r for r, _ in rounds), max(r for _, r in rounds))

@@ -18,6 +18,14 @@ as kernel 2 (``cuda_dtws``).  ``two_pass_flood`` is pass 2 of the
 checkerboard two-pass watershed: the same steps, seeded from the labels
 pass 1 wrote into the halo as well.  Tensors carry a leading batch axis of blocks
 (B, Z, H, W) where the JAX package used ``vmap``.
+
+The flood's other entry points: a capped flood (``max_iter`` > 0) runs the
+sweep schedule (``cuda_flood.flood_volume_scan``), ``connectivity`` > 1
+the neighbour-sweep flood (``_seeded_watershed_sweep``), both plain PyTorch
+on the tensor's device; ``flood_with_stats`` returns the altitudes and
+round counters beside the labels, ``flood_merge_table`` the tile-face
+``(a, b, saddle)`` edges of a labelling and ``seeded_watershed_hier`` both
+(the hierarchy hook of ``ops/hier.py``'s callers and of the tests).
 """
 
 from __future__ import annotations
@@ -29,8 +37,29 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .cc import connected_components, parse_tile_spec
-from .cuda_flood import flood_slices, flood_tiles_warm, flood_volume
+from ._build import count_on_card
+from .cc import (
+    _canonical_offsets,
+    _tile_grid,
+    connected_components,
+    neighbor_offsets,
+    parse_tile_spec,
+    resolve_coarse_tile,
+    shift,
+    tile_crossing_take,
+    tile_stack,
+    tile_unstack,
+)
+from .cuda_flood import (
+    BIG_DIST,
+    altitude_sweeps,
+    assign_sweeps,
+    flood_slices,
+    flood_tiles_warm,
+    flood_volume,
+    flood_volume_scan,
+    volume_edges,
+)
 from .dt import distance_transform, distance_transform_2d_stack, parabola_pass_axis
 from .filters import fma32, gaussian, maximum_filter, minimum_filter, normalize
 
@@ -162,14 +191,23 @@ def seeded_watershed(
     ``per_slice`` floods each z-slice on its own (kernel 1); otherwise the
     3d flood, warm-started by kernel 3 when a tile resolves from
     ``coarse_tile`` or ``CTT_FLOOD_TILE`` (same labels, fewer global
-    rounds).  Returns int32 labels."""
-    if connectivity != 1:
-        raise NotImplementedError("flood connectivity > 1 is not ported yet (ROADMAP Queue A 5(d))")
-    if max_iter:
-        raise NotImplementedError("a capped flood (max_iter > 0) is not ported yet (ROADMAP Queue A 5(d))")
+    rounds).  ``max_iter`` > 0 caps each phase at that many rounds of the
+    sweep schedule (``cuda_flood.flood_volume_scan``: the JAX package's
+    sequential sweeps, whose rounds a capped result depends on), in plain
+    PyTorch on the tensor's device and without a tile; ``connectivity`` >
+    1 runs the neighbour-sweep flood (``_seeded_watershed_sweep``).
+    Returns int32 labels."""
     if mask is None:
         mask = torch.ones(hmap.shape, dtype=torch.bool, device=hmap.device)
     shape = hmap.shape
+    if connectivity != 1:
+        return _seeded_watershed_sweep(hmap, seeds, mask, connectivity, max_iter, per_slice)
+    if max_iter:
+        batch = (-1,) + tuple(shape[-3:])
+        return flood_volume_scan(
+            *(t.reshape(batch) for t in (hmap, seeds, mask)),
+            axes=(1, 2) if per_slice else (0, 1, 2), max_iter=int(max_iter),
+        )[0].view(shape)
     tile = resolve_flood_tile(shape[-3:], coarse_tile)
     h, w = shape[-2:]
     if per_slice:
@@ -183,6 +221,184 @@ def seeded_watershed(
             hmap.reshape(-1, h, w), seeds.reshape(-1, h, w), mask.reshape(-1, h, w), tile[1:]
         ).view(hmap.shape)
     return flood_volume(hmap, seeds, mask, warm=warm).view(shape)
+
+
+def _seeded_watershed_sweep(
+    hmap: torch.Tensor,
+    seeds: torch.Tensor,
+    mask: torch.Tensor,
+    connectivity: int = 1,
+    max_iter: int = 0,
+    per_slice: bool = False,
+) -> torch.Tensor:
+    """The neighbour-sweep Bellman–Ford flood over any connectivity, of one
+    (Z, H, W) block or a (B, Z, H, W) batch: every round recomputes each
+    voxel's (pass height, hops, label) from its neighbours alone (a voxel's
+    own state is no candidate, so a state whose witness is gone does not
+    survive), until a round changes nothing or ``max_iter`` rounds when it
+    is > 0.  Plain PyTorch on the tensor's device."""
+    hmap = hmap.to(torch.float32)
+    mask = mask.bool()
+    seeds = torch.where(mask, seeds.to(torch.int32), 0)
+    is_seed = seeds > 0
+    big = torch.tensor(_BIG, dtype=torch.float32, device=hmap.device)
+    offsets = neighbor_offsets(connectivity, per_slice)
+    alt0 = torch.where(is_seed, hmap, big)
+    dist0 = torch.where(is_seed, 0, BIG_DIST).to(torch.int32)
+    label, alt, dist = seeds, alt0, dist0
+    count_on_card(_seeded_watershed_sweep, hmap)
+    it = 0
+    while True:
+        best_alt, best_dist, best_label = alt0, dist0, seeds
+        for off in offsets:
+            n_label = shift(label, off, 0)
+            valid = n_label > 0
+            cand_alt = torch.where(valid, torch.maximum(shift(alt, off, _BIG), hmap), big)
+            cand_dist = torch.where(valid, shift(dist, off, BIG_DIST) + 1, BIG_DIST)
+            same_alt = cand_alt == best_alt
+            better = ((cand_alt < best_alt) | (same_alt & (cand_dist < best_dist))
+                      | (same_alt & (cand_dist == best_dist) & valid
+                         & ((best_label == 0) | (n_label < best_label))))
+            better &= ~is_seed
+            best_alt = torch.where(better, cand_alt, best_alt)
+            best_dist = torch.where(better, cand_dist, best_dist)
+            best_label = torch.where(better, n_label, best_label)
+        best_label = torch.where(mask, best_label, 0)
+        best_alt = torch.where(mask, best_alt, big)
+        best_dist = torch.where(mask, best_dist, BIG_DIST)
+        changed = not (torch.equal(best_label, label) and torch.equal(best_alt, alt)
+                       and torch.equal(best_dist, dist))
+        label, alt, dist = best_label, best_alt, best_dist
+        it += 1
+        if not changed or (max_iter and it >= max_iter):
+            return label
+
+
+_seeded_watershed_sweep.launches = 0
+
+
+def _tile_round_counts(hmap, seeds, mask, alt, tile, axes):
+    """The round counters of the JAX package's tile-warm flood
+    (``_flood_scan_impl`` with a tile) on the sweep schedule: the
+    tile-local phase 1 over ``tile_stack``ed tiles, the global phase 1 from
+    their altitudes, the tile-local phase 2 against the global altitudes
+    ``alt`` (the fixpoint), then the global phase 2 from its keys."""
+    shape = tuple(hmap.shape)
+    is_seed = seeds > 0
+    h_t, m_t, sd_t = (tile_stack(x, tile, f) for x, f in ((hmap, _BIG), (mask, False), (seeds, 0)))
+    alt0 = torch.where(is_seed, hmap, torch.full_like(hmap, _BIG))
+    alt_t, it_a = altitude_sweeps(tile_stack(alt0, tile, _BIG), h_t, m_t, axes)
+    _, alt_iters = altitude_sweeps(tile_unstack(alt_t, shape, tile)[None], hmap[None], mask[None], axes)
+    dist0 = torch.where(is_seed, 0, BIG_DIST).to(torch.int64)
+    dist_t, label_t, it_s = assign_sweeps(
+        tile_stack(dist0, tile, BIG_DIST), sd_t,
+        volume_edges(tile_stack(alt, tile, _BIG), h_t, m_t, sd_t), axes)
+    _, _, asg_iters = assign_sweeps(
+        tile_unstack(dist_t, shape, tile)[None], tile_unstack(label_t, shape, tile)[None],
+        volume_edges(alt[None], hmap[None], mask[None], seeds[None]), axes)
+    return {
+        "flood_tile_iters": int(it_a.max()) + int(it_s.max()),
+        "flood_alt_iters": int(alt_iters[0]),
+        "flood_assign_iters": int(asg_iters[0]),
+    }
+
+
+def flood_with_stats(
+    hmap: torch.Tensor,
+    seeds: torch.Tensor,
+    mask: torch.Tensor,
+    per_slice: bool = False,
+    tile: Optional[Sequence[int]] = None,
+):
+    """``(labels, alt, stats)`` of the seeded flood of one (Z, H, W) volume:
+    int32 labels, float32 altitudes and the JAX package's round counters
+    ``flood_tile_iters`` / ``flood_alt_iters`` / ``flood_assign_iters``.
+
+    A 3d flood runs on the card: kernel 3's warm start where ``tile`` is
+    given, then the 3d flood, whose altitudes and rounds come back with its
+    labels.  With a tile the counters are those of the JAX package's
+    tile-local loops over ``tile_stack``ed (tz, th, tw) tiles and of the
+    global loops after them (``_tile_round_counts``: the sweep schedule in
+    PyTorch on the tensor's device; no kernel runs that schedule).  A
+    ``per_slice`` flood (y and x sweeps only) runs wholly on the sweep
+    schedule, because kernel 1 returns no altitudes."""
+    hmap = hmap.to(torch.float32)
+    mask = mask.bool()
+    seeds = torch.where(mask, seeds.to(torch.int32), 0)
+    axes = (1, 2) if per_slice else (0, 1, 2)
+    tile = None if tile is None else tuple(int(t) for t in tile)
+    if per_slice:
+        labels, alt, rounds = flood_volume_scan(hmap[None], seeds[None], mask[None], axes=axes)
+        labels, alt = labels[0], alt[0]
+        stats = {"flood_tile_iters": 0, "flood_alt_iters": rounds[0],
+                 "flood_assign_iters": rounds[1]}
+    else:
+        warm = None
+        if tile is not None:
+            warm = flood_tiles_warm(hmap, seeds, mask, tile[1:])[None]
+        stats = {"flood_tile_iters": 0}
+        labels, alt = flood_volume(hmap[None], seeds[None], mask[None], warm=warm,
+                                   stats=stats, return_alt=True)
+        labels, alt = labels[0], alt[0]
+    if tile is not None:
+        stats = _tile_round_counts(hmap, seeds, mask, alt, tile, axes)
+    return labels, alt, stats
+
+
+def flood_merge_table(
+    labels: torch.Tensor,
+    heights: torch.Tensor,
+    tile: Sequence[int],
+    connectivity: int = 1,
+    per_slice: bool = False,
+):
+    """Tile-face merge table of a flooded (Z, H, W) labelling: for every
+    adjacency (p, p + off) under the canonical offsets that crosses a tile
+    face, the label pair and the saddle ``max(heights[p], heights[p +
+    off])``.  Returns flat ``(a, b, saddle)`` columns of the JAX package's
+    static length and slot order; slots that are not an edge between two
+    regions carry ``(0, 0, BIG)``.  Plain PyTorch on the tensor's device."""
+    shape = tuple(labels.shape)
+    labels = labels.to(torch.int32)
+    heights = heights.to(torch.float32)
+    grid = _tile_grid(shape, tile)
+    a_parts, b_parts, s_parts = [], [], []
+    for off in _canonical_offsets(len(shape), connectivity, per_slice):
+        if all(o == 0 or grid[ax] == 1 for ax, o in enumerate(off)):
+            continue
+        nei_l = shift(labels, off, 0)
+        nei_h = shift(heights, off, _BIG)
+        for a_v, b_v, h_a, h_b in tile_crossing_take((labels, nei_l, heights, nei_h), off, tile, grid):
+            ok = (a_v > 0) & (b_v > 0) & (a_v != b_v)
+            a_parts.append(torch.where(ok, a_v, 0))
+            b_parts.append(torch.where(ok, b_v, 0))
+            s_parts.append(torch.where(ok, torch.maximum(h_a, h_b), torch.full_like(h_a, _BIG)))
+    if not a_parts:
+        z = torch.zeros((0,), dtype=torch.int32, device=labels.device)
+        return z, z, torch.zeros((0,), dtype=torch.float32, device=labels.device)
+    return torch.cat(a_parts), torch.cat(b_parts), torch.cat(s_parts)
+
+
+def seeded_watershed_hier(
+    hmap: torch.Tensor,
+    seeds: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    coarse_tile=None,
+    per_slice: bool = False,
+):
+    """The tile-warm flood of one (Z, H, W) volume (labels equal to
+    ``seeded_watershed``'s) plus its tile-face merge table over ``hmap``:
+    ``(labels, (a, b, saddle), stats)``.  The tile is ``coarse_tile``, else
+    ``CTT_FLOOD_TILE``, else ``CTT_CC_TILE`` or the built-in tile, each read
+    at call time: this entry point always tiles."""
+    if mask is None:
+        mask = torch.ones(hmap.shape, dtype=torch.bool, device=hmap.device)
+    tile = resolve_flood_tile(hmap.shape, coarse_tile)
+    if tile is None:
+        tile = resolve_coarse_tile(hmap.shape, None)
+    labels, _, stats = flood_with_stats(hmap, seeds, mask.bool(), per_slice=per_slice, tile=tile)
+    table = flood_merge_table(labels, hmap.to(torch.float32), tile, per_slice=per_slice)
+    return labels, table, stats
 
 
 def apply_size_filter(

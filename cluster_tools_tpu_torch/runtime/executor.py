@@ -10,13 +10,16 @@ Port of ``cluster_tools_tpu/runtime/executor.py``:
     times the card count from ``torch.cuda``.  Tasks implementing the split
     protocol run a three-stage pipeline: a read pool prefetches batch i+1,
     the calling thread runs every ``compute_batch`` in order, a write pool
-    drains batch i-1 — each stage holds at most ``pipeline_depth`` batches.
-    A task whose blocks read what other blocks of the same run write
+    of ``pipeline_depth`` threads drains the batches before it — each stage
+    holds at most ``pipeline_depth`` batches, so up to that many batches
+    write at once (the store serialises two writes into one chunk).  A task
+    whose blocks read what other blocks of the same run write
     (``pipeline_safe = False``: the two-pass watershed's pass 2) runs one
     batch at a time instead, read → compute → write, and on ``local`` one
-    block at a time.  A batch that fails degrades to per-block
-    ``process_block`` calls.  Tasks without the split protocol run as on
-    ``local``.
+    block at a time; a task with an hdf5 path has ``pipeline_depth`` 1
+    (``runtime/task.py::hdf5_single_thread``), so one writer.  A batch that
+    fails degrades to per-block ``process_block`` calls.  Tasks without the
+    split protocol run as on ``local``.
 
 The profiler hook and the device-buffer cache of the JAX package wait
 (ROADMAP Queue A 9).
@@ -137,7 +140,7 @@ class CudaExecutor(BaseExecutor):
                 _fallback(chunk)
 
         with ThreadPoolExecutor(depth, thread_name_prefix="ctt-read") as read_pool, \
-                ThreadPoolExecutor(1, thread_name_prefix="ctt-write") as write_pool:
+                ThreadPoolExecutor(depth, thread_name_prefix="ctt-write") as write_pool:
 
             def _consume():
                 chunk, fut = reads.popleft()

@@ -6,7 +6,17 @@ from .debugging import CheckComponentsTask, CheckSubGraphsTask
 from .distances import MergeObjectDistancesTask, ObjectDistancesTask
 from .downscaling import DownscalingTask, ScaleToBoundariesTask, UpscalingTask
 from .evaluation import MeasuresTask, ObjectViTask
+from .events import EVENTS_SUFFIX, EventBuildingTask, read_event_tables
 from .features import BlockEdgeFeaturesTask, MergeEdgeFeaturesTask
+from .hier import (
+    BuildHierarchyTask,
+    HierarchyBlocksTask,
+    HierarchyFacesTask,
+    HierarchyOffsetsTask,
+    ResegmentTask,
+    default_hierarchy_path,
+    load_hier_offsets,
+)
 from .graph import InitialSubGraphsTask, MapEdgeIdsTask, MergeScaleSubGraphsTask, MergeSubGraphsTask
 from .ilastik import (
     IlastikPredictionTask,
@@ -83,6 +93,9 @@ from .watershed import (
 from .write import WriteTask
 
 __all__ = [
+    "BuildHierarchyTask", "EVENTS_SUFFIX", "EventBuildingTask", "HierarchyBlocksTask",
+    "HierarchyFacesTask", "HierarchyOffsetsTask", "ResegmentTask", "default_hierarchy_path",
+    "load_hier_offsets", "read_event_tables",
     "AGGLO_ASSIGNMENTS_NAME", "AgglomerateTask", "AgglomerativeClusteringTask",
     "BackgroundSizeFilterTask", "BlockComponentsTask", "BlockEdgeFeaturesTask",
     "BlockFacesTask", "BlockMorphologyTask", "BlockNodeLabelsTask", "BlocksFromMaskTask",

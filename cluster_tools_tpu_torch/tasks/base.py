@@ -94,6 +94,58 @@ def read_ragged_chunks(ds, n_blocks: int, n_threads: int = 1) -> list:
         return list(pool.map(lambda bid: ds.read_chunk((bid,)), range(n_blocks)))
 
 
+def _chunk_aligned(ds, bh) -> bool:
+    """The block's inner box covers whole chunks of ``ds`` (in its trailing,
+    spatial axes), so writes of distinct blocks never share a chunk."""
+    n = len(bh.inner.begin)
+    for b, e, c, s in zip(bh.inner.begin, bh.inner.end, ds.chunks[-n:], ds.shape[-n:]):
+        if b % c or (e % c and e != s):
+            return False
+    return True
+
+
+def read_padded_blocks(ds, blocking: Blocking, block_ids, dtype, n_threads: int = 1):
+    """The halo-less blocks ``block_ids`` of ``ds`` as ``dtype``, each
+    zero-padded at its end to the block shape, stacked; returns ``(blocks,
+    data)`` with the ``BlockWithHalo`` geometry of each."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    full = tuple(blocking.block_shape)
+    blocks = [blocking.block_with_halo(bid, (0,) * blocking.ndim) for bid in block_ids]
+
+    def _read(bh):
+        arr = ds[bh.outer.slicing].astype(dtype, copy=False)
+        pad = [(0, f - s) for f, s in zip(full, arr.shape)]
+        return np.pad(arr, pad) if any(p for _, p in pad) else arr
+
+    n = min(n_threads, len(blocks))
+    if n > 1:
+        with ThreadPoolExecutor(n) as pool:
+            datas = list(pool.map(_read, blocks))
+    else:
+        datas = [_read(bh) for bh in blocks]
+    return blocks, np.stack(datas)
+
+
+def write_inner_blocks(ds, blocks, results, dtype, n_threads: int = 1) -> None:
+    """Write each block's inner box of ``results`` (one array per block, at
+    the block shape) as ``dtype``, over threads where every block covers
+    whole chunks of ``ds``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def _write(i):
+        ds[blocks[i].inner.slicing] = results[i][blocks[i].inner_local.slicing].astype(dtype)
+
+    n = min(n_threads, len(blocks))
+    if n > 1 and all(_chunk_aligned(ds, bh) for bh in blocks):
+        with ThreadPoolExecutor(n) as pool:
+            list(pool.map(_write, range(len(blocks))))
+    else:
+        for i in range(len(blocks)):
+            _write(i)
+
+
 def merge_threads(task) -> int:
     """The ``threads_per_job`` knob of a merge task's config."""
     return max(int(task.get_task_config().get("threads_per_job", DEFAULT_THREADS_PER_JOB)), 1)

@@ -26,9 +26,8 @@ import numpy as np
 
 from ..utils import store
 from ..utils.blocking import Blocking
-from .base import VolumeTask
+from .base import VolumeTask, _chunk_aligned
 from .frameworks import get_predictor, get_preprocessor
-from .thresholded_components import _chunk_aligned
 
 
 def load_input_with_halo(ds, begin, block_shape, halo, padding_mode="reflect"):

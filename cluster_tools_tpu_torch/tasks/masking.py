@@ -31,8 +31,7 @@ from ..ops.filters import minimum_filter
 from ..runtime.device import resolve_device
 from ..utils import store
 from ..utils.blocking import Blocking
-from .base import VolumeSimpleTask, VolumeTask, read_threads
-from .thresholded_components import _chunk_aligned
+from .base import VolumeSimpleTask, VolumeTask, read_threads, write_inner_blocks
 
 
 def resize_nearest(data: np.ndarray, shape: Sequence[int]) -> np.ndarray:
@@ -130,18 +129,7 @@ class MinfilterTask(VolumeTask):
     def write_batch(self, result, blocking: Blocking, config):
         """Stage 3 (host): each block's inner box as uint8."""
         blocks, out = result
-        out_ds = self.output_ds()
-
-        def _write(i):
-            out_ds[blocks[i].inner.slicing] = out[i][blocks[i].inner_local.slicing].astype("uint8")
-
-        n_threads = min(read_threads(config), len(blocks))
-        if n_threads > 1 and all(_chunk_aligned(out_ds, bh) for bh in blocks):
-            with ThreadPoolExecutor(n_threads) as pool:
-                list(pool.map(_write, range(len(blocks))))
-        else:
-            for i in range(len(blocks)):
-                _write(i)
+        write_inner_blocks(self.output_ds(), blocks, out, np.uint8, read_threads(config))
 
     def process_block(self, block_id, blocking, config):
         self.write_batch(

@@ -9,7 +9,6 @@ hooks wait for ROADMAP Queue A 12(c); a chained task runs unfused.
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List
 
 import numpy as np
@@ -18,8 +17,8 @@ import torch
 from ..ops import filters
 from ..runtime.device import resolve_device
 from ..utils.blocking import Blocking
-from .base import VolumeTask, read_threads
-from .thresholded_components import THRESHOLD_MODES, _chunk_aligned, threshold_mask
+from .base import VolumeTask, read_padded_blocks, read_threads, write_inner_blocks
+from .thresholded_components import THRESHOLD_MODES, threshold_mask
 
 
 def _threshold_batch(batch: torch.Tensor, threshold: float, mode: str, sigma) -> torch.Tensor:
@@ -50,22 +49,8 @@ class ThresholdTask(VolumeTask):
         mode = config.get("threshold_mode", "greater")
         if mode not in THRESHOLD_MODES:
             raise ValueError(f"unsupported threshold_mode {mode!r}")
-        in_ds = self.input_ds()
-        full = tuple(blocking.block_shape)
-        blocks = [blocking.block_with_halo(bid, (0,) * blocking.ndim) for bid in block_ids]
-
-        def _read(bh):
-            arr = in_ds[bh.outer.slicing].astype(np.float32, copy=False)
-            pad = [(0, f - s) for f, s in zip(full, arr.shape)]
-            return np.pad(arr, pad) if any(p for _, p in pad) else arr
-
-        n_threads = min(read_threads(config), len(blocks))
-        if n_threads > 1:
-            with ThreadPoolExecutor(n_threads) as pool:
-                datas = list(pool.map(_read, blocks))
-        else:
-            datas = [_read(bh) for bh in blocks]
-        return blocks, np.stack(datas)
+        return read_padded_blocks(self.input_ds(), blocking, block_ids, np.float32,
+                                  read_threads(config))
 
     def compute_batch(self, batch, blocking: Blocking, config):
         """Stage 2 (device): smooth and threshold the batch."""
@@ -80,18 +65,7 @@ class ThresholdTask(VolumeTask):
         """Stage 3 (host): each block's inner box, threaded where every
         block covers whole chunks."""
         blocks, masks = result
-        out_ds = self.output_ds()
-
-        def _write(i):
-            out_ds[blocks[i].inner.slicing] = masks[i][blocks[i].inner_local.slicing]
-
-        n_threads = min(read_threads(config), len(blocks))
-        if n_threads > 1 and all(_chunk_aligned(out_ds, bh) for bh in blocks):
-            with ThreadPoolExecutor(n_threads) as pool:
-                list(pool.map(_write, range(len(blocks))))
-        else:
-            for i in range(len(blocks)):
-                _write(i)
+        write_inner_blocks(self.output_ds(), blocks, masks, np.uint8, read_threads(config))
 
     def process_block(self, block_id, blocking, config):
         self.write_batch(

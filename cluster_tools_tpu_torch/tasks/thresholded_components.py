@@ -40,6 +40,7 @@ from ..utils.blocking import Blocking
 from .base import (
     VolumeSimpleTask,
     VolumeTask,
+    _chunk_aligned,
     merge_threads,
     read_ragged_chunks,
     read_threads,
@@ -74,16 +75,6 @@ def valid_mask(extents, shape, device) -> torch.Tensor:
         inside = pos < ext[:, ax].view(-1, 1, 1, 1)
         out = inside if out is None else out & inside
     return out
-
-
-def _chunk_aligned(ds, bh) -> bool:
-    """The block's inner box covers whole chunks of ``ds`` (in its trailing,
-    spatial axes), so writes of distinct blocks never share a chunk."""
-    n = len(bh.inner.begin)
-    for b, e, c, s in zip(bh.inner.begin, bh.inner.end, ds.chunks[-n:], ds.shape[-n:]):
-        if b % c or (e % c and e != s):
-            return False
-    return True
 
 
 class BlockComponentsTask(VolumeTask):

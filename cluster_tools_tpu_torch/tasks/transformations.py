@@ -17,7 +17,6 @@ and is not built.)
 from __future__ import annotations
 
 import json
-from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -28,8 +27,7 @@ from ..ops.filters import fma32
 from ..runtime.device import resolve_device
 from ..utils import store
 from ..utils.blocking import Blocking
-from .base import VolumeTask, read_threads
-from .thresholded_components import _chunk_aligned
+from .base import VolumeTask, read_padded_blocks, read_threads, write_inner_blocks
 
 
 def load_transformation(trafo_file: str, n_slices: int) -> Dict[Any, Any]:
@@ -103,21 +101,8 @@ class LinearTransformationTask(VolumeTask):
     def read_batch(self, block_ids: List[int], blocking: Blocking, config):
         """Stage 1 (host): the blocks as float32 zero-padded to the block
         shape, their coefficients and their mask (all set without one)."""
-        in_ds = self.input_ds()
-        full = tuple(blocking.block_shape)
-        blocks = [blocking.block_with_halo(bid, (0,) * blocking.ndim) for bid in block_ids]
-
-        def _read(bh):
-            arr = in_ds[bh.outer.slicing].astype(np.float32, copy=False)
-            pad = [(0, f - s) for f, s in zip(full, arr.shape)]
-            return np.pad(arr, pad) if any(p for _, p in pad) else arr
-
-        n_threads = min(read_threads(config), len(blocks))
-        if n_threads > 1:
-            with ThreadPoolExecutor(n_threads) as pool:
-                data = np.stack(list(pool.map(_read, blocks)))
-        else:
-            data = np.stack([_read(bh) for bh in blocks])
+        blocks, data = read_padded_blocks(self.input_ds(), blocking, block_ids, np.float32,
+                                          read_threads(config))
         a, b = self._coefficients(blocking, block_ids)
         if self.mask_path:
             mask_ds = store.file_reader(self.mask_path, "r")[self.mask_key]
@@ -140,18 +125,7 @@ class LinearTransformationTask(VolumeTask):
         """Stage 3 (host): each block's inner box in the output's dtype."""
         blocks, out = result
         out_ds = self.output_ds()
-
-        def _write(i):
-            out_ds[blocks[i].inner.slicing] = (
-                out[i][blocks[i].inner_local.slicing].astype(out_ds.dtype))
-
-        n_threads = min(read_threads(config), len(blocks))
-        if n_threads > 1 and all(_chunk_aligned(out_ds, bh) for bh in blocks):
-            with ThreadPoolExecutor(n_threads) as pool:
-                list(pool.map(_write, range(len(blocks))))
-        else:
-            for i in range(len(blocks)):
-                _write(i)
+        write_inner_blocks(out_ds, blocks, out, out_ds.dtype, read_threads(config))
 
     def process_block(self, block_id, blocking, config):
         self.write_batch(

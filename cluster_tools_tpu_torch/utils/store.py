@@ -78,6 +78,14 @@ def atomic_write_bytes(path: str, payload: bytes) -> None:
         raise
 
 
+# striped locks for the read-modify-write of partial chunks (one process)
+_CHUNK_LOCKS = [threading.Lock() for _ in range(64)]
+
+
+def _chunk_lock(path: str) -> threading.Lock:
+    return _CHUNK_LOCKS[hash(path) % len(_CHUNK_LOCKS)]
+
+
 def _read_json(path: str) -> Any:
     with open(path) as f:
         return json.load(f)
@@ -701,12 +709,16 @@ class Dataset:
             if all(l == cb and h == ce for l, h, (cb, ce) in zip(lo, hi, extent)):
                 self.write_chunk(grid_pos, value[src])
                 continue
-            chunk = self.read_chunk(grid_pos)
-            if chunk is None:
-                chunk = np.zeros(tuple(ce - cb for cb, ce in extent), dtype=self.dtype)
-            dst = tuple(slice(l - cb, h - cb) for l, h, (cb, _) in zip(lo, hi, extent))
-            chunk[dst] = value[src]
-            self.write_chunk(grid_pos, chunk)
+            # a partial chunk is read, modified and written: two writers of
+            # one chunk (blocks that do not cover whole chunks, written by
+            # two threads) take the chunk's lock so neither loses the other's
+            with _chunk_lock(self._chunk_path(grid_pos)):
+                chunk = self.read_chunk(grid_pos)
+                if chunk is None:
+                    chunk = np.zeros(tuple(ce - cb for cb, ce in extent), dtype=self.dtype)
+                dst = tuple(slice(l - cb, h - cb) for l, h, (cb, _) in zip(lo, hi, extent))
+                chunk[dst] = value[src]
+                self.write_chunk(grid_pos, chunk)
 
 
 class RaggedDataset:

@@ -3,6 +3,8 @@ from .bigcat import BigcatWorkflow
 from .debugging import CheckComponentsWorkflow, CheckSubGraphsWorkflow
 from .downscaling import DownscalingWorkflow, PainteraToBdvWorkflow
 from .evaluation import EvaluationWorkflow
+from .events import EventBuildingWorkflow
+from .hier import HierarchyWorkflow, ResegmentWorkflow
 from .ilastik import IlastikCarvingWorkflow, IlastikPredictionWorkflow
 from .learning import LearningWorkflow
 from .lifted_multicut import (
@@ -43,6 +45,7 @@ from .transformations import LinearTransformationWorkflow
 from .watershed import WatershedWorkflow
 
 __all__ = [
+    "EventBuildingWorkflow", "HierarchyWorkflow", "ResegmentWorkflow",
     "AgglomerativeClusteringWorkflow", "BigcatWorkflow", "CheckComponentsWorkflow",
     "CheckSubGraphsWorkflow", "ConnectedComponentsWorkflow", "DistanceWorkflow",
     "DownscalingWorkflow", "EdgeFeaturesWorkflow", "EvaluationWorkflow",

@@ -100,9 +100,11 @@ def test_dt_watershed_batch_numbers_each_block_alone():
 
 def test_dt_watershed_unported_modes_raise():
     """The 3d and NMS modes are ported (``tests/test_torch_dtws3d.py`` holds
-    them against the JAX package) and run; what stays unported raises — the
-    flood's connectivity > 1 and capped floods — and a pitch with the 2d
-    EDT is refused, as in the JAX package."""
+    them against the JAX package) and run, and so are the flood's
+    connectivity > 1 and capped floods (``tests/test_torch_flood_stats.py``
+    holds them against the JAX package; here they equal JAX's on one more
+    input); a pitch with the 2d EDT is refused, as in the JAX package."""
+    from cluster_tools_tpu.ops.watershed import seeded_watershed as jax_seeded_watershed
     from cluster_tools_tpu_torch.ops.watershed import seeded_watershed
 
     x = torch.rand(2, 8, 8)
@@ -112,6 +114,9 @@ def test_dt_watershed_unported_modes_raise():
     with pytest.raises(ValueError, match="pixel_pitch"):
         dt_watershed(x, pixel_pitch=(1.0, 1.0, 1.0))
     seeds = torch.zeros(x.shape, dtype=torch.int32)
+    seeds[0, 1, 1], seeds[1, 6, 5] = 1, 2
     for kw in ({"connectivity": 2}, {"max_iter": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            seeded_watershed(x, seeds, **kw)
+        got = seeded_watershed(x, seeds, **kw)
+        want = jax_seeded_watershed(jnp.asarray(x.numpy()), jnp.asarray(seeds.numpy()), **kw)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

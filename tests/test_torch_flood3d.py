@@ -190,14 +190,6 @@ def test_warm_start_over_approximates_and_keeps_labels(tile_hw):
     np.testing.assert_array_equal(got.numpy(), np.asarray(labels))
 
 
-def test_unported_flood_options_raise():
-    h, seeds, mask = (torch.from_numpy(a) for a in _fields(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        W.seeded_watershed(h, seeds, mask, connectivity=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        W.seeded_watershed(h, seeds, mask, max_iter=3)
-
-
 def test_flood_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         cuda_flood.flood_volume(torch.zeros(2, 4, 4), torch.zeros(2, 4, 4), torch.ones(2, 4, 4))

@@ -133,6 +133,20 @@ def test_port_imports_no_jax(entry):
             from cluster_tools_tpu_torch.workflows import ilastik as ilastik_workflows
             from cluster_tools_tpu_torch.workflows import skeletons as skeleton_workflows
             from cluster_tools_tpu_torch.utils import msgpack_lite
+            from cluster_tools_tpu_torch.ops import events, hier
+            from cluster_tools_tpu_torch.ops.watershed import (
+                flood_merge_table, flood_with_stats, seeded_watershed_hier,
+            )
+            from cluster_tools_tpu_torch.tasks import events as event_tasks, hier as hier_tasks
+            from cluster_tools_tpu_torch.tasks import (
+                BuildHierarchyTask, EventBuildingTask, HierarchyBlocksTask, HierarchyFacesTask,
+                HierarchyOffsetsTask, ResegmentTask,
+            )
+            from cluster_tools_tpu_torch.workflows import (
+                EventBuildingWorkflow, HierarchyWorkflow, ResegmentWorkflow,
+            )
+            from cluster_tools_tpu_torch.workflows import events as event_workflows
+            from cluster_tools_tpu_torch.workflows import hier as hier_workflows
             assert native.available(), native.load_error
             assert hasattr(native, "lifted_gaec")
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -501,3 +515,54 @@ def test_predictors_default_to_card(tmp_path, monkeypatch, framework):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_predictor(framework)(str(tmp_path / "missing"), [0, 0, 0])
+
+
+def _slice16_roots(kind, tmp, config_dir, path):
+    from cluster_tools_tpu_torch import workflows as w
+
+    if kind == "events":
+        return [w.EventBuildingWorkflow(tmp, config_dir, input_path=path, input_key="frames",
+                                        output_path=path, output_key="ev")]
+    if kind == "hierarchy":
+        return [w.HierarchyWorkflow(tmp, config_dir, input_path=path, input_key="bnd",
+                                    output_path=path, output_key="seg")]
+    return [w.ResegmentWorkflow(tmp, config_dir, labels_path=path, labels_key="seg",
+                                output_path=path, output_key="seg_cut")]
+
+
+@pytest.mark.parametrize("kind", ["events", "hierarchy", "resegment"])
+def test_events_and_hierarchy_default_to_card_and_run_on_cpu(tmp_path, monkeypatch, kind):
+    """Event building, the hierarchy build and its re-cut ask for the card
+    by default and raise without one; with ``"device": "cpu"`` the same
+    build runs on the host."""
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "d.n5")
+    f = file_reader(path)
+    f.create_dataset("bnd", data=rng.random((8, 16, 16)).astype("float32"), chunks=(8, 16, 16))
+    f.create_dataset("frames", data=(rng.random((8, 16, 16)) > 0.9).astype("float32"),
+                     chunks=(8, 16, 16))
+    config_dir = str(tmp_path / "configs")
+    tmp = str(tmp_path / "tmp")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if kind == "resegment":  # a hierarchy to re-cut, built on the host
+        cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16], "device": "cpu"})
+        assert build(_slice16_roots("hierarchy", str(tmp_path / "tmp_h"), config_dir, path))
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16]})
+    roots = _slice16_roots(kind, tmp, config_dir, path)
+    with pytest.raises(Exception, match="no CUDA device"):
+        build(roots)
+    assert not roots[0].complete()
+    cfg.write_global_config(config_dir, {"block_shape": [8, 16, 16], "device": "cpu"})
+    roots = _slice16_roots(kind, tmp, config_dir, path)
+    assert build(roots)
+    assert roots[0].complete()
+
+
+def test_event_and_cut_ops_default_to_card(monkeypatch):
+    from cluster_tools_tpu_torch.ops import events, hier
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        events.build_events(np.ones((2, 4, 4), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hier.cut_table(np.array([1]), np.array([2]), np.array([0.1], np.float32), 0.5)

@@ -7,6 +7,7 @@ resume, retry of failed blocks and the refusal to retry when at least half
 of the blocks failed."""
 
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -183,3 +184,114 @@ def test_launch_counts_survive_concurrent_threads():
     assert not any(t.is_alive() for t in threads)
     assert wrapper.launches == n_threads * per_thread
     assert wrapper.alt_rounds == 3 * n_threads * per_thread
+
+
+# -- the cuda executor's write pool: ``pipeline_depth`` writers ------------
+
+
+class _BarrierWrites(BlockTask):
+    """Split-protocol task whose ``write_batch`` meets a two-party barrier:
+    it passes only when two batches write at once."""
+
+    task_name = "barrier_writes"
+
+    def __init__(self, tmp_folder, config_dir, output_path=None):
+        super().__init__(tmp_folder, config_dir)
+        self.output_path = output_path  # an hdf5 path makes the run one writer
+        self.barrier = threading.Barrier(2, timeout=2.0)
+        self.outcomes = []
+
+    def get_shape(self):
+        return (4, 20, 20)
+
+    def read_batch(self, block_ids, blocking, config):
+        return block_ids
+
+    def compute_batch(self, batch, blocking, config):
+        return batch
+
+    def write_batch(self, batch, blocking, config):
+        try:
+            self.barrier.wait()
+            self.outcomes.append("passed")
+        except threading.BrokenBarrierError:
+            self.outcomes.append("broken")
+
+    def process_block(self, block_id, blocking, config):
+        raise AssertionError("no block may fall back")
+
+
+def _barrier_run(tmp_path, depth, output_path=None):
+    config_dir = str(tmp_path / f"configs_{depth}_{output_path is not None}")
+    cfg.write_global_config(config_dir, {
+        "block_shape": [4, 10, 10], "device": "cpu", "target": "cuda",
+        "device_batch_size": 2, "pipeline_depth": depth,
+    })
+    task = _BarrierWrites(str(tmp_path / f"tmp_{depth}_{output_path is not None}"),
+                          config_dir, output_path)
+    assert build([task])
+    return task.outcomes
+
+
+def test_write_pool_is_pipeline_depth_wide(tmp_path):
+    """Two batches of two blocks: at depth 2 both writes wait at the
+    barrier together and pass; with one writer the first times out."""
+    assert _barrier_run(tmp_path, 2) == ["passed", "passed"]
+    assert "broken" in _barrier_run(tmp_path, 1)
+
+
+def test_write_pool_has_one_writer_for_hdf5(tmp_path):
+    assert "broken" in _barrier_run(tmp_path, 2, output_path=str(tmp_path / "out.h5"))
+
+
+def test_partial_chunk_writes_from_threads_lose_nothing(tmp_path):
+    """Sixteen threads, switching every microsecond, each write their own
+    column of one chunk, every write a read-modify-write: the chunk lock
+    keeps every column."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    ds = file_reader(str(tmp_path / "x.n5")).create_dataset(
+        "x", shape=(2, 4, 16), dtype="uint8", chunks=(2, 4, 16), compression="raw")
+
+    def _write(col):
+        for rep in range(20):
+            ds[:, :, col:col + 1] = col + 1
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(16) as pool:
+            list(pool.map(_write, range(16)))
+    finally:
+        sys.setswitchinterval(interval)
+    np.testing.assert_array_equal(ds[:], np.broadcast_to(np.arange(1, 17, dtype=np.uint8), (2, 4, 16)))
+
+
+@pytest.mark.parametrize("sigma", [0.0, 1.0])
+def test_unaligned_ragged_run_equal_at_depth_1_and_2(tmp_path, rng, sigma):
+    """A ragged volume whose output chunks the blocks do not cover whole
+    (chunks (3, 7, 7) against blocks (4, 8, 8)): every batch of one block
+    writes into chunks its neighbours write too; depth 2 writes the same
+    bytes as depth 1."""
+    from cluster_tools_tpu_torch.tasks.threshold import ThresholdTask
+
+    path = str(tmp_path / "d.n5")
+    f = file_reader(path)
+    f.create_dataset("raw", data=rng.random((10, 27, 29)).astype("float32"), chunks=(4, 8, 8))
+    outs = []
+    for depth in (1, 2):
+        key = f"thr{depth}"
+        f.create_dataset(key, shape=(10, 27, 29), dtype="uint8", chunks=(3, 7, 7))
+        config_dir = str(tmp_path / f"cfg{depth}")
+        cfg.write_global_config(config_dir, {
+            "block_shape": [4, 8, 8], "device": "cpu", "target": "cuda",
+            "device_batch_size": 1, "pipeline_depth": depth,
+        })
+        cfg.write_config(config_dir, "threshold", {"threshold": 0.5, "sigma": sigma})
+        assert build([ThresholdTask(str(tmp_path / f"tmp{depth}"), config_dir,
+                                    input_path=path, input_key="raw",
+                                    output_path=path, output_key=key)])
+        outs.append(f[key][:])
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert outs[0].any() and not outs[0].all()

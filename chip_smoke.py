@@ -10,6 +10,7 @@
     python3 chip_smoke.py --volume-phases
     python3 chip_smoke.py --inference-phases
     python3 chip_smoke.py --hier-phases
+    python3 chip_smoke.py --stream-phases
 
 Phases (any failure exits non-zero; nothing is caught and carried on from):
 
@@ -286,8 +287,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on from):
      ``EventBuildingWorkflow`` on 2048 detector-like 256 x 256 frames held
      to scipy; ``flood_with_stats`` at the pinned tile on a halo'd block
      (kernel 3 and the 3d flood), ``seeded_watershed_hier``, a capped and a
-     26-connected flood on a crop held to the same calls on the CPU.  Gates
-     in ``hier_phase``'s docstring; it runs after 26, before 21's lines;
+     26-connected flood on a crop held to the same calls on the CPU; the
+     hierarchy runs as its fused chain and once more with
+     ``stream_fusion: false``, byte for byte equal.  Gates
+     in ``hier_phase``'s docstring; it runs after 26, before 28;
+ 28. stream fusion and device residency (``stream_phase``) on the first 32
+     planes in gzip n5 at chunk-cache budget 0: ``StreamingSegmentationWorkflow``
+     fused and unfused (equal bytes, one chain, no fallback, no mask, half
+     the store reads, kernels 4 and 2 launched in the chain), then the 2d
+     ``WatershedWorkflow`` with the device-buffer cache off, cold, warm
+     and at ``hbm_stack`` 2 (equal bytes, every warm batch from the cache,
+     half the dispatches).  Gates in ``stream_phase``'s docstring; it runs
+     after 27, before 21's lines;
  21. one JSON line with the device functions (the accumulator, the device
      MWS, the filter bank with its ``eigvalsh``, the segment reductions,
      the dilation, phase 25's resamplers, minimum filter and affine step,
@@ -320,6 +331,8 @@ phases 18-20 (no result line): the new phases measured without the rest.
 ``--inference-phases`` runs only the build, the volume, phase 3 and phase 26
 (no result line).
 ``--hier-phases`` runs only the build, the volume and phase 27 (no result
+line).
+``--stream-phases`` runs only the build, the volume and phase 28 (no result
 line).
 
 Without a CUDA device, or without the repository beside it, it exits non-zero
@@ -1613,9 +1626,10 @@ def ws3d_phase(vol_np, path: str, work: str, card: str):
     blocking = Blocking(vol_np.shape, BLOCK)
     check_ids = [0, blocking.n_blocks - 1]
     with plain_kernels():
-        _, blocks, labels = task.compute_batch(
+        batch, labels = task.compute_batch(
             task.read_batch(check_ids, blocking, config), blocking, config
         )
+        blocks = batch.blocks
     torch.cuda.synchronize()
     unit = int(np.prod(BLOCK))
     fg = 0
@@ -2737,8 +2751,9 @@ def check_watershed_blocks(task, path: str, ws_key: str, blocking, check_ids) ->
 
     config = {**task.global_config(), **task.get_task_config()}
     with plain_kernels():
-        _, blocks, labels = task.compute_batch(
+        batch, labels = task.compute_batch(
             task.read_batch(list(check_ids), blocking, config), blocking, config)
+        blocks = batch.blocks
     torch.cuda.synchronize()
     out = file_reader(path, "r")[ws_key]
     unit = int(np.prod(blocking.block_shape))
@@ -5243,8 +5258,10 @@ def hier_phase(shallow_path: str, vol_np, work: str, card: str, dev, seed: int) 
     from cluster_tools_tpu_torch.ops.cuda_flood import (
         flood_slices, flood_tiles_warm, flood_volume, flood_volume_scan)
     from cluster_tools_tpu_torch.tasks.events import read_event_tables
+    from cluster_tools_tpu_torch.obs import metrics
     from cluster_tools_tpu_torch.tasks.hier import (
-        HIER_PAIRS_KEY, HIER_SADDLES_KEY, HierarchyBlocksTask, default_hierarchy_path)
+        HIER_OFFSETS_NAME, HIER_PAIRS_KEY, HIER_SADDLES_KEY, HierarchyBlocksTask,
+        default_hierarchy_path)
     from cluster_tools_tpu_torch.utils import file_reader
     from cluster_tools_tpu_torch.utils.blocking import Blocking
 
@@ -5261,9 +5278,11 @@ def hier_phase(shallow_path: str, vol_np, work: str, card: str, dev, seed: int) 
                                         HierarchyBlocksTask.default_task_config()})
     reset_counts(dtws_slices, flood_slices, hier.block_merge_table)
     tmp = os.path.join(work, "tmp_hier")
+    before = metrics.snapshot()
     run_workflow(W.HierarchyWorkflow(tmp, conf, input_path=shallow_path, input_key="raw",
                                      output_path=path, output_key="seg"),
                  "HierarchyWorkflow", vox, card, walls)
+    stream_gate(metrics.delta(before, metrics.snapshot()), "HierarchyWorkflow (fused)")
     for name, wrapper in (("dtws_slices", dtws_slices), ("flood_slices", flood_slices)):
         if wrapper.launches == 0 or wrapper.launches_by_route["cluster"] != wrapper.launches:
             raise AssertionError(f"HierarchyWorkflow {name}: launches {wrapper.launches}, by "
@@ -5296,11 +5315,11 @@ def hier_phase(shallow_path: str, vol_np, work: str, card: str, dev, seed: int) 
     check_ids = [0, blocking.n_blocks - 1]
     saved = hier.block_merge_table.launches
     with plain_kernels():
-        _, bhs, labels, tables = task.compute_batch(task.read_batch(check_ids, blocking, config),
-                                                    blocking, config)
+        batch, labels, tables, _ = task.compute_batch(
+            task.read_batch(check_ids, blocking, config), blocking, config)
     hier.block_merge_table.launches = saved
     tmp_store = file_reader(os.path.join(tmp, "data.zarr"), "r")
-    for bid, bh, lab, table in zip(check_ids, bhs, labels, tables):
+    for bid, bh, lab, table in zip(check_ids, batch.blocks, labels, tables):
         if not np.array_equal(lab[bh.inner_local.slicing].astype(np.uint64),
                               blocks_vol[bh.inner.slicing]):
             raise AssertionError(f"hierarchy block {bid}: plain re-run differs")
@@ -5311,6 +5330,32 @@ def hier_phase(shallow_path: str, vol_np, work: str, card: str, dev, seed: int) 
     log(f"hierarchy: {int(art['n_labels'])} regions, {art['a'].size} saddle edges; kernel "
         f"launches {launches}; blocks {check_ids} re-run through the plain versions: labels "
         f"and tables equal (checks {time.perf_counter() - t0:.1f} s)")
+    # the same build unfused: the chain's carry stands in for the offsets
+    # and faces tasks, byte for byte
+    conf_u = volume_config(work, "hier_unfused", {"hierarchy_blocks":
+                                                  HierarchyBlocksTask.default_task_config()},
+                           stream_fusion=False)
+    tmp_u = os.path.join(work, "tmp_hier_unfused")
+    run_workflow(W.HierarchyWorkflow(tmp_u, conf_u, input_path=shallow_path, input_key="raw",
+                                     output_path=path, output_key="seg_unfused"),
+                 "HierarchyWorkflow (stream_fusion false)", vox, card, walls)
+    for key in ("seg", "seg_blocks"):
+        if chunk_files(os.path.join(path, key)) != chunk_files(
+                os.path.join(path, key.replace("seg", "seg_unfused"))):
+            raise AssertionError(f"HierarchyWorkflow {key}: fused and unfused runs differ")
+    for name, (a, b) in {
+        "offsets": (os.path.join(tmp, HIER_OFFSETS_NAME), os.path.join(tmp_u, HIER_OFFSETS_NAME)),
+        "artifact": (default_hierarchy_path(path, "seg"),
+                     default_hierarchy_path(path, "seg_unfused")),
+    }.items():
+        with np.load(a) as fa, np.load(b) as fb:
+            if sorted(fa.files) != sorted(fb.files) or not all(
+                    fa[k].dtype == fb[k].dtype and fa[k].tobytes() == fb[k].tobytes()
+                    for k in fa.files):
+                raise AssertionError(f"HierarchyWorkflow {name}: fused and unfused runs differ")
+    log(f"HierarchyWorkflow fused ({walls['HierarchyWorkflow']:.3f} s) and unfused "
+        f"({walls['HierarchyWorkflow (stream_fusion false)']:.3f} s): labels, block labels, "
+        f"offsets and artifact byte-identical")
 
     # (a, b) re-cuts
     raw = read_volume(raw_ds, blocking)
@@ -5510,6 +5555,168 @@ def hier_phase(shallow_path: str, vol_np, work: str, card: str, dev, seed: int) 
     return {"walls": walls, "launches": launches, "records": records, "seconds": seconds}
 
 
+STREAM_CACHE_MB = 1024  # phase 28's CTT_HBM_CACHE_MB: the 25 blocks' uploads, ~262 MB
+# phase 28(a)'s blocks per batch: a row of the 5 x 5 grid, so that the
+# chain reads a batch's halo'd region as one bounding box
+STREAM_BATCH = 5
+
+
+def stream_gate(delta: dict, what: str) -> None:
+    """A fused run: exactly one chain ran and none fell back, so a chain
+    that fails on the card cannot pass as an unfused run."""
+    if delta.get("stream.chains", 0) != 1 or delta.get("stream.fallbacks", 0) != 0:
+        raise AssertionError(f"{what}: stream.chains {delta.get('stream.chains', 0)}, "
+                             f"stream.fallbacks {delta.get('stream.fallbacks', 0)}")
+
+
+def stage_seconds(task) -> dict:
+    """The ``stage_*`` sums of a task's status (s)."""
+    return {k: round(v, 3) for k, v in status_timings(task).items() if k.startswith("stage_")}
+
+
+def stream_phase(shallow_np, work: str, card: str, dev) -> dict:
+    """Phase 28, stream fusion and device residency, on the first
+    ``SHALLOW_Z`` planes at CREMI-A's in-plane shape in gzip n5 (the card's
+    host has no libblosc), blocks ``BLOCK``, the decoded-chunk cache off
+    (budget 0), so that the store counters see every chunk.  (a)
+    ``StreamingSegmentationWorkflow`` (threshold ``< THRESHOLD`` →
+    components → the 2d watershed with halo ``HALO``) fused, then with
+    ``stream_fusion: false``: components, block labels and watershed byte
+    for byte equal; one chain and no fallback in the fused run, no mask
+    dataset after it; the unfused run reads at least twice the store
+    bytes; kernels 4 and 2 launched inside the fused chain.  The batches
+    are rows of ``STREAM_BATCH`` blocks.  (b) the 2d
+    ``WatershedWorkflow`` (no halo, as phase 3's: at budget 0 a halo'd
+    block read decodes up to nine chunks, for time) with
+    the device-buffer cache off at ``hbm_stack``
+    1 (the reference), with ``CTT_HBM_CACHE_MB`` set twice (the second run
+    serves every batch from the cache) and at ``hbm_stack`` 2 (half the
+    dispatches): every output byte-equal to the reference.  Returns walls,
+    bytes, the fused run's kernel launches and the seconds."""
+    from cluster_tools_tpu_torch import WatershedWorkflow, build
+    from cluster_tools_tpu_torch.obs import metrics
+    from cluster_tools_tpu_torch.ops.cuda_cc import cc_slices
+    from cluster_tools_tpu_torch.ops.cuda_dtws import dtws_slices
+    from cluster_tools_tpu_torch.ops.cuda_flood import flood_slices
+    from cluster_tools_tpu_torch.runtime import config as cfg
+    from cluster_tools_tpu_torch.runtime import hbm
+    from cluster_tools_tpu_torch.tasks.watershed import WatershedTask
+    from cluster_tools_tpu_torch.utils import file_reader, store
+    from cluster_tools_tpu_torch.utils.blocking import Blocking
+    from cluster_tools_tpu_torch.workflows import StreamingSegmentationWorkflow
+
+    t_phase = time.perf_counter()
+    path = os.path.join(work, "stream.n5")
+    blocking = Blocking(shallow_np.shape, BLOCK)
+    write_blocks(file_reader(path).create_dataset("raw", shape=shallow_np.shape, dtype="float32",
+                                                  chunks=BLOCK, compression="gzip"),
+                 shallow_np, blocking)
+    vox = int(np.prod(shallow_np.shape))
+    log(f"setup: {shallow_np.shape} as gzip n5 in {time.perf_counter() - t_phase:.1f} s")
+    walls, runs = {}, {}
+
+    def config(tag, halo=HALO, **glob):
+        config_dir = os.path.join(work, f"configs_stream_{tag}")
+        cfg.write_global_config(config_dir, {"block_shape": list(BLOCK), "target": "cuda",
+                                             "device": dev.type, **glob})
+        cfg.write_config(config_dir, "threshold", {"threshold": THRESHOLD,
+                                                   "threshold_mode": "less"})
+        cfg.write_config(config_dir, "watershed", {**WatershedTask.default_task_config(),
+                                                   "halo": list(halo)})
+        return config_dir
+
+    def run(wf, tag, wrappers=()):
+        reset_counts(*wrappers)
+        before = metrics.snapshot()
+        run_workflow(wf, tag, vox, card, walls)
+        delta = metrics.delta(before, metrics.snapshot())
+        runs[tag] = {"wall_s": walls[tag],
+                     **{k: int(delta.get(k, 0)) for k in (
+                         "store.bytes_read", "store.bytes_written", "device.dispatches",
+                         "device.upload_bytes", "device.uploads_skipped")},
+                     "stream.carry_bytes": metrics.snapshot()["gauges"].get(
+                         "stream.carry_bytes", 0) if delta.get("stream.chains") else 0}
+        return delta
+
+    prev_budget = store.set_chunk_cache_budget(0)
+    prev_env = os.environ.get("CTT_HBM_CACHE_MB")
+    try:
+        # (a) the fused chain against the tasks one at a time
+        wfs = {}
+        for tag, fused in (("fused", True), ("unfused", False)):
+            wfs[tag] = StreamingSegmentationWorkflow(
+                os.path.join(work, f"tmp_stream_{tag}"),
+                config(tag, stream_fusion=fused, device_batch_size=STREAM_BATCH),
+                input_path=path, input_key="raw", output_path=path, output_key=f"cc_{tag}")
+            delta = run(wfs[tag], f"StreamingSegmentationWorkflow {tag}",
+                        (cc_slices, dtws_slices, flood_slices))
+            if fused:
+                stream_gate(delta, "StreamingSegmentationWorkflow")
+                launches = launches_rose([cc_slices, dtws_slices], "the fused chain")
+                launches["flood_slices"] = flood_slices.launches
+                if "cc_fused_mask" in file_reader(path, "r"):
+                    raise AssertionError("the fused chain wrote the elided mask")
+            for name, task in (("threshold", wfs[tag]._tasks()[0]),
+                               ("components", wfs[tag]._tasks()[1]),
+                               ("watershed", wfs[tag]._tasks()[-1])):
+                log(f"  {tag} {name} stages {stage_seconds(task)}")
+        for key in ("", "_blocks", "_ws"):
+            if chunk_files(os.path.join(path, f"cc_fused{key}")) != chunk_files(
+                    os.path.join(path, f"cc_unfused{key}")):
+                raise AssertionError(f"cc{key}: the fused and unfused runs differ")
+        read_f = runs["StreamingSegmentationWorkflow fused"]["store.bytes_read"]
+        read_u = runs["StreamingSegmentationWorkflow unfused"]["store.bytes_read"]
+        if not 0 < 2 * read_f <= read_u:
+            raise AssertionError(f"store bytes read: fused {read_f}, unfused {read_u}")
+        log(f"{card}: StreamingSegmentationWorkflow fused equals unfused byte for byte; store "
+            f"bytes read {read_f} fused, {read_u} unfused ({read_u / read_f:.2f}x); kernel "
+            f"launches in the fused run {launches}")
+
+        # (b) the device-buffer cache and the stacked dispatch on the 2d watershed
+        os.environ.pop("CTT_HBM_CACHE_MB", None)
+        hbm.set_cache_budget(None)
+        for tag, glob in (("ws cache off", {}), ("ws cache cold", {}), ("ws cache warm", {}),
+                          ("ws hbm_stack 2", {"hbm_stack": 2})):
+            if tag == "ws cache cold":
+                os.environ["CTT_HBM_CACHE_MB"] = str(STREAM_CACHE_MB)
+                hbm.set_cache_budget(None)
+            if tag == "ws hbm_stack 2":
+                os.environ.pop("CTT_HBM_CACHE_MB")
+                hbm.set_cache_budget(None)
+            key = "ws_" + tag.split(" ", 1)[1].replace(" ", "_")
+            wf = WatershedWorkflow(os.path.join(work, f"tmp_stream_{key}"),
+                                   config(key, halo=(0, 0, 0), **glob), input_path=path,
+                                   input_key="raw",
+                                   output_path=path, output_key=key)
+            run(wf, f"WatershedWorkflow {tag}", (dtws_slices,))
+            log(f"  {tag} stages {stage_seconds(wf.requires()[0])}")
+            if key != "ws_cache_off" and chunk_files(os.path.join(path, key)) != chunk_files(
+                    os.path.join(path, "ws_cache_off")):
+                raise AssertionError(f"WatershedWorkflow {tag}: output differs from the run "
+                                     "with the cache off")
+        ref, warm = runs["WatershedWorkflow ws cache off"], runs["WatershedWorkflow ws cache warm"]
+        stacked = runs["WatershedWorkflow ws hbm_stack 2"]
+        if warm["device.upload_bytes"] or warm["device.uploads_skipped"] != ref["device.dispatches"]:
+            raise AssertionError(f"the warm run did not serve every batch from the cache: {warm}")
+        if 2 * stacked["device.dispatches"] != ref["device.dispatches"]:
+            raise AssertionError(f"hbm_stack 2: {stacked['device.dispatches']} dispatches, "
+                                 f"{ref['device.dispatches']} at 1")
+        log(f"{card}: WatershedWorkflow outputs equal with the cache off, cold, warm (every "
+            f"batch from the cache) and at hbm_stack 2 ({stacked['device.dispatches']} "
+            f"dispatches for {ref['device.dispatches']})")
+    finally:
+        store.set_chunk_cache_budget(prev_budget)
+        if prev_env is None:
+            os.environ.pop("CTT_HBM_CACHE_MB", None)
+        else:
+            os.environ["CTT_HBM_CACHE_MB"] = prev_env
+        hbm.set_cache_budget(None)
+    seconds = time.perf_counter() - t_phase
+    log(f"{card}: phase 28 runs {json.dumps(runs)}")
+    log(f"phase 28 done ({seconds:.1f} s)")
+    return {"walls": walls, "runs": runs, "launches": launches, "seconds": seconds}
+
+
 @contextlib.contextmanager
 def failed_blocks_printed(work: str):
     """On any failure inside, print the failed-block tracebacks of every
@@ -5586,6 +5793,8 @@ def main() -> int:
                     help="only the build, the volume, phase 3 and phase 26 (no result line)")
     ap.add_argument("--hier-phases", action="store_true",
                     help="only the build, the volume and phase 27 (no result line)")
+    ap.add_argument("--stream-phases", action="store_true",
+                    help="only the build, the volume and phase 28 (no result line)")
     ap.add_argument("--fixpoint-paths", action="store_true",
                     help="phases 2 and 5 also time the plain floods down each card path of "
                          "their fixpoint loop (CUDA graphs after the first rounds, from the "
@@ -5642,7 +5851,7 @@ def main() -> int:
         faulthandler.cancel_dump_traceback_later()
         return 0
     if not (args.label_phases or args.container_phases or args.volume_phases
-            or args.inference_phases or args.hier_phases):
+            or args.inference_phases or args.hier_phases or args.stream_phases):
         phase_start(2, t_start)
         records = kernel_phase(vol, dev, args.batch)
         records.update(cc_kernel_phase(vol, dev, args.batch, args.compare))
@@ -5710,6 +5919,13 @@ def main() -> int:
             ip = inference_phase(shallow_path, path, work, card, libs, dev, args.seed)
             log(f"inference phase: walls {ip['walls']}; launches {ip['launches']}")
             log(json.dumps({"device_functions": ip["records"]}))
+            log(f"script: {time.perf_counter() - t_start:.1f} s")
+            faulthandler.cancel_dump_traceback_later()
+            return 0
+        if args.stream_phases:
+            phase_start(28, t_start)
+            sp = stream_phase(shallow_np, work, card, dev)
+            log(f"stream phase: walls {sp['walls']}; launches {sp['launches']}")
             log(f"script: {time.perf_counter() - t_start:.1f} s")
             faulthandler.cancel_dump_traceback_later()
             return 0
@@ -5787,6 +6003,8 @@ def main() -> int:
         ip = inference_phase(shallow_path, path, work, card, libs, dev, args.seed)
         phase_start(27, t_start)
         hp = hier_phase(shallow_path, vol_np, work, card, dev, args.seed)
+        phase_start(28, t_start)
+        sp = stream_phase(shallow_np, work, card, dev)
         phase_start(21, t_start)
         slice_records = slice_device_functions(fb, at, card)
     for name, rec in records.items():
@@ -5837,6 +6055,8 @@ def main() -> int:
         f"launches {ip['launches']}; {ip['seconds']:.1f} s")
     log(f"{card}: phase 27 walls (s; voxels/s in each run's line above) {hp['walls']}; "
         f"launches {hp['launches']}; {hp['seconds']:.1f} s")
+    log(f"{card}: phase 28 walls (s; voxels/s in each run's line above) {sp['walls']}; "
+        f"fused-chain launches {sp['launches']}; {sp['seconds']:.1f} s")
     faulthandler.cancel_dump_traceback_later()
     log(f"script: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"device_functions": [mc["accumulator"], device_mws] + slice_records

@@ -21,6 +21,10 @@ in n5 and zarr and opens hdf5 files; all five TPU kernels are
 hand-written CUDA for Hopper (``csrc/``), built with ``nvcc`` at first use,
 the multicut and mutex-watershed solvers C++ built with ``g++`` at first
 use (``native/``), the device MWS plain PyTorch (``ops/mws_device.py``).
+Workflows may run chains of their tasks as one streaming pass
+(``runtime/stream.py``; ``StreamingSegmentationWorkflow``, the hierarchy's
+blocks), and batch uploads may stay resident in a device-buffer cache
+(``runtime/hbm.py``).
 Entry points compute on the card unless the global config asks for
 ``"device": "cpu"``.
 """

@@ -22,6 +22,7 @@ that a filter gives the same bits on the card as on the CPU:
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -213,6 +214,21 @@ def laplacian_of_gaussian(x: torch.Tensor, sigma: float, ndim=None) -> torch.Ten
 # matrices (CUSOLVER_STATUS_INVALID_VALUE; NVIDIA H100) and takes 16,384
 EIGVALSH_CHUNK = 1 << 14
 
+# PyTorch loads its CUDA linear-algebra library at the first linalg call on
+# a card, through a wrapper that raises ("lazy wrapper should be called at
+# most once") when two threads make that first call at once — as the
+# threaded block tasks do.  The first call on the card is made under a lock.
+_LINALG_LOCK = threading.Lock()
+_linalg_loaded = False
+
+
+def _load_cuda_linalg(device: torch.device) -> None:
+    global _linalg_loaded
+    with _LINALG_LOCK:
+        if not _linalg_loaded:
+            torch.linalg.eigvalsh(torch.eye(2, device=device)[None])
+            _linalg_loaded = True
+
 
 def eigenvalues_descending(h: torch.Tensor) -> torch.Tensor:
     """``torch.linalg.eigvalsh`` of a batch of symmetric matrices (..., n, n),
@@ -220,6 +236,8 @@ def eigenvalues_descending(h: torch.Tensor) -> torch.Tensor:
     (each matrix is solved on its own, so the chunks change no value)."""
     n = h.shape[-1]
     flat = h.reshape((-1, n, n))
+    if flat.is_cuda and not _linalg_loaded:
+        _load_cuda_linalg(flat.device)
     eig = torch.empty(flat.shape[:-1], dtype=h.dtype, device=h.device)
     for i in range(0, flat.shape[0], EIGVALSH_CHUNK):
         eig[i:i + EIGVALSH_CHUNK] = torch.linalg.eigvalsh(flat[i:i + EIGVALSH_CHUNK])

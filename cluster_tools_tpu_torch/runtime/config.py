@@ -30,8 +30,28 @@ DEFAULT_GLOBAL_CONFIG: Dict[str, Any] = {
     "device_batch_size": None,
     # batches in flight per host stage (read, write) on the cuda target
     "pipeline_depth": 2,
+    # workflows may declare fused task chains (``runtime/stream.py``: one
+    # streaming pass, elided intermediates); False runs every task on its
+    # own (``CTT_STREAM_FUSION=0`` is the per-process override)
+    "stream_fusion": True,
+    # read payloads stacked into one dispatch by the cuda target
+    # (``runtime/hbm.py::hbm_stack``); None resolves ``CTT_HBM_STACK``, else 1
+    "hbm_stack": None,
     "device": "cuda",
 }
+
+
+def process_topology(gconf: Dict[str, Any]):
+    """``(process_id, num_processes)`` from the global config, overridable
+    by the ``CTT_PROCESS_ID`` / ``CTT_NUM_PROCESSES`` environment.  The port
+    runs one process (multi-process execution is ROADMAP Queue A 12(d) and
+    11); the stream planner reads this to decline a multi-process run as the
+    JAX package does."""
+    num = int(os.environ.get("CTT_NUM_PROCESSES", gconf.get("num_processes", 1) or 1))
+    pid = int(os.environ.get("CTT_PROCESS_ID", gconf.get("process_id", 0) or 0))
+    if not 0 <= pid < max(num, 1):
+        raise ValueError(f"process_id {pid} out of range for {num} processes")
+    return pid, max(num, 1)
 
 def _config_path(config_dir: str, name: str) -> str:
     return os.path.join(config_dir, f"{name}.config")

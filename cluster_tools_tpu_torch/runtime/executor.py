@@ -21,8 +21,19 @@ Port of ``cluster_tools_tpu/runtime/executor.py``:
     fails degrades to per-block ``process_block`` calls.  Tasks without the
     split protocol run as on ``local``.
 
-The profiler hook and the device-buffer cache of the JAX package wait
-(ROADMAP Queue A 9).
+Two device-side levers sit on the same pipeline (``runtime/hbm.py``):
+
+  * stacked dispatch — with ``hbm_stack: k`` (or ``CTT_HBM_STACK``) a task
+    with ``stack_payloads`` / ``unstack_results`` has up to ``k``
+    consecutive read payloads concatenated into one compute call
+    (``stacked_dispatch``) and the result split back per batch for the
+    write pool, so the host IO is unchanged and the dispatches drop k-fold;
+  * the transfer stage — a task with ``upload_batch`` has each payload
+    copied to the device on a transfer thread, at most
+    ``hbm.UPLOAD_SLOTS`` ahead, while the previous dispatch computes.
+
+Both stay off for a task that is not ``pipeline_safe``.  The JAX package's
+profiler hook is ROADMAP Queue A 12(d).
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Sequence, Tuple
 
+from ..obs import metrics as obs_metrics
 from .device import device_count, resolve_device
 
 RunResult = Tuple[List[int], List[int], Dict[int, str]]  # done, failed, errors
@@ -46,6 +58,22 @@ def resolve_batch_size(config: Dict[str, Any]) -> int:
     if per_card is None:
         per_card = 8 if resolve_device(config).type == "cuda" else 1
     return max(int(per_card), 1) * max(device_count(config), 1)
+
+
+def stacked_dispatch(task, compute_fn, payload, blocking, config, all_ids: List[int],
+                     fused: bool):
+    """One compute call over a (possibly stacked) payload, inside the
+    device-buffer cache's guard, so that an eviction by another thread
+    never drops tensors the dispatch reads.  Counts ``device.dispatches``
+    and, for a stack of several batches, ``device.fused_blocks``."""
+    from . import hbm
+
+    with hbm.use_guard():
+        result = compute_fn(payload, blocking, config)
+    obs_metrics.inc("device.dispatches")
+    if fused:
+        obs_metrics.inc("device.fused_blocks", len(all_ids))
+    return result
 
 
 class BaseExecutor:
@@ -99,6 +127,8 @@ class CudaExecutor(BaseExecutor):
         if not all(hasattr(task, f) for f in ("read_batch", "compute_batch", "write_batch")):
             # host-only block tasks (faces, write) loop over process_block
             return LocalExecutor(self.config).run_blocks(task, blocking, block_ids, config)
+        from . import hbm
+
         size = resolve_batch_size(config)
         ids = list(block_ids)
         chunks = [ids[i: i + size] for i in range(0, len(ids), size)]
@@ -107,8 +137,12 @@ class CudaExecutor(BaseExecutor):
         done: List[int] = []
         failed: List[int] = []
         errors: Dict[int, str] = {}
-        stage_s = {"read": 0.0, "compute": 0.0, "write": 0.0}
+        stage_s = {"read": 0.0, "compute": 0.0, "write": 0.0, "upload": 0.0}
         read_fn, compute_fn, write_fn = task.read_batch, task.compute_batch, task.write_batch
+        stack_fn = getattr(task, "stack_payloads", None)
+        unstack_fn = getattr(task, "unstack_results", None)
+        stack_n = hbm.hbm_stack(config) if stack_fn and unstack_fn and not serial else 1
+        upload_fn = None if serial else getattr(task, "upload_batch", None)
 
         lock = threading.Lock()
 
@@ -128,8 +162,9 @@ class CudaExecutor(BaseExecutor):
                     failed.append(bid)
                     errors[bid] = traceback.format_exc()
 
-        reads: deque = deque()
-        writes: deque = deque()
+        reads: deque = deque()    # (chunk, Future[payload])
+        uploads: deque = deque()  # (group, counts, Future[payload])
+        writes: deque = deque()   # (chunk, Future[None])
 
         def _drain_write():
             chunk, fut = writes.popleft()
@@ -140,26 +175,70 @@ class CudaExecutor(BaseExecutor):
                 _fallback(chunk)
 
         with ThreadPoolExecutor(depth, thread_name_prefix="ctt-read") as read_pool, \
-                ThreadPoolExecutor(depth, thread_name_prefix="ctt-write") as write_pool:
+                ThreadPoolExecutor(depth, thread_name_prefix="ctt-write") as write_pool, \
+                ThreadPoolExecutor(1, thread_name_prefix="ctt-upload") as upload_pool:
 
-            def _consume():
-                chunk, fut = reads.popleft()
+            def _compute_group(group, counts, payload):
+                all_ids = [b for c in group for b in c]
                 try:
-                    payload = fut.result()
                     t0 = time.perf_counter()
-                    result = compute_fn(payload, blocking, config)
+                    result = stacked_dispatch(task, compute_fn, payload, blocking, config,
+                                              all_ids, fused=len(group) > 1)
                     dt = time.perf_counter() - t0
                     with lock:
                         stage_s["compute"] += dt
-                    task.record_timing(f"batch_{chunk[0]}_{chunk[-1]}", len(chunk), dt)
+                    task.record_timing(f"batch_{all_ids[0]}_{all_ids[-1]}", len(all_ids), dt)
+                    results = (unstack_fn(result, counts, blocking, config) if len(group) > 1
+                               else [result])
                 except Exception:
-                    _fallback(chunk)
+                    for chunk in group:
+                        _fallback(chunk)
                     return
-                writes.append((chunk, write_pool.submit(
-                    _timed, "write", write_fn, result, blocking, config
-                )))
+                for chunk, res in zip(group, results):
+                    writes.append((chunk, write_pool.submit(
+                        _timed, "write", write_fn, res, blocking, config)))
                 while len(writes) > depth:
                     _drain_write()
+
+            def _drain_upload():
+                group, counts, fut = uploads.popleft()
+                try:
+                    payload = fut.result()
+                except Exception:
+                    for chunk in group:
+                        _fallback(chunk)
+                    return
+                _compute_group(group, counts, payload)
+
+            def _consume():
+                """One dispatch group: up to ``stack_n`` read payloads,
+                stacked, through the transfer stage when the task has one.
+                The deques are FIFO, so the device sees the serial loop's
+                dispatch order."""
+                group, payloads = [], []
+                while reads and len(group) < stack_n:
+                    chunk, fut = reads.popleft()
+                    try:
+                        payloads.append(fut.result())
+                        group.append(chunk)
+                    except Exception:
+                        _fallback(chunk)
+                if not group:
+                    return
+                counts = [len(c) for c in group]
+                try:
+                    payload = stack_fn(payloads, blocking, config) if len(group) > 1 else payloads[0]
+                except Exception:
+                    for chunk in group:
+                        _fallback(chunk)
+                    return
+                if upload_fn is None:
+                    _compute_group(group, counts, payload)
+                    return
+                uploads.append((group, counts, upload_pool.submit(
+                    _timed, "upload", upload_fn, payload, blocking, config)))
+                while len(uploads) >= hbm.UPLOAD_SLOTS:
+                    _drain_upload()
 
             for chunk in chunks:
                 while serial and writes:
@@ -169,15 +248,19 @@ class CudaExecutor(BaseExecutor):
                 reads.append((chunk, read_pool.submit(
                     _timed, "read", read_fn, chunk, blocking, config
                 )))
-                while len(reads) >= depth:
+                while len(reads) >= max(depth, stack_n):
                     _consume()
             while reads:
                 _consume()
+            while uploads:
+                _drain_upload()
             while writes:
                 _drain_write()
         n_blocks = len(ids)
         for stage, seconds in stage_s.items():
             task.record_timing(f"stage_{stage}_total", n_blocks, seconds)
+            obs_metrics.inc(f"executor.stage_{stage}_s", seconds)
+        obs_metrics.inc("executor.stage_batches", len(chunks))
         return done, failed, errors
 
 

@@ -6,8 +6,10 @@ JSON status file per task (``done`` block list, per-attempt runtimes), a
 re-run skips the blocks already done, and failed blocks are retried up to
 ``max_num_retries`` times unless at least ``retry_failure_fraction`` (50% by
 default) of the blocks failed — then something fundamental broke and the
-task raises ``FailedBlocksError`` without retrying.  Multi-host topology and
-fused task chains are not ported yet.
+task raises ``FailedBlocksError`` without retrying.  Split-protocol block
+tasks may take part in a fused chain (``runtime/stream.py``) through the
+``fusable`` / ``fusion_*`` contract of ``BlockTask``.  Multi-host topology
+is not ported (ROADMAP Queue A 12(d)).
 """
 
 from __future__ import annotations
@@ -163,9 +165,70 @@ class BlockTask(Task):
     Subclasses implement ``get_shape()`` and ``process_block(block_id,
     blocking, config)``; optionally the split batch protocol ``read_batch``
     → ``compute_batch`` → ``write_batch`` that the ``cuda`` executor
-    pipelines, and ``prepare`` / ``finalize`` host hooks."""
+    pipelines, and ``prepare`` / ``finalize`` host hooks.
+
+    A split-protocol task may also run as a member of a fused chain
+    (``runtime/stream.py``): ``fusable = True`` and the ``fusion_*``
+    contract below, whose defaults read the task's inputs block-wise with
+    no halo and carry nothing."""
 
     allow_retry: bool = True
+
+    # -- stream fusion contract ------------------------------------------------
+
+    fusable: bool = False
+
+    def fusion_halo(self, config) -> Optional[Sequence[int]]:
+        """The halo of this task's per-block reads (None: none).  The chain
+        reads each block once at the largest halo of its members and serves
+        smaller reads as crops."""
+        return None
+
+    def fusion_inputs(self, config) -> List[tuple]:
+        """``(path, key)`` datasets read per block: the chain's shared-read
+        set, and how the planner finds producer → consumer edges."""
+        return []
+
+    def fused_read_batch(self, handoffs, block_ids, blocking, config):
+        """This member's compute payload from the upstream handoffs
+        (``handoffs[(path, key)]`` is the producer's).  A member that
+        consumes an in-chain product must override it: the product may be
+        elided and never exist in the store."""
+        raise NotImplementedError(
+            f"{self.identifier} consumes an in-chain product but does not "
+            "implement fused_read_batch"
+        )
+
+    def fused_compute_batch(self, payload, blocking, config, elided=False):
+        """``(result for write_batch, handoff)``; by default the task's own
+        ``compute_batch``, its result also the handoff.  An override may
+        keep the handoff on the device and skip the host copy when
+        ``elided``."""
+        result = self.compute_batch(payload, blocking, config)
+        return result, result
+
+    def fused_elided_nbytes(self, handoff, blocking, config) -> int:
+        """Store bytes an elided output would have written
+        (``stream.elided_bytes``)."""
+        return 0
+
+    # carried merge state: updated on the compute thread in batch order,
+    # after the whole batch computed (a retried batch never half-applies),
+    # finalized once after the pass
+
+    def fusion_carry_init(self, blocking, config):
+        return None
+
+    def fusion_carry_update(self, carry, result, block_ids, blocking, config):
+        return carry
+
+    def fusion_carry_nbytes(self, carry) -> int:
+        return 0
+
+    def fusion_finalize(self, carry, blocking, config) -> None:
+        """Write the deferred small state that makes the chain's
+        ``covers`` outputs."""
+        return None
 
     def get_shape(self) -> Sequence[int]:  # pragma: no cover - abstract
         raise NotImplementedError

@@ -4,7 +4,10 @@ Port of ``cluster_tools_tpu/runtime/workflow.py``: a workflow's
 ``requires()`` builds the dependency chain and ``build([task])`` runs the
 incomplete tasks in topological order, skipping those whose status file
 says complete — re-running a workflow resumes at the first incomplete task.
-Stream fusion of task chains is not ported yet.
+A workflow may declare fused chains over its tasks (``fused_chains``,
+``runtime/stream.py``): the build tries each chain once as one streaming
+pass when it reaches the chain's first incomplete task, and runs the tasks
+one at a time when the chain is declined or fails.
 """
 
 from __future__ import annotations
@@ -45,6 +48,12 @@ class WorkflowBase(Task):
     def get_config(cls) -> Dict[str, dict]:
         return {"global": dict(cfg.DEFAULT_GLOBAL_CONFIG)}
 
+    def fused_chains(self) -> List:
+        """``runtime.stream.FusedChain`` declarations over member tasks;
+        ``build()`` tries each as one streaming pass before running its
+        tasks one at a time."""
+        return []
+
 
 def _task_key(task: Task) -> str:
     return f"{type(task).__module__}.{type(task).__qualname__}:{task.output().path}"
@@ -73,11 +82,51 @@ def _toposort(roots: Sequence[Task]) -> List[Task]:
     return order
 
 
+def _collect_chains(order: Sequence[Task]) -> Dict[str, object]:
+    """The fused chains declared by the build's workflows, by the key of
+    each member and covered task.  A declaration that raises is dropped
+    with a message: a declaration never breaks a build."""
+    by_key: Dict[str, object] = {}
+    for task in order:
+        if not isinstance(task, WorkflowBase):
+            continue
+        try:
+            chains = list(task.fused_chains())
+        except Exception as e:
+            print(f"[ctt-stream] ignoring fused_chains() of {task!r}: {type(e).__name__}: {e}")
+            continue
+        for chain in chains:
+            for member in list(chain.members) + list(chain.covers):
+                by_key.setdefault(_task_key(member), chain)
+    return by_key
+
+
 def build(tasks: Sequence[Task], raise_on_failure: bool = True) -> bool:
-    """Run root tasks and their dependencies; returns success."""
-    for task in _toposort(tasks):
+    """Run root tasks and their dependencies; returns success.  The first
+    incomplete task that a declared chain would satisfy triggers one
+    attempt at the whole chain; after a chain that ran, its tasks are
+    complete and skipped."""
+    order = _toposort(tasks)
+    chains_by_key = _collect_chains(order)
+    attempted: set = set()
+    for task in order:
         if task.complete():
             continue
+        chain = chains_by_key.get(_task_key(task))
+        if chain is not None and id(chain) not in attempted:
+            attempted.add(id(chain))
+            from . import stream
+
+            try:
+                if stream.try_run_chain(chain) and task.complete():
+                    continue
+            except Exception:
+                if raise_on_failure:
+                    raise
+                import traceback
+
+                traceback.print_exc()
+                return False
         try:
             task.run()
         except Exception:

@@ -18,6 +18,14 @@ DEFAULT_THREADS_PER_JOB = 1
 DEFAULT_READ_THREADS = 4
 
 
+def fusion_wrap(ds, path: str, key: str):
+    """``ds`` behind the fused chain's per-batch read cache when one is
+    active on this thread (``parallel/dispatch.py``), else ``ds``."""
+    from ..parallel.dispatch import wrap_with_read_cache
+
+    return wrap_with_read_cache(ds, path, key)
+
+
 def scratch_store_path(tmp_folder: str) -> str:
     """The shared per-tmp-folder scratch store."""
     return os.path.join(tmp_folder, SCRATCH_STORE_NAME)
@@ -49,7 +57,10 @@ class VolumeTask(BlockTask):
         self.output_key = output_key
 
     def input_ds(self, mode: str = "r"):
-        return store.file_reader(self.input_path, mode)[self.input_key]
+        """The input dataset; inside a fused chain's read stage it reads
+        through the batch's shared read (``parallel/dispatch.py``)."""
+        return fusion_wrap(store.file_reader(self.input_path, mode)[self.input_key],
+                           self.input_path, self.input_key)
 
     def output_ds(self, mode: str = "a"):
         return store.file_reader(self.output_path, mode)[self.output_key]
@@ -70,6 +81,15 @@ class VolumeTask(BlockTask):
             chunks=tuple(blocking.block_shape),
             compression="gzip",
         )
+
+    def fusion_inputs(self, config):
+        """The datasets read per block, the fused chain's shared-read set:
+        the input and the optional mask."""
+        pairs = [(self.input_path, self.input_key)]
+        mask_path = getattr(self, "mask_path", None)
+        if mask_path:
+            pairs.append((mask_path, getattr(self, "mask_key", None)))
+        return pairs
 
     @property
     def tmp_store_path(self) -> str:
@@ -102,30 +122,6 @@ def _chunk_aligned(ds, bh) -> bool:
         if b % c or (e % c and e != s):
             return False
     return True
-
-
-def read_padded_blocks(ds, blocking: Blocking, block_ids, dtype, n_threads: int = 1):
-    """The halo-less blocks ``block_ids`` of ``ds`` as ``dtype``, each
-    zero-padded at its end to the block shape, stacked; returns ``(blocks,
-    data)`` with the ``BlockWithHalo`` geometry of each."""
-    import numpy as np
-    from concurrent.futures import ThreadPoolExecutor
-
-    full = tuple(blocking.block_shape)
-    blocks = [blocking.block_with_halo(bid, (0,) * blocking.ndim) for bid in block_ids]
-
-    def _read(bh):
-        arr = ds[bh.outer.slicing].astype(dtype, copy=False)
-        pad = [(0, f - s) for f, s in zip(full, arr.shape)]
-        return np.pad(arr, pad) if any(p for _, p in pad) else arr
-
-    n = min(n_threads, len(blocks))
-    if n > 1:
-        with ThreadPoolExecutor(n) as pool:
-            datas = list(pool.map(_read, blocks))
-    else:
-        datas = [_read(bh) for bh in blocks]
-    return blocks, np.stack(datas)
 
 
 def write_inner_blocks(ds, blocks, results, dtype, n_threads: int = 1) -> None:

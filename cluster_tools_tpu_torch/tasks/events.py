@@ -9,10 +9,11 @@ uint32 per-frame labels volume at ``output_key`` and, at ``<output_key>
 _events``, one ragged float64 table per block of ``(n_clusters, 1 +
 N_PROPS)`` rows: the global frame index, then ``PROP_FIELDS``.
 
-The blocks are read halo-less as float32, zero-padded to the block shape,
-as the JAX package's ``read_block_batch`` reads them; the port has no
-``parallel/dispatch.py`` and no device-buffer cache (ROADMAP Queue A 9),
-so the batch is read and written by the helpers of ``tasks/base.py``.
+The blocks are read halo-less as float32, zero-padded to the block shape
+(``parallel/dispatch.py::read_block_batch``, through the device-buffer
+cache when it is on).  Frames are independent, so the task is fusable as
+it is: the fusion contract's defaults (no carry, ``compute_batch`` as the
+fused compute) are exact.
 """
 
 from __future__ import annotations
@@ -20,13 +21,13 @@ from __future__ import annotations
 from typing import Any, Dict, List
 
 import numpy as np
-import torch
 
 from ..ops import events as events_ops
-from ..runtime.device import resolve_device
+from ..parallel.dispatch import read_block_batch
+from ..runtime import hbm
 from ..utils import store
 from ..utils.blocking import Blocking
-from .base import VolumeTask, read_padded_blocks, read_threads, write_inner_blocks
+from .base import VolumeTask, read_threads, write_inner_blocks
 
 EVENTS_SUFFIX = "_events"
 
@@ -34,6 +35,7 @@ EVENTS_SUFFIX = "_events"
 class EventBuildingTask(VolumeTask):
     task_name = "events"
     output_dtype = "uint32"
+    fusable = True
 
     @classmethod
     def default_task_config(cls) -> Dict[str, Any]:
@@ -70,21 +72,35 @@ class EventBuildingTask(VolumeTask):
     # -- split batch protocol ------------------------------------------------
 
     def read_batch(self, block_ids: List[int], blocking: Blocking, config):
-        """Stage 1 (host): the blocks' frames as float32."""
-        blocks, data = read_padded_blocks(
-            self.input_ds(), blocking, block_ids, np.float32, read_threads(config))
-        return list(block_ids), blocks, data
+        """Stage 1 (host): the blocks' frames as float32; the threshold and
+        connectivity apply on the device, so one cached upload serves every
+        configuration."""
+        return read_block_batch(
+            self.input_ds(), blocking, block_ids, np.float32, read_threads(config),
+            device_source=(self.input_path, self.input_key, ("events-read",), config))
+
+    def upload_batch(self, batch, blocking: Blocking, config):
+        hbm.batch_device(batch, config)
+        return batch
+
+    def stack_payloads(self, payloads, blocking: Blocking, config):
+        return hbm.stack_block_batches(payloads, config)
+
+    def unstack_results(self, result, counts, blocking: Blocking, config):
+        batch, labels, evc, evp = result
+        return list(zip(hbm.split_block_batch(batch, counts), hbm.split_stacked(labels, counts),
+                        hbm.split_stacked(evc, counts), hbm.split_stacked(evp, counts)))
 
     def compute_batch(self, batch, blocking: Blocking, config):
         """Stage 2 (device): the whole batch's frames as one stack."""
-        block_ids, blocks, frames = batch
+        frames = hbm.batch_device(batch, config).arrays[0]
         b, bf, h, w = frames.shape
-        x = torch.from_numpy(frames.reshape(b * bf, h, w)).to(resolve_device(config))
         labels, counts, props, _ = events_ops.build_events_device(
-            x, float(config.get("threshold", 0.0)), int(config.get("connectivity", 2)))
+            frames.reshape(b * bf, h, w), float(config.get("threshold", 0.0)),
+            int(config.get("connectivity", 2)))
         maxc = props.shape[1]
         return (
-            block_ids, blocks,
+            batch,
             labels.cpu().numpy().astype(np.uint32).reshape(b, bf, h, w),
             counts.cpu().numpy().reshape(b, bf),
             props.cpu().numpy().reshape(b, bf, maxc, events_ops.N_PROPS),
@@ -93,14 +109,15 @@ class EventBuildingTask(VolumeTask):
     def write_batch(self, result, blocking: Blocking, config):
         """Stage 3 (host): the labels' inner boxes and each block's table of
         its real frames, frame indices made global."""
-        block_ids, blocks, labels, counts, props = result
-        write_inner_blocks(self.output_ds(), blocks, labels, np.uint32, read_threads(config))
+        batch, labels, counts, props = result
+        write_inner_blocks(self.output_ds(), batch.blocks, labels, np.uint32,
+                           read_threads(config))
         ev_ds = store.file_reader(self.output_path, "a")[self.events_key]
-        for i, bh in enumerate(blocks):
+        for i, bh in enumerate(batch.blocks):
             nf = bh.inner.end[0] - bh.inner.begin[0]
             table = events_ops.event_table(counts[i][:nf], props[i][:nf])
             table[:, 0] += bh.inner.begin[0]
-            ev_ds.write_chunk((block_ids[i],), table)
+            ev_ds.write_chunk((batch.block_ids[i],), table)
 
     def process_block(self, block_id, blocking, config):
         self.write_batch(

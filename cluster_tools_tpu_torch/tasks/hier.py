@@ -15,11 +15,10 @@
      hierarchy artifact beside the labels, with the identity assignment.
   5. ``WriteTask`` — the labels volume in global ids.
 
-The JAX package's workflow runs 1–3 as one fused chain; its fusion-carry
-hooks wait for the port's stream fusion (ROADMAP Queue A 12(c)), and the
-port runs the unfused chain, which the JAX tests hold byte-identical to the
-fused one.  Device residency of the labels across re-cuts waits for the
-port's buffer cache (ROADMAP Queue A 9).
+``HierarchyWorkflow`` runs 1–3 as one fused chain (``runtime/stream.py``):
+step 1 carries the max ids and the boundary label and height planes batch
+by batch, and writes steps 2 and 3's outputs from them at the end, so no
+voxel of the labels volume is read back.
 
 ``ResegmentTask`` re-cuts a built hierarchy: one value-space union-find on
 the device (``ops.hier.cut_table``) in ``prepare``, then one gather per
@@ -40,6 +39,8 @@ import torch
 
 from ..ops import hier as hier_ops
 from ..ops.watershed import dt_watershed
+from ..parallel.dispatch import read_block_batch
+from ..runtime import hbm
 from ..runtime.device import resolve_device
 from ..utils import store
 from ..utils.blocking import Blocking
@@ -47,7 +48,6 @@ from .base import (
     VolumeSimpleTask,
     VolumeTask,
     merge_threads,
-    read_padded_blocks,
     read_ragged_chunks,
     read_threads,
     resolve_n_blocks,
@@ -72,6 +72,16 @@ def default_hierarchy_path(output_path: str, output_key: str) -> str:
 def load_hier_offsets(tmp_folder: str):
     with np.load(os.path.join(tmp_folder, HIER_OFFSETS_NAME)) as f:
         return f["offsets"], int(f["n_labels"])
+
+
+def save_hier_offsets(tmp_folder: str, max_ids: np.ndarray) -> np.ndarray:
+    """Write the hierarchy's offsets npz (the exclusive prefix sum of the
+    per-block max ids, the label count); returns the offsets."""
+    offsets = np.roll(np.cumsum(max_ids), 1)
+    offsets[0] = 0
+    np.savez(os.path.join(tmp_folder, HIER_OFFSETS_NAME),
+             offsets=offsets, n_labels=np.int64(max_ids.sum()))
+    return offsets
 
 
 def _working_heights(raw: np.ndarray, config) -> np.ndarray:
@@ -99,6 +109,8 @@ class HierarchyBlocksTask(VolumeTask):
 
     task_name = "hierarchy_blocks"
     output_dtype = "uint64"
+    # the single member of HierarchyWorkflow's fused chain
+    fusable = True
 
     @classmethod
     def default_task_config(cls) -> Dict[str, Any]:
@@ -134,37 +146,58 @@ class HierarchyBlocksTask(VolumeTask):
 
     def read_batch(self, block_ids: List[int], blocking: Blocking, config):
         """Stage 1 (host): the blocks as float32 (the stored values, as the
-        JAX package reads them), zero-padded to the block shape."""
-        blocks, data = read_padded_blocks(
-            self.input_ds(), blocking, block_ids, np.float32, read_threads(config))
-        return list(block_ids), blocks, data
+        JAX package reads them), zero-padded to the block shape, through the
+        device-buffer cache when it is on."""
+        return read_block_batch(
+            self.input_ds(), blocking, block_ids, np.float32, read_threads(config),
+            device_source=(self.input_path, self.input_key, ("hier-read",), config))
+
+    def upload_batch(self, batch, blocking: Blocking, config):
+        hbm.batch_device(batch, config)
+        return batch
+
+    def stack_payloads(self, payloads, blocking: Blocking, config):
+        return hbm.stack_block_batches(payloads, config)
+
+    def unstack_results(self, result, counts, blocking: Blocking, config):
+        batch, labels, tables, hplanes = result
+        hps, off = [], 0
+        for c in counts:
+            hps.append(tuple(arr[off: off + c] for arr in hplanes))
+            off += c
+        return list(zip(hbm.split_block_batch(batch, counts), hbm.split_stacked(labels, counts),
+                        hbm.split_stacked(tables, counts), hps))
 
     def compute_batch(self, batch, blocking: Blocking, config):
-        """Stage 2 (device): the watershed of the batch and each block's
-        merge table, its edge slots only."""
-        block_ids, blocks, data = batch
-        dev = resolve_device(config)
+        """Stage 2 (device): the watershed of the batch, each block's merge
+        table (its edge slots only) and, per axis, the first and last planes
+        of the flood's working heights — what the fused chain's carry joins
+        the block faces with."""
         params = self._kernel_params(config)
-        x = torch.from_numpy(data).to(dev)
-        v = torch.from_numpy(_valid_masks(blocks, blocking)).to(dev)
+        x = hbm.batch_device(batch, config).arrays[0]
+        v = torch.from_numpy(_valid_masks(batch.blocks, blocking)).to(x.device)
         labels, _ = dt_watershed(x, valid=v, **params)
         h = 1.0 - x if params["invert_input"] else x
         a, b, s = hier_ops.block_merge_table(labels, h)
         tables = []
-        for i in range(len(blocks)):
+        for i in range(len(batch.blocks)):
             keep = a[i] > 0
             tables.append(tuple(c[i][keep].cpu().numpy() for c in (a, b, s)))
-        return block_ids, blocks, labels.cpu().numpy().astype(np.int64), tables
+        hplanes = tuple(
+            torch.stack([h.select(d + 1, 0), h.select(d + 1, h.shape[d + 1] - 1)], dim=1)
+            .cpu().numpy() for d in range(h.dim() - 1))  # per axis: (B, 2, *plane)
+        return batch, labels.cpu().numpy().astype(np.int64), tables, hplanes
 
     def write_batch(self, result, blocking: Blocking, config):
         """Stage 3 (host): labels, max ids and reduced tables per block."""
-        block_ids, blocks, labels, tables = result
-        write_inner_blocks(self.output_ds(), blocks, labels, np.uint64, read_threads(config))
+        batch, labels, tables, _ = result
+        write_inner_blocks(self.output_ds(), batch.blocks, labels, np.uint64,
+                           read_threads(config))
         max_ids = self.tmp_ragged(HIER_MAX_IDS_KEY, blocking.n_blocks, np.int64)
         pairs_ds = self.tmp_ragged(HIER_PAIRS_KEY, blocking.n_blocks, np.int64)
         sad_ds = self.tmp_ragged(HIER_SADDLES_KEY, blocking.n_blocks, np.float32)
-        for i, bid in enumerate(block_ids):
-            inner = labels[i][blocks[i].inner_local.slicing]
+        for i, bid in enumerate(batch.block_ids):
+            inner = labels[i][batch.blocks[i].inner_local.slicing]
             max_ids.write_chunk((bid,), np.array([inner.max()], np.int64))
             pairs, saddles = hier_ops.reduce_merge_table(*tables[i])
             pairs_ds.write_chunk((bid,), pairs.reshape(-1))
@@ -175,6 +208,72 @@ class HierarchyBlocksTask(VolumeTask):
             self.compute_batch(self.read_batch([block_id], blocking, config), blocking, config),
             blocking, config,
         )
+
+    # -- stream fusion (the chain covers offsets and faces) --------------------
+    #
+    # The carry: per-block max ids and the blocks' boundary label and height
+    # planes, joined with the lower neighbour's carried planes as the blocks
+    # stream in ascending C order (one slab of planes in memory).  The
+    # heights are the flood's own working planes, so a batch whose read
+    # probe hit the device-buffer cache joins its faces without a host read.
+
+    def fusion_carry_init(self, blocking: Blocking, config):
+        return {
+            "max_ids": np.zeros(blocking.n_blocks, dtype=np.int64),
+            "planes": {},  # (block_id, axis) -> (label_plane, height_plane)
+            "faces": {},   # block_id -> axis -> (pairs, saddles), block-local ids
+        }
+
+    def fusion_carry_update(self, carry, result, block_ids, blocking: Blocking, config):
+        if result is None:
+            return carry
+        batch, labels, _, hplanes = result
+        for i, bid in enumerate(batch.block_ids):
+            bh = batch.blocks[i]
+            lab = labels[i][bh.inner_local.slicing]
+            carry["max_ids"][bid] = int(lab.max())
+            size = tuple(e - b for b, e in zip(bh.inner.begin, bh.inner.end))
+            for axis in range(blocking.ndim):
+                first, last = hplanes[axis][i]
+                crop = tuple(slice(0, n) for d, n in enumerate(size) if d != axis)
+                if blocking.neighbor_id(bid, axis, lower=False) is not None:
+                    carry["planes"][(bid, axis)] = (np.take(lab, lab.shape[axis] - 1, axis=axis),
+                                                    last[crop])
+                nb = blocking.neighbor_id(bid, axis, lower=True)
+                if nb is not None:
+                    lo_lab, lo_h = carry["planes"].pop((nb, axis))
+                    pairs, saddles = hier_ops.merge_face_pairs(
+                        lo_lab, np.take(lab, 0, axis=axis), lo_h, first[crop])
+                    if pairs.size:
+                        carry["faces"].setdefault(nb, {})[axis] = (pairs, saddles)
+        return carry
+
+    def fusion_carry_nbytes(self, carry) -> int:
+        n = carry["max_ids"].nbytes + sum(la.nbytes + h.nbytes for la, h in carry["planes"].values())
+        return n + sum(p.nbytes + s.nbytes for per_axis in carry["faces"].values()
+                       for p, s in per_axis.values())
+
+    def fusion_finalize(self, carry, blocking: Blocking, config) -> None:
+        """The offsets npz (``HierarchyOffsetsTask``'s output) and the
+        global-id face chunks (``HierarchyFacesTask``'s) from the carry."""
+        if carry is None:
+            return
+        offsets = save_hier_offsets(self.tmp_folder, carry["max_ids"])
+        fp = self.tmp_ragged(HIER_FACE_PAIRS_KEY, blocking.n_blocks, np.int64)
+        fs = self.tmp_ragged(HIER_FACE_SADDLES_KEY, blocking.n_blocks, np.float32)
+        for bid in range(blocking.n_blocks):
+            parts_p, parts_s = [], []
+            for axis, ngb_id, _ in blocking.iterate_faces(bid, halo=1):
+                got = carry["faces"].get(bid, {}).get(axis)
+                if got is not None:
+                    parts_p.append(got[0] + np.array([[offsets[bid], offsets[ngb_id]]], np.int64))
+                    parts_s.append(got[1])
+            if parts_p:
+                pairs, saddles = np.concatenate(parts_p, axis=0), np.concatenate(parts_s)
+            else:
+                pairs, saddles = np.zeros((0, 2), np.int64), np.zeros((0,), np.float32)
+            fp.write_chunk((bid,), pairs.reshape(-1))
+            fs.write_chunk((bid,), saddles)
 
 
 class HierarchyOffsetsTask(VolumeSimpleTask):
@@ -189,10 +288,7 @@ class HierarchyOffsetsTask(VolumeSimpleTask):
         for bid, chunk in enumerate(chunks):
             if chunk is not None:
                 max_ids[bid] = chunk[0]
-        offsets = np.roll(np.cumsum(max_ids), 1)
-        offsets[0] = 0
-        np.savez(os.path.join(self.tmp_folder, HIER_OFFSETS_NAME),
-                 offsets=offsets, n_labels=np.int64(max_ids.sum()))
+        save_hier_offsets(self.tmp_folder, max_ids)
 
 
 class HierarchyFacesTask(VolumeTask):
@@ -357,31 +453,45 @@ class ResegmentTask(VolumeTask):
     # -- split batch protocol ------------------------------------------------
 
     def read_batch(self, block_ids: List[int], blocking: Blocking, config):
-        """Stage 1 (host): the labels as int32 (int64 on the host path)."""
-        self._require_cut(config)
-        blocks, data = read_padded_blocks(
-            self.input_ds(), blocking, block_ids,
-            np.int64 if self._host_relabel else np.int32, read_threads(config))
-        return blocks, data
+        """Stage 1 (host): the labels as int32, through the device-buffer
+        cache when it is on, so a sweep of re-cuts keeps the labels volume
+        resident; int64 and uncached on the host path."""
+        self._require_cut(config)  # the path decides the read's dtype
+        if self._host_relabel:
+            return read_block_batch(self.input_ds(), blocking, block_ids, np.int64,
+                                    read_threads(config))
+        return read_block_batch(
+            self.input_ds(), blocking, block_ids, np.int32, read_threads(config),
+            device_source=(self.input_path, self.input_key, ("hier-labels",), config))
+
+    def upload_batch(self, batch, blocking: Blocking, config):
+        if not self._host_relabel:
+            hbm.batch_device(batch, config)
+        return batch
+
+    def stack_payloads(self, payloads, blocking: Blocking, config):
+        return hbm.stack_block_batches(payloads, config)
+
+    def unstack_results(self, result, counts, blocking: Blocking, config):
+        batch, labels = result
+        return list(zip(hbm.split_block_batch(batch, counts), hbm.split_stacked(labels, counts)))
 
     def compute_batch(self, batch, blocking: Blocking, config):
         """Stage 2: one gather of the batch through the cut's table."""
-        blocks, labels = batch
         cut = self._require_cut(config)
-        if cut is None:  # nothing below the threshold: the identity
-            return blocks, labels
-        vals, roots = cut
         if self._host_relabel:
-            return blocks, hier_ops.apply_cut_np(labels, vals, roots)
-        dev = resolve_device(config)
-        out = hier_ops.recut_labels(torch.from_numpy(labels).to(dev),
-                                    torch.from_numpy(vals).to(dev), torch.from_numpy(roots).to(dev))
-        return blocks, out.cpu().numpy()
+            return batch, batch.data if cut is None else hier_ops.apply_cut_np(batch.data, *cut)
+        x = hbm.batch_device(batch, config).arrays[0]
+        if cut is None:  # nothing below the threshold: the identity
+            return batch, x.cpu().numpy()
+        vals, roots = (torch.from_numpy(t).to(x.device) for t in cut)
+        return batch, hier_ops.recut_labels(x, vals, roots).cpu().numpy()
 
     def write_batch(self, result, blocking: Blocking, config):
         """Stage 3 (host): the inner boxes as uint64."""
-        blocks, labels = result
-        write_inner_blocks(self.output_ds(), blocks, labels, np.uint64, read_threads(config))
+        batch, labels = result
+        write_inner_blocks(self.output_ds(), batch.blocks, labels, np.uint64,
+                           read_threads(config))
 
     def process_block(self, block_id, blocking, config):
         self.write_batch(

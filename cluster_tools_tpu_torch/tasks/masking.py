@@ -13,22 +13,21 @@ Two tasks:
   minfilter.py:25).  The split batch protocol reads the halo'd blocks as
   float32, pads each at its far end by edge replication to the batch shape,
   filters the batch with ``ops/filters.py::minimum_filter`` on the task's
-  device and writes each block's inner box as uint8.  The JAX package's
-  device-buffer cache (``runtime.hbm``) waits for ROADMAP Queue A 9.
+  device and writes each block's inner box as uint8; the upload goes
+  through the device-buffer cache when it is on (``runtime/hbm.py``).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
-import torch
 
 from ..ops.filters import minimum_filter
-from ..runtime.device import resolve_device
+from ..parallel.dispatch import read_block_batch
+from ..runtime import hbm
 from ..utils import store
 from ..utils.blocking import Blocking
 from .base import VolumeSimpleTask, VolumeTask, read_threads, write_inner_blocks
@@ -100,36 +99,35 @@ class MinfilterTask(VolumeTask):
     def read_batch(self, block_ids: List[int], blocking: Blocking, config):
         """Stage 1 (host): the halo'd blocks as float32, each padded at its
         far end by repeating its edge voxels (a zero fill would leak "masked
-        out" into border blocks through the min window)."""
-        halo = self._halo(config)
-        full = tuple(bs + 2 * h for bs, h in zip(blocking.block_shape, halo))
-        in_ds = self.input_ds()
-        blocks = [blocking.block_with_halo(bid, halo) for bid in block_ids]
+        out" into border blocks through the min window).  The cache's tag
+        names the edge padding, so the entry never serves a zero-padded
+        read of the same region."""
+        return read_block_batch(
+            self.input_ds(), blocking, block_ids, np.float32, read_threads(config),
+            device_source=(self.input_path, self.input_key, ("minfilter-read",), config),
+            halo=self._halo(config), pad_mode="edge")
 
-        def _read(bh):
-            arr = in_ds[bh.outer.slicing].astype(np.float32, copy=False)
-            pad = [(0, f - s) for f, s in zip(full, arr.shape)]
-            return np.pad(arr, pad, mode="edge") if any(p for _, p in pad) else arr
+    def upload_batch(self, batch, blocking: Blocking, config):
+        hbm.batch_device(batch, config)
+        return batch
 
-        n_threads = min(read_threads(config), len(blocks))
-        if n_threads > 1:
-            with ThreadPoolExecutor(n_threads) as pool:
-                datas = list(pool.map(_read, blocks))
-        else:
-            datas = [_read(bh) for bh in blocks]
-        return blocks, np.stack(datas)
+    def stack_payloads(self, payloads, blocking: Blocking, config):
+        return hbm.stack_block_batches(payloads, config)
+
+    def unstack_results(self, result, counts, blocking: Blocking, config):
+        batch, out = result
+        return list(zip(hbm.split_block_batch(batch, counts), hbm.split_stacked(out, counts)))
 
     def compute_batch(self, batch, blocking: Blocking, config):
         """Stage 2 (device): the minimum filter over each block of the batch."""
-        blocks, data = batch
-        x = torch.from_numpy(data).to(resolve_device(config))
+        x = hbm.batch_device(batch, config).arrays[0]
         out = minimum_filter(x, tuple(int(f) for f in config["filter_shape"]))
-        return blocks, out.cpu().numpy()
+        return batch, out.cpu().numpy()
 
     def write_batch(self, result, blocking: Blocking, config):
         """Stage 3 (host): each block's inner box as uint8."""
-        blocks, out = result
-        write_inner_blocks(self.output_ds(), blocks, out, np.uint8, read_threads(config))
+        batch, out = result
+        write_inner_blocks(self.output_ds(), batch.blocks, out, np.uint8, read_threads(config))
 
     def process_block(self, block_id, blocking, config):
         self.write_batch(

@@ -9,7 +9,10 @@ the transform on the task's device and writes each block in the input's
 dtype.  The JAX package's XLA program contracts ``a*x + b`` into one fused
 multiply-add on the CPU; the port computes the correctly rounded fused
 result on every device (``ops/filters.py::fma32``), so outputs are equal
-bit for bit.  The JAX package's ``put_sharded`` waits for ROADMAP Queue A 11.
+bit for bit.  The input's upload goes through the device-buffer cache when
+it is on (``runtime/hbm.py``); the coefficients and the mask, which its
+store signature does not cover, are copied at each compute.  The JAX
+package's ``put_sharded`` waits for ROADMAP Queue A 11.
 (The reference's affine task is an empty stub, transformations/affine.py,
 and is not built.)
 """
@@ -24,10 +27,11 @@ import torch
 
 from ..ops._build import count_on_card
 from ..ops.filters import fma32
-from ..runtime.device import resolve_device
+from ..parallel.dispatch import read_block_batch
+from ..runtime import hbm
 from ..utils import store
 from ..utils.blocking import Blocking
-from .base import VolumeTask, read_padded_blocks, read_threads, write_inner_blocks
+from .base import VolumeTask, read_threads, write_inner_blocks
 
 
 def load_transformation(trafo_file: str, n_slices: int) -> Dict[Any, Any]:
@@ -101,31 +105,45 @@ class LinearTransformationTask(VolumeTask):
     def read_batch(self, block_ids: List[int], blocking: Blocking, config):
         """Stage 1 (host): the blocks as float32 zero-padded to the block
         shape, their coefficients and their mask (all set without one)."""
-        blocks, data = read_padded_blocks(self.input_ds(), blocking, block_ids, np.float32,
-                                          read_threads(config))
+        batch = read_block_batch(
+            self.input_ds(), blocking, block_ids, np.float32, read_threads(config),
+            device_source=(self.input_path, self.input_key, ("linear-read",), config))
         a, b = self._coefficients(blocking, block_ids)
+        full_shape = (len(block_ids),) + tuple(blocking.block_shape)
         if self.mask_path:
             mask_ds = store.file_reader(self.mask_path, "r")[self.mask_key]
-            mask = np.zeros(data.shape, dtype=bool)
-            for i, bh in enumerate(blocks):
+            mask = np.zeros(full_shape, dtype=bool)
+            for i, bh in enumerate(batch.blocks):
                 m = mask_ds[bh.outer.slicing].astype(bool)
                 mask[i][tuple(slice(0, s) for s in m.shape)] = m
         else:
-            mask = np.ones(data.shape, dtype=bool)
-        return blocks, data, a, b, mask
+            mask = np.ones(full_shape, dtype=bool)
+        return batch, a, b, mask
+
+    def upload_batch(self, payload, blocking: Blocking, config):
+        hbm.batch_device(payload[0], config)
+        return payload
+
+    def stack_payloads(self, payloads, blocking: Blocking, config):
+        return (hbm.stack_block_batches([p[0] for p in payloads], config),
+                *(np.concatenate([p[i] for p in payloads], axis=0) for i in (1, 2, 3)))
+
+    def unstack_results(self, result, counts, blocking: Blocking, config):
+        batch, out = result
+        return list(zip(hbm.split_block_batch(batch, counts), hbm.split_stacked(out, counts)))
 
     def compute_batch(self, payload, blocking: Blocking, config):
         """Stage 2 (device): the transform of the whole batch."""
-        blocks, data, a, b, mask = payload
-        dev = resolve_device(config)
-        out = linear_batch(*(torch.from_numpy(t).to(dev) for t in (data, a, b, mask)))
-        return blocks, out.cpu().numpy()
+        batch, a, b, mask = payload
+        x = hbm.batch_device(batch, config).arrays[0]
+        out = linear_batch(x, *(torch.from_numpy(t).to(x.device) for t in (a, b, mask)))
+        return batch, out.cpu().numpy()
 
     def write_batch(self, result, blocking: Blocking, config):
         """Stage 3 (host): each block's inner box in the output's dtype."""
-        blocks, out = result
+        batch, out = result
         out_ds = self.output_ds()
-        write_inner_blocks(out_ds, blocks, out, out_ds.dtype, read_threads(config))
+        write_inner_blocks(out_ds, batch.blocks, out, out_ds.dtype, read_threads(config))
 
     def process_block(self, block_id, blocking, config):
         self.write_batch(

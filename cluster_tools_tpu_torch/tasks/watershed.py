@@ -11,7 +11,9 @@ voxels), computes a whole batch as one (B, Z, H, W) tensor on the
 configured device — in the 2d mode kernel 2 plus the size filter's kernel-1
 re-flood on the card, in the other modes the plain steps and the 3d flood —
 and writes on a host thread.  ``MAX_IDS_KEY`` holds each block's largest
-written id.
+written id.  The upload goes through the device-buffer cache when it is on
+(``runtime/hbm.py``), and the task is a member of fused chains
+(``runtime/stream.py``), its halo the chain's shared read.
 
 ``WatershedFromSeedsTask``, per halo'd block: smooth the boundary map,
 flood it from the block's global seed ids (compacted to int32 for the
@@ -44,11 +46,14 @@ from ..ops.cc import connected_components_labels
 from ..ops.filters import gaussian
 from ..ops.multicut import agglomerative_clustering
 from ..ops.rag import boundary_edge_features
+from ..obs import metrics as obs_metrics
 from ..ops.watershed import apply_size_filter, dt_watershed, seeded_watershed, two_pass_flood
+from ..parallel.dispatch import BlockBatch
+from ..runtime import hbm
 from ..runtime.device import resolve_device
 from ..utils import store
 from ..utils.blocking import Blocking, make_checkerboard_block_lists
-from .base import VolumeTask, read_threads
+from .base import VolumeTask, fusion_wrap, read_threads
 
 MAX_IDS_KEY = "watershed/max_ids"
 
@@ -108,11 +113,17 @@ def _pad_block(arr: np.ndarray, full_shape, mode: str = "edge") -> np.ndarray:
 class WatershedTask(VolumeTask):
     task_name = "watershed"
     output_dtype = "uint64"
+    # a fused chain member: its halo'd reads are the chain's shared read, and
+    # members with smaller halos take crops of them
+    fusable = True
 
     def __init__(self, *args, mask_path: str = None, mask_key: str = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.mask_path = mask_path
         self.mask_key = mask_key
+
+    def fusion_halo(self, config):
+        return tuple(config.get("halo") or [0, 0, 0])
 
     @classmethod
     def default_task_config(cls) -> Dict[str, Any]:
@@ -138,7 +149,8 @@ class WatershedTask(VolumeTask):
     def _load_mask_batch(self, blocks, full_shape) -> Optional[np.ndarray]:
         if not self.mask_path:
             return None
-        mask_ds = store.file_reader(self.mask_path, "r")[self.mask_key]
+        mask_ds = fusion_wrap(store.file_reader(self.mask_path, "r")[self.mask_key],
+                              self.mask_path, self.mask_key)
         return np.stack([
             _pad_block(mask_ds[bh.outer.slicing].astype(bool), full_shape)
             for bh in blocks
@@ -146,50 +158,97 @@ class WatershedTask(VolumeTask):
 
     # -- split batch protocol ---------------------------------------------------
 
+    def _read_tag(self, config):
+        """What changes the uploaded bytes beyond the store region: the
+        channel window and its agglomeration (the normalisation follows the
+        dtype)."""
+        return ("ws-read", str(config.get("channel_begin", 0)), str(config.get("channel_end")),
+                str(config.get("agglomerate_channels", "mean")))
+
     def read_batch(self, block_ids: List[int], blocking: Blocking, config):
         """Stage 1 (host): the halo'd blocks padded to one static shape, their
-        ``valid`` masks, and the optional mask batch."""
+        ``valid`` masks, and the optional mask batch.  When the batch's upload
+        is resident in the device-buffer cache, the host read is skipped and
+        the batch carries the geometry only."""
         in_ds = self.input_ds()
         halo = config.get("halo") or [0, 0, 0]
         full_shape = tuple(bs + 2 * h for bs, h in zip(blocking.block_shape, halo))
         blocks = [blocking.block_with_halo(bid, halo) for bid in block_ids]
+        source = hbm.dataset_source(in_ds, self.input_path, self.input_key, blocking,
+                                    list(block_ids), halo, self._read_tag(config), config)
+        dc = hbm.cache() if source is not None else None
+        hit = dc.get(source) if dc is not None else None
+        if hit is not None:
+            obs_metrics.inc("device.uploads_skipped")
+            batch = BlockBatch(data=None, valid=None, blocks=blocks, block_ids=list(block_ids),
+                               source=source, device=hit)
+            return batch, None, self._load_mask_batch(blocks, full_shape)
         datas, valids = [], []
         for bh in blocks:
             arr = _read_input_block(in_ds, bh.outer.slicing, config)
             datas.append(_pad_block(arr, full_shape))
             valids.append(_pad_block(np.ones(arr.shape, dtype=bool), full_shape, "zero"))
-        return (
-            list(block_ids), blocks, np.stack(datas), np.stack(valids),
-            self._load_mask_batch(blocks, full_shape),
-        )
+        batch = BlockBatch(data=np.stack(datas), valid=None, blocks=blocks,
+                           block_ids=list(block_ids), source=source)
+        return batch, np.stack(valids), self._load_mask_batch(blocks, full_shape)
+
+    def _device_payload(self, batch, valid, config) -> hbm.DeviceBatch:
+        """``(data, valid)`` on the device, one entry of the buffer cache:
+        both follow from the signed store region and the geometry.  The
+        mask (its own dataset) is copied uncached at each compute."""
+        def build():
+            data = hbm.require_data(batch)
+            dev = resolve_device(config)
+            return hbm.DeviceBatch(
+                arrays=(torch.from_numpy(data).to(dev), torch.from_numpy(valid).to(dev)),
+                n=len(batch.block_ids), nbytes=int(data.nbytes + valid.nbytes))
+
+        return hbm.batch_device(batch, config, build=build)
+
+    def upload_batch(self, payload, blocking: Blocking, config):
+        """The transfer stage: batch k+1 crosses to the device while batch
+        k floods."""
+        batch, valid, _ = payload
+        self._device_payload(batch, valid, config)
+        return payload
+
+    def stack_payloads(self, payloads, blocking: Blocking, config):
+        batch = hbm.stack_block_batches([p[0] for p in payloads], config)
+        valids = [p[1] for p in payloads]
+        masks = [p[2] for p in payloads]
+        return (batch,
+                np.concatenate(valids, axis=0) if all(v is not None for v in valids) else None,
+                np.concatenate(masks, axis=0) if all(m is not None for m in masks) else None)
+
+    def unstack_results(self, result, counts, blocking: Blocking, config):
+        batch, labels = result
+        return list(zip(hbm.split_block_batch(batch, counts), hbm.split_stacked(labels, counts)))
 
     def compute_batch(self, payload, blocking: Blocking, config):
         """Stage 2 (device): the DT-watershed of the whole batch, then, with a
         halo, the crop to the inner box and the CC re-close."""
-        block_ids, blocks, data, valid, mask = payload
-        dev = resolve_device(config)
+        batch, valid, mask = payload
         halo = config.get("halo") or [0, 0, 0]
-        x = torch.from_numpy(data).to(dev)
-        v = torch.from_numpy(valid).to(dev)
-        m = None if mask is None else torch.from_numpy(mask).to(dev)
+        x, v = self._device_payload(batch, valid, config).arrays
+        m = None if mask is None else torch.from_numpy(mask).to(x.device)
         labels, _ = dt_watershed(x, mask=m, valid=v, **kernel_params(config))
         if any(h > 0 for h in halo):
             bs = tuple(blocking.block_shape)
             labels = torch.stack([
                 lab[tuple(slice(s, s + n) for s, n in zip(bh.inner_local.begin, bs))]
-                for lab, bh in zip(labels, blocks)
+                for lab, bh in zip(labels, batch.blocks)
             ])
             labels, _ = connected_components_labels(labels)
-        return block_ids, blocks, labels.cpu().numpy().astype(np.uint64)
+        return batch, labels.cpu().numpy().astype(np.uint64)
 
     def write_batch(self, result, blocking: Blocking, config):
         """Stage 3 (host): block-id offsets, per-block max ids, inner boxes."""
-        block_ids, blocks, labels = result
+        batch, labels = result
         out_ds = self.output_ds()
         has_halo = any(h > 0 for h in (config.get("halo") or [0, 0, 0]))
         offset_unit = int(np.prod(blocking.block_shape))
         max_ids = self.tmp_ragged(MAX_IDS_KEY, blocking.n_blocks, np.int64)
-        for bid, bh, lab in zip(block_ids, blocks, labels):
+        for bid, bh, lab in zip(batch.block_ids, batch.blocks, labels):
             if has_halo:
                 # cropped output is inner-origin at the static block shape
                 lab = lab[tuple(slice(0, e - b) for b, e in zip(bh.inner.begin, bh.inner.end))]

@@ -24,7 +24,12 @@ by the other:
   * JSON attributes (``.zattrs`` / n5 ``attributes.json``) as ``ds.attrs``;
   * a process-global LRU of decoded chunks (``CTT_CHUNK_CACHE_MB``, default
     64, 0 disables; ``set_chunk_cache_budget``), so the chunks that halo'd
-    block reads share are decoded once.
+    block reads share are decoded once;
+  * the ``store.bytes_read`` / ``store.bytes_written`` counters
+    (``obs/metrics.py``) of chunk payloads, where the JAX package counts
+    them; an LRU hit counts nothing, so traffic is measured at budget 0;
+  * ``Dataset.region_signature``: the per-chunk file signatures of a
+    region, the device-buffer cache's freshness key.
 
 Gzip is deterministic (level 1, mtime 0), so equal arrays give equal chunk
 bytes.  The object-store backend is not ported (ROADMAP Queue A 13).
@@ -47,6 +52,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs import metrics as obs_metrics
 from .blocking import _ceil_div
 
 try:  # optional: without h5py an .h5 path raises as in the JAX package
@@ -566,6 +572,10 @@ class Dataset:
                 payload = f.read()
         except FileNotFoundError:
             return None
+        # counted at the codec boundary: the compressed bytes that crossed
+        # the filesystem (an LRU hit above crossed nothing)
+        obs_metrics.inc("store.chunks_read")
+        obs_metrics.inc("store.bytes_read", len(payload))
         full = self._fmt.decode_chunk(payload, self.chunks, self.dtype, self.compression)
         full.setflags(write=False)  # shared across cache readers
         if sig is not None:
@@ -592,11 +602,17 @@ class Dataset:
         p = self._chunk_path(grid_pos)
         os.makedirs(os.path.dirname(p), exist_ok=True)
         try:
-            atomic_write_bytes(p, self._fmt.encode_chunk(
+            self._commit(p, self._fmt.encode_chunk(
                 np.asarray(data, dtype=self.dtype), self.chunks, self.compression
             ))
         finally:
             _CHUNK_CACHE.invalidate(p)
+
+    @staticmethod
+    def _commit(p: str, payload: bytes) -> None:
+        obs_metrics.inc("store.chunks_written")
+        obs_metrics.inc("store.bytes_written", len(payload))
+        atomic_write_bytes(p, payload)
 
     def write_chunk_varlen(self, grid_pos, data: np.ndarray) -> None:
         """Write a 1d payload of any length as an n5 mode-1 (varlength)
@@ -609,7 +625,7 @@ class Dataset:
         p = self._chunk_path(grid_pos)
         os.makedirs(os.path.dirname(p), exist_ok=True)
         try:
-            atomic_write_bytes(p, _N5Format.pack_chunk(
+            self._commit(p, _N5Format.pack_chunk(
                 data, self.chunks, self.compression, n_varlen=data.size))
         finally:
             _CHUNK_CACHE.invalidate(p)
@@ -623,6 +639,8 @@ class Dataset:
                 payload = f.read()
         except FileNotFoundError:
             return None
+        obs_metrics.inc("store.chunks_read")
+        obs_metrics.inc("store.bytes_read", len(payload))
         mode, ndim = struct.unpack(">HH", payload[:4])
         if mode != 1:
             raise ValueError(f"chunk {tuple(grid_pos)} is not varlength")
@@ -662,6 +680,23 @@ class Dataset:
             stop = s if sl.stop is None else (sl.stop if sl.stop >= 0 else s + sl.stop)
             out.append((max(0, start), min(s, stop)))
         return tuple(out), tuple(int_axes)
+
+    def region_signature(self, bb) -> Optional[tuple]:
+        """``(st_ino, st_mtime_ns, st_size)`` of every chunk file
+        overlapping ``bb`` (None for an unwritten chunk: it reads as the
+        fill value) — the freshness key of the device-buffer cache
+        (``runtime/hbm.py``), the decoded-chunk LRU's own signatures.  A
+        rewrite replaces the file, so its signature changes."""
+        bb, _ = self._normalize_bb(bb)
+        sigs = []
+        for grid_pos in self._chunks_overlapping(bb):
+            try:
+                st = os.stat(self._chunk_path(grid_pos))
+            except FileNotFoundError:
+                sigs.append(None)
+                continue
+            sigs.append((st.st_ino, st.st_mtime_ns, st.st_size))
+        return tuple(sigs)
 
     def _chunks_overlapping(self, bb):
         return product(*[

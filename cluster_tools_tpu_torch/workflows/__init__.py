@@ -40,6 +40,7 @@ from .skeletons import (
     SkeletonWorkflow,
 )
 from .stitching import MulticutStitchingWorkflow, SimpleStitchingWorkflow
+from .streaming import StreamingSegmentationWorkflow
 from .thresholded_components import ThresholdAndWatershedWorkflow, ThresholdedComponentsWorkflow
 from .transformations import LinearTransformationWorkflow
 from .watershed import WatershedWorkflow
@@ -58,6 +59,7 @@ __all__ = [
     "MwsWorkflow", "PainteraConversionWorkflow", "PainteraToBdvWorkflow", "ProblemWorkflow",
     "ReducedSolutionWorkflow", "RegionCentersWorkflow", "RelabelWorkflow",
     "SimpleStitchingWorkflow", "SizeFilterAndGraphWatershedWorkflow", "SizeFilterWorkflow",
+    "StreamingSegmentationWorkflow",
     "SkeletonEvaluationWorkflow", "SkeletonWorkflow", "SubSolutionsWorkflow",
     "ThresholdAndWatershedWorkflow", "ThresholdedComponentsWorkflow", "TwoPassMwsWorkflow",
     "UniqueWorkflow", "WatershedWorkflow",

@@ -4,9 +4,11 @@
 ``HierarchyWorkflow``: a boundary map in, watershed labels in global ids at
 ``output_key`` and the hierarchy artifact (``hierarchy_path``, by default
 ``<output_key>_hierarchy.npz`` beside the labels) out, through blocks →
-offsets → faces → build → write.  The JAX package runs its first three
-tasks as one fused chain; the port runs them one after another (ROADMAP
-Queue A 12(c)), with the same outputs.  ``ResegmentWorkflow``: one re-cut
+offsets → faces → build → write.  The blocks task runs as a one-member
+fused chain (``hier_blocks``, ``runtime/stream.py``) that covers offsets
+and faces: its carry stitches the block faces, and the labels volume is
+never read back.  With ``stream_fusion: false`` the five tasks run one
+after another, with the same outputs.  ``ResegmentWorkflow``: one re-cut
 of a built hierarchy at the ``resegment`` config's threshold.
 """
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+from ..runtime.stream import FusedChain
 from ..runtime.workflow import WorkflowBase
 from ..tasks.hier import (
     HIER_ASSIGNMENTS_NAME,
@@ -54,7 +57,10 @@ class HierarchyWorkflow(WorkflowBase):
             if output_path and output_key else None
         )
 
-    def requires(self):
+    def _tasks(self):
+        """The member tasks, one definition for ``requires()`` and
+        ``fused_chains()``: the chain must satisfy the status files the
+        build runs."""
         blocks_key = self.output_key + "_blocks"
         blocks = HierarchyBlocksTask(
             self.tmp_folder, self.config_dir, self.max_jobs,
@@ -83,7 +89,14 @@ class HierarchyWorkflow(WorkflowBase):
             offsets_path=os.path.join(self.tmp_folder, HIER_OFFSETS_NAME),
             identifier="hierarchy",
         )
-        return [write]
+        return blocks, offsets, faces, build, write
+
+    def requires(self):
+        return [self._tasks()[-1]]
+
+    def fused_chains(self):
+        blocks, offsets, faces, _, _ = self._tasks()
+        return [FusedChain(name="hier_blocks", members=[blocks], covers=[offsets, faces])]
 
     @classmethod
     def get_config(cls):

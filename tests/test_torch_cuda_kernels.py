@@ -799,3 +799,34 @@ def test_mws_workflow_device_mode_on_card_equals_cpu(tmp_path, cuda_device):
     out = file_reader(path, "r")
     np.testing.assert_array_equal(out["seg_cuda"][:], out["seg_cpu"][:])
     np.testing.assert_array_equal(out["seg_cuda_blocks"][:], out["seg_cpu_blocks"][:])
+
+
+@pytest.mark.cuda
+def test_first_linalg_calls_from_eight_threads(cuda_device):
+    """The filter bank's eigenvalues from 8 threads at once as the first
+    linear algebra of a fresh process (the threaded block tasks do this):
+    PyTorch loads its CUDA linalg library lazily and refuses two concurrent
+    first calls, so ``eigenvalues_descending`` makes its first call under a
+    lock.  Every thread's eigenvalues equal the CPU's within 1e-5."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from concurrent.futures import ThreadPoolExecutor\n"
+        "from cluster_tools_tpu_torch.ops.filters import eigenvalues_descending\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "hs = [torch.rand(4096, 3, 3, generator=g) for _ in range(8)]\n"
+        "hs = [h + h.transpose(1, 2) for h in hs]\n"
+        "with ThreadPoolExecutor(8) as pool:\n"
+        "    got = list(pool.map(lambda h: eigenvalues_descending(h.cuda()).cpu(), hs))\n"
+        "for h, e in zip(hs, got):\n"
+        "    torch.testing.assert_close(e, eigenvalues_descending(h), rtol=0, atol=1e-5)\n"
+        "print('ok')\n"
+    )
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=root, env={**os.environ, "PYTHONPATH": root})
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr

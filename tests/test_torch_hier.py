@@ -5,8 +5,7 @@ Every function of the port's ``ops/hier.py`` is held against the JAX
 package's on the same seeded inputs, exactly (the device table slot for
 slot, the relabel tables array for array, the artifacts key for key, each
 package reading the other's).  ``HierarchyWorkflow`` runs on one config
-directory through both packages — JAX's in its default fused chain, the
-port's unfused — on ``tests/test_hier.py``'s fixture: the labels volume and
+directory through both packages, each in its default fused chain, on ``tests/test_hier.py``'s fixture: the labels volume and
 the artifact's ``a``, ``b``, ``saddle`` and ``n_labels`` are
 byte-identical, and so are ``ResegmentWorkflow`` at three thresholds and
 the table mode's cut npz.  Then the serpentine face fixture, and the

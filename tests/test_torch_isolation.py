@@ -17,6 +17,7 @@ from cluster_tools_tpu_torch import ThresholdAndWatershedWorkflow, WatershedWork
 from cluster_tools_tpu_torch.runtime import config as cfg
 from cluster_tools_tpu_torch.runtime.device import resolve_device
 from cluster_tools_tpu_torch.utils import file_reader
+from cluster_tools_tpu_torch.workflows import StreamingSegmentationWorkflow
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -147,6 +148,15 @@ def test_port_imports_no_jax(entry):
             )
             from cluster_tools_tpu_torch.workflows import events as event_workflows
             from cluster_tools_tpu_torch.workflows import hier as hier_workflows
+            from cluster_tools_tpu_torch.obs import metrics
+            from cluster_tools_tpu_torch.parallel.dispatch import (
+                BlockBatch, BlockReadCache, CachedDataset, read_block_batch,
+            )
+            from cluster_tools_tpu_torch.runtime import hbm, stream
+            from cluster_tools_tpu_torch.runtime.executor import stacked_dispatch
+            from cluster_tools_tpu_torch.runtime.stream import FusedChain, try_run_chain
+            from cluster_tools_tpu_torch.workflows import StreamingSegmentationWorkflow
+            from cluster_tools_tpu_torch.workflows import streaming
             assert native.available(), native.load_error
             assert hasattr(native, "lifted_gaec")
             for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -197,6 +207,8 @@ def test_cuda_device_without_card_raises(monkeypatch):
     pytest.param("cuda", WatershedWorkflow, id="cuda"),
     pytest.param("local", ThresholdAndWatershedWorkflow, id="local-seeds"),
     pytest.param("cuda", ThresholdAndWatershedWorkflow, id="cuda-seeds"),
+    pytest.param("local", StreamingSegmentationWorkflow, id="local-streaming"),
+    pytest.param("cuda", StreamingSegmentationWorkflow, id="cuda-streaming"),
 ])
 def test_workflow_defaults_to_card_and_raises_without_one(tmp_path, monkeypatch, target, workflow):
     """No ``device`` key: the workflow asks for the card; without one the
